@@ -1,0 +1,32 @@
+"""graphvite_tpu_torch: the PyTorch/CUDA port of graphvite_tpu.
+
+A second package beside the JAX one, which stays the reference. It imports
+torch and numpy, never jax or graphvite_tpu. So far it trains DeepWalk and
+LINE node embeddings through the banded walk route, with every table update
+on a hand-written CUDA scatter-add kernel (graphvite_tpu_torch/csrc/). Its
+solvers and applications run on CUDA unless the caller asks for the CPU
+(`device="cpu"`).
+"""
+
+__version__ = "0.1.0"
+
+import numpy as _np
+
+from graphvite_tpu_torch.utils.common import auto
+from graphvite_tpu_torch.graph import Graph
+from graphvite_tpu_torch.optim import Optimizer, make_optimizer
+from graphvite_tpu_torch.solver import (GraphSolver, state_from_numpy,
+                                        state_to_numpy)
+from graphvite_tpu_torch.application import GraphApplication
+
+# dtype shorthands, mirroring the reference's graphvite.float32 / .uint32
+float32 = _np.float32
+float64 = _np.float64
+uint32 = _np.uint32
+uint64 = _np.uint64
+
+__all__ = [
+    "auto", "Graph", "Optimizer", "make_optimizer", "GraphSolver",
+    "GraphApplication", "state_from_numpy", "state_to_numpy",
+    "float32", "float64", "uint32", "uint64",
+]

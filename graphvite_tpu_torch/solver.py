@@ -1,0 +1,502 @@
+"""Training solver, walk route (the port of graphvite_tpu/solver.py's
+SolverBase and GraphSolver for augmentation_step >= 2).
+
+Embedding tables live on the device for the whole run; an "episode" is one
+runner call that generates walks and trains a run of batches on the device,
+with losses kept there until log time. The solver runs on CUDA unless the
+caller passes `device="cpu"`.
+
+Ported here: the banded walk route with a shared negative pool, in its
+fused (vertex|context) SGD form and its unfused form (moment optimizers,
+or SGD with the trust clip on small tables). What later slices port raises
+NotImplementedError naming its ROADMAP item: the edge route
+(augmentation_step == 1) with its blocked/overflow episodes, node2vec, the
+host sampler backend and the multi-device engines (num_worker > 1).
+"""
+from __future__ import annotations
+
+import math
+import os
+import pickle
+
+import numpy as np
+import torch
+
+from graphvite_tpu_torch import base
+from graphvite_tpu_torch.models import GRAPH_MODELS
+from graphvite_tpu_torch.ops import steps as _steps
+from graphvite_tpu_torch.ops.alias import AliasTable, device_alias_arrays
+from graphvite_tpu_torch.ops.device_sampler import DeviceWalkSampler
+from graphvite_tpu_torch.optim import (DENSE_UPDATE_ELEMS, Optimizer,
+                                       make_optimizer)
+from graphvite_tpu_torch.utils.common import auto, hbm_budget_bytes, logger
+
+EXPECTED_DEGREE = 1600  # graph.cuh:55, used by the augmentation auto-rule
+
+
+def resolve_device(device=None):
+    """The device a solver runs on: CUDA unless the caller asks otherwise;
+    asking for CUDA where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run on the CPU")
+    return dev
+
+
+def _bf16_from_numpy(arr):
+    """bf16 numpy array (ml_dtypes' bfloat16, or its raw uint16 bits) ->
+    torch.bfloat16, through a uint16 view: the port needs no ml_dtypes."""
+    bits = np.array(arr).view(np.uint16).view(np.int16)
+    return torch.from_numpy(bits).view(torch.bfloat16)
+
+
+def _tensor_from_numpy(arr, device, dtype):
+    arr = np.asarray(arr)
+    if arr.dtype.name in ("bfloat16", "uint16"):
+        t = _bf16_from_numpy(arr)
+    else:
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device=device, dtype=dtype)
+
+
+def state_from_numpy(state_np, device, float_type=torch.float32):
+    """The reference's numpy state {"tables": (vertex, context), "moments":
+    ((v_moms...), (c_moms...))} -> the port's state on `device`. Tables
+    take `float_type`; bf16 arrays (dtype name "bfloat16", or uint16 bits
+    as state_to_numpy writes them) go through a uint16 view; moments are
+    float32."""
+    float_type = base.torch_float_type(float_type)
+    tables = tuple(_tensor_from_numpy(t, device, float_type)
+                   for t in state_np["tables"])
+    moments = tuple(tuple(_tensor_from_numpy(m, device, torch.float32)
+                          for m in group)
+                    for group in state_np["moments"])
+    return {"tables": tables, "moments": moments}
+
+
+def _numpy_from_tensor(t):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def state_to_numpy(state):
+    """The inverse of state_from_numpy: float32 tables as float32 arrays,
+    bf16 tables as their uint16 bits."""
+    return {"tables": tuple(_numpy_from_tensor(t) for t in state["tables"]),
+            "moments": tuple(tuple(_numpy_from_tensor(m) for m in group)
+                             for group in state["moments"])}
+
+
+class SolverBase:
+    """Shared machinery: build/train plumbing over a state dict
+    {"tables": (...), "moments": (...)}."""
+
+    def __init__(self, dim, float_type=None, index_type=None,
+                 device_ids=None, num_sampler_per_worker=auto,
+                 gpu_memory_limit=auto, seed=1024, sampler_backend="device",
+                 num_worker=1, device=None):
+        # device_ids and num_sampler_per_worker are accepted for API parity
+        # with the reference; `device` picks the card (default "cuda").
+        # gpu_memory_limit bounds the device memory budget of the overflow
+        # warning (bytes or "4G"-style; auto = query the device).
+        if sampler_backend != "device":
+            raise NotImplementedError(
+                "sampler_backend=%r: the host sampler backend is not ported "
+                "yet (ROADMAP queue 1, item 11)" % (sampler_backend,))
+        if num_worker in (auto, None):
+            num_worker = 1
+        if int(num_worker) > 1:
+            raise NotImplementedError(
+                "num_worker=%d: the multi-device engines are not ported yet "
+                "(ROADMAP queue 1, item 16)" % int(num_worker))
+        self.device = resolve_device(device)
+        self.sampler_backend = sampler_backend
+        self.gpu_memory_limit = gpu_memory_limit
+        self.num_worker = 1
+        self.dim = int(dim)
+        self.float_type = base.torch_float_type(float_type)
+        self.index_type = index_type
+        self.seed = seed
+        self.graph = None
+        self.model = None
+        self.state = None
+        self.optimizer = None
+        self.num_negative = 1
+        self.batch_size = 100000
+        self.episode_size = auto
+        self.batch_id = 0
+        self.num_batch = 0
+        self.effective_batch = self.batch_size
+        self.batch_losses = None
+        self._rng = np.random.default_rng(seed)
+
+    # -- per-application hooks ---------------------------------------------
+    def get_default_optimizer(self) -> Optimizer:
+        raise NotImplementedError
+
+    def get_available_models(self):
+        raise NotImplementedError
+
+    def _table_shapes(self):
+        raise NotImplementedError
+
+    def init_embeddings(self):
+        raise NotImplementedError
+
+    # -- build ---------------------------------------------------------------
+    def build(self, graph, optimizer=auto, num_partition=auto, num_negative=1,
+              batch_size=100000, episode_size=auto):
+        """Allocate embedding/moment tables. `num_partition` is accepted for
+        parity; device-resident tables need no partition staging."""
+        self.graph = graph
+        self.optimizer = make_optimizer(optimizer, self.get_default_optimizer())
+        self.num_negative = int(num_negative)
+        self.batch_size = int(batch_size)
+        self.episode_size = episode_size
+        self.num_partition = num_partition
+        self._allocate()
+        return self
+
+    def _allocate(self):
+        shapes = self._table_shapes()
+        tables = tuple(torch.zeros(s, dtype=self.float_type, device=self.device)
+                       for s in shapes)
+        # moments are always f32: bf16 EMA accumulators lose the update
+        # signal at GraphVite's beta values (1 - beta ~ 1e-3 < bf16 eps)
+        moments = tuple(self.optimizer.init_moments(s, self.device)
+                        for s in shapes)
+        self.state = {"tables": tables, "moments": moments}
+
+    # -- training loop -------------------------------------------------------
+    def _episode_batches(self):
+        if self.episode_size not in (auto, None):
+            return max(int(self.episode_size), 1)
+        # enough batches per runner call; the reference's auto-rule is
+        # kSamplePerVertex-based (solver.h:426-436)
+        per_vertex = max(175 * self.graph.num_vertex // self.batch_size, 1)
+        return int(min(max(per_vertex, 8), 200))
+
+    def _get_sampler(self, key, make):
+        """Memoize device samplers per graph (the alias-table build over all
+        edges is the dominant host cost on large graphs)."""
+        if not hasattr(self, "_sampler_cache"):
+            self._sampler_cache = {}
+        full_key = (id(self.graph),) + key
+        sampler = self._sampler_cache.get(full_key)
+        if sampler is None:
+            sampler = make()
+            # keep every sampler of the CURRENT graph, drop stale graphs'
+            self._sampler_cache = {
+                k: v for k, v in self._sampler_cache.items()
+                if k[0] == id(self.graph)}
+            self._sampler_cache[full_key] = sampler
+        return sampler
+
+    def _batch_plan(self):
+        """(effective_batch, micro_batch, num_micro).
+
+        Memory: the batch is capped by GRAPHVITE_STEP_BYTES (2 GB default)
+        of live step intermediates. Staleness: a batched step applies all
+        its row updates at one stale parameter point, so the batch is split
+        into `num_micro` sequential micro-steps, each under
+        GRAPHVITE_MAX_TOUCH (default 64) touches per row. Banded batches
+        come in whole walks of T * (L+1) slots, with a power-of-2 walk
+        factor so the pool groups can divide them."""
+        if getattr(self, "_pooled_step", False):
+            live_bytes = 16 * self.dim * 4
+        else:
+            live_bytes = (self.num_negative + 2) * self.dim * 4 * 8
+        budget = float(os.environ.get("GRAPHVITE_STEP_BYTES", 2e9))
+        mem_cap = max(int(budget / max(live_bytes, 1)), 512)
+        eff = min(self.batch_size, mem_cap)
+        unit = 256 if eff >= 256 else 8
+        s = int(getattr(self, "_walk_slot_unit", 0) or 0)
+        if s > 1:
+            mult = 64
+            while mult > 1 and s * mult > eff:
+                mult //= 2
+            unit = s * mult
+        eff = max(eff // unit * unit, unit)
+        tau = float(os.environ.get("GRAPHVITE_MAX_TOUCH", 64))
+        touch_cap = max(int(tau * self.graph.num_vertex
+                            / (self.num_negative + 2)), 512)
+        if eff <= touch_cap:
+            return eff, eff, 1
+        micro = min(-(-eff // touch_cap), 256)
+        bm = max(eff // micro // unit * unit, unit)
+        return bm * micro, bm, micro
+
+    def _effective_batch(self):
+        return self._batch_plan()[0]
+
+    def _train_loop_device(self, step_fn, sampler, neg_state, num_epoch,
+                           positive_reuse, log_frequency, state_pack=None,
+                           state_unpack=None):
+        """Episodes of walk generation + training on the device; the host
+        reads the losses only at log time."""
+        num_edge = self.graph.num_edge
+        batch_size, micro_batch, num_micro = self._batch_plan()
+        self.effective_batch = batch_size  # what sample accounting must use
+        if batch_size < self.batch_size:
+            logger.info("batch_size %d -> %d to fit step intermediates",
+                        self.batch_size, batch_size)
+        if num_micro > 1:
+            logger.info("batch of %d applied as %d sequential micro-steps "
+                        "of %d (staleness bound)", batch_size, num_micro,
+                        micro_batch)
+            step_fn = _steps.make_micro_step(step_fn, num_micro)
+        self.num_batch = max(int(num_epoch * num_edge // batch_size), 1)
+        R = max(int(positive_reuse), 1)
+        # clamp so short runs don't overshoot by a whole episode
+        ep_groups = max(min(self._episode_batches(), self.num_batch) // R, 1)
+        sample_fn = sampler.make_sample_fn(batch_size)
+        self._active_sample_fn = sample_fn
+        self._active_sampler = sampler
+        # the step and negative sampler of this run, for callers that
+        # replay one of its batches
+        self._active_step_fn = step_fn
+        self._active_neg_state = neg_state
+        runner = _steps.make_fused_runner(
+            step_fn, sample_fn, self.optimizer, ep_groups, R,
+            state_pack=state_pack, state_unpack=state_unpack)
+        sampler_arrays = sampler.arrays()
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.seed + self.batch_id)
+        logger.info("training %s: %d batches of %d "
+                    "(device episodes of %d x %d batches)",
+                    self.model, self.num_batch, batch_size, ep_groups, R)
+        next_log = log_frequency
+        losses_acc, all_losses = [], []
+        while self.batch_id < self.num_batch:
+            self.state, losses = runner(self.state, self.batch_id,
+                                        self.num_batch, generator,
+                                        sampler_arrays, neg_state)
+            self.batch_id += ep_groups * R
+            losses_acc.append(losses)
+            all_losses.append(losses)
+            if self.batch_id >= next_log or self.batch_id >= self.num_batch:
+                mean_loss = float(torch.cat(losses_acc).mean())
+                logger.info("Batch id: %d / %d, loss = %.6g",
+                            min(self.batch_id, self.num_batch),
+                            self.num_batch, mean_loss)
+                losses_acc = []
+                next_log = self.batch_id + log_frequency
+        # per-batch losses of this train() call, still on the device
+        self.batch_losses = torch.cat(all_losses)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- persistence ---------------------------------------------------------
+    def table(self, i):
+        """Host copy of a table, always float32."""
+        return self.state["tables"][i].detach().float().cpu().numpy()
+
+    def save_checkpoint(self, file_name):
+        """Mid-training checkpoint: tables + optimizer moments + batch
+        counter (bf16 tables are stored as their uint16 bits)."""
+        with open(file_name, "wb") as f:
+            pickle.dump({"state": state_to_numpy(self.state),
+                         "batch_id": self.batch_id,
+                         "num_batch": self.num_batch, "model": self.model,
+                         "optimizer": self.optimizer}, f,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+        logger.info("checkpoint saved to %s (batch %d)", file_name,
+                    self.batch_id)
+
+    def load_checkpoint(self, file_name):
+        """Load a checkpoint written by save_checkpoint (pickle: only load
+        files this program wrote)."""
+        with open(file_name, "rb") as f:
+            ckpt = pickle.load(f)
+        self.state = state_from_numpy(ckpt["state"], self.device,
+                                      self.float_type)
+        self.batch_id = ckpt["batch_id"]
+        self.num_batch = ckpt["num_batch"]
+        self.model = ckpt["model"]
+        self.optimizer = ckpt["optimizer"]
+        logger.info("checkpoint loaded from %s (batch %d)", file_name,
+                    self.batch_id)
+        return self
+
+    def __repr__(self):
+        return "%s<dim=%d, %s, %s>" % (type(self).__name__, self.dim,
+                                       str(self.float_type).replace(
+                                           "torch.", ""), self.device)
+
+
+class GraphSolver(SolverBase):
+    """Node-embedding solver (ref graph.cuh:586-813), walk route."""
+
+    def get_default_optimizer(self):
+        # ref graph.cuh:634-636
+        return Optimizer(type="SGD", lr=0.025, weight_decay=5e-3, schedule="linear")
+
+    def get_available_models(self):
+        return set(GRAPH_MODELS)
+
+    def _table_shapes(self):
+        v = self.graph.num_vertex
+        return ((v, self.dim), (v, self.dim))
+
+    def init_embeddings(self):
+        """vertex ~ U(-0.5/dim, 0.5/dim), context = 0 (graph.cuh:724-731),
+        drawn on the device from a generator seeded by the solver's rng."""
+        v = self.graph.num_vertex
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(self._rng.integers(2**31)))
+        lo, hi = -0.5 / self.dim, 0.5 / self.dim
+        u = torch.rand((v, self.dim), generator=gen, device=self.device)
+        vertex = (lo + (hi - lo) * u).to(self.float_type)
+        tables = (vertex, torch.zeros((v, self.dim), dtype=self.float_type,
+                                      device=self.device))
+        moments = tuple(self.optimizer.init_moments((v, self.dim),
+                                                    self.device)
+                        for _ in range(2))
+        self.state = {"tables": tables, "moments": moments}
+
+    @property
+    def vertex_embeddings(self):
+        return self.table(0)
+
+    @property
+    def context_embeddings(self):
+        return self.table(1)
+
+    def train(self, model="LINE", num_epoch=2000, resume=False,
+              augmentation_step=auto, random_walk_length=40,
+              random_walk_batch_size=100, shuffle_base=auto, p=1.0, q=1.0,
+              positive_reuse=1, negative_sample_exponent=0.75,
+              negative_weight=5.0, negative_sharing=auto,
+              log_frequency=1000):
+        """Train through the banded walk route with a shared negative pool.
+        `random_walk_batch_size` and `shuffle_base` serve the host sampler
+        only, and are accepted for parity; so is `negative_sharing`, which
+        the reference reads as auto (on) for every value a caller can pass
+        equal to 0, False included."""
+        if model not in self.get_available_models():
+            raise ValueError("unknown model `%s`" % model)
+        if model == "node2vec":
+            raise NotImplementedError(
+                "node2vec (biased walks) is not ported yet "
+                "(ROADMAP queue 1, item 11)")
+        num_vertex = self.graph.num_vertex
+        num_edge = self.graph.num_edge
+        if augmentation_step in (auto, None):
+            avg_degree = max(float(num_edge) / num_vertex, 1.0 + 1e-6)
+            augmentation_step = max(
+                int(math.log(EXPECTED_DEGREE) / math.log(avg_degree)), 1)
+        augmentation_step = int(augmentation_step)
+        if augmentation_step == 1:
+            raise NotImplementedError(
+                "augmentation_step == 1 (the edge route, with its blocked "
+                "and overflow episodes) is not ported yet (ROADMAP queue 1, "
+                "item 10)")
+        if augmentation_step > random_walk_length:
+            raise ValueError("`random_walk_length` must be >= `augmentation_step`")
+        self.model = model
+        if not resume or self.state is None or self.batch_id == 0:
+            self.init_embeddings()
+            self.batch_id = 0
+        self.augmentation_step = augmentation_step
+
+        # negative sampler: tail-side, degree^exponent (solver.h:1264-1278)
+        weights = np.asarray(self.graph.vertex_weights, dtype=np.float64)
+        weights = np.maximum(weights, 1e-12) ** negative_sample_exponent
+        neg_state = tuple(torch.as_tensor(a, device=self.device)
+                          for a in device_alias_arrays(AliasTable(weights)))
+
+        # shared-negative-pool steps keep ~16 [B, D] tensors live per
+        # sample (the batch plan's memory cap)
+        self._pooled_step = True
+        # SGD safety net for dense small graphs (optim.apply_row_updates)
+        trust = float(os.environ.get("GRAPHVITE_TRUST", 0.25)) or None
+        # bidirectional emission mines the reversed pairs of each walk
+        # (first-order walks from stationary starts on an undirected graph
+        # are reversible); GRAPHVITE_WALK_BIDIR=0 restores forward-only
+        walk_bidir = (bool(self.graph.as_undirected)
+                      and os.environ.get("GRAPHVITE_WALK_BIDIR", "1") != "0")
+        num_tail = augmentation_step * (2 if walk_bidir else 1)
+        slot_unit = num_tail * (random_walk_length + 1)
+        # banded batches come in whole-walk units of T * (L+1) slots
+        self._walk_slot_unit = slot_unit
+        # groups partition WALKS of the micro-batch; bound coherent pair
+        # mass per pool row at a ~2048-slot target
+        pool_batch = self._batch_plan()[1]
+        pool_size = int(os.environ.get("GRAPHVITE_POOL_SIZE", 64))
+        b_walks = max(pool_batch // slot_unit, 1)
+        pool_groups = _steps.graph_pool_groups(
+            b_walks, target_group=max(2048 // slot_unit, 1))
+        # fused (vertex|context) arena: ONE gather + ONE scatter per batch.
+        # SGD only, and only where the trust clip is inactive (its row-norm
+        # logic is per table); packed/unpacked once per episode
+        self._banded_fused = (
+            self.optimizer.num_moment == 0
+            and (trust is None or num_vertex * self.dim > DENSE_UPDATE_ELEMS)
+            and os.environ.get("GRAPHVITE_FUSED_ARENA", "1") != "0")
+        if self._banded_fused:
+            step_fn = _steps.make_graph_banded_fused_step(
+                self.optimizer, self.num_negative, float(negative_weight),
+                augmentation_step, walk_bidir, pool_size=pool_size,
+                pool_groups=pool_groups)
+        else:
+            step_fn = _steps.make_graph_banded_walk_step(
+                self.optimizer, self.num_negative, float(negative_weight),
+                augmentation_step, walk_bidir, pool_size=pool_size,
+                pool_groups=pool_groups, trust=trust)
+
+        n_moms = sum(len(m) for m in self.state["moments"])
+        itemsize = torch.empty((), dtype=self.float_type).element_size()
+        demand = (num_vertex * self.dim * (2 * itemsize + n_moms * 4)
+                  + 16 * num_edge)
+        budget = hbm_budget_bytes(self.gpu_memory_limit, self.device)
+        if demand > budget:
+            logger.warning(
+                "device memory demand %.1f GB > budget %.1f GB; walk "
+                "augmentation trains the flat tables regardless",
+                demand / 1e9, budget / 1e9)
+
+        eff_batch = self._effective_batch()
+        sampler = self._get_sampler(
+            ("walk", augmentation_step, int(random_walk_length), eff_batch,
+             walk_bidir, str(self.device)),
+            lambda: DeviceWalkSampler.build(
+                self.graph, augmentation_step, random_walk_length, eff_batch,
+                bidir=walk_bidir, device=self.device))
+        fused = self._banded_fused
+        self._train_loop_device(
+            step_fn, sampler, neg_state, num_epoch, positive_reuse,
+            log_frequency,
+            state_pack=_steps.banded_fused_pack if fused else None,
+            state_unpack=_steps.banded_fused_unpack if fused else None)
+
+    def predict(self, heads, tails=None):
+        """Score (head, tail) pairs; accepts an (n, 2) array or two arrays.
+        Returns a float32 numpy array."""
+        if tails is None:
+            arr = np.asarray(heads)
+            heads, tails = arr[:, 0], arr[:, 1]
+        model = GRAPH_MODELS[self.model or "LINE"]
+        vertex, context = self.state["tables"]
+        h = torch.as_tensor(np.asarray(heads), dtype=torch.long,
+                            device=self.device)
+        t = torch.as_tensor(np.asarray(tails), dtype=torch.long,
+                            device=self.device)
+        with torch.no_grad():
+            scores = model.score(vertex[h], context[t]).float()
+        return scores.cpu().numpy()
+
+    def save_embeddings(self, file_name):
+        """word2vec text+binary format (graph.cuh:796-805), written in one
+        pass."""
+        emb = np.ascontiguousarray(self.vertex_embeddings, dtype=np.float32)
+        n = self.graph.num_vertex
+        names = [(self.graph.id2name[i] + " ").encode() for i in range(n)]
+        rows = emb.view(np.uint8).reshape(n, -1)
+        with open(file_name, "wb") as f:
+            f.write(("%d %d\n" % (n, self.dim)).encode())
+            f.write(b"".join(
+                name + row.tobytes() + b"\n"
+                for name, row in zip(names, rows)))

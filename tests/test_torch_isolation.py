@@ -1,0 +1,84 @@
+"""graphvite_tpu_torch stands alone: it imports no JAX, nothing of the JAX
+package, and none of the packages the card's host lacks (ml_dtypes, yaml,
+pandas); its entry points run on CUDA unless asked for the CPU."""
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import graphvite_tpu_torch
+from graphvite_tpu_torch import GraphApplication, GraphSolver
+
+PACKAGE_DIR = os.path.dirname(graphvite_tpu_torch.__file__)
+REPO = os.path.dirname(PACKAGE_DIR)
+FORBIDDEN = ("jax", "jaxlib", "graphvite_tpu", "ml_dtypes", "yaml", "pandas")
+
+
+def _modules():
+    names = ["graphvite_tpu_torch"]
+    for info in pkgutil.walk_packages([PACKAGE_DIR], "graphvite_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_every_module_imports_with_jax_blocked():
+    """Import every module of the port in a fresh interpreter in which the
+    forbidden packages cannot be imported at all."""
+    code = """
+import importlib, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in %r:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+for name in %r:
+    importlib.import_module(name)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not loaded, loaded
+print("ok", len(%r))
+""" % (FORBIDDEN, _modules(), FORBIDDEN, _modules())
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_sources_import_nothing_forbidden():
+    files = []
+    for root, _, names in os.walk(PACKAGE_DIR):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 10
+    for path in files:
+        for name in _imports(path):
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_entry_points_default_to_cuda():
+    """With no `device`, the solver and the application ask for CUDA, and
+    raise where there is none (here, a CPU-only torch)."""
+    if torch.cuda.is_available():
+        assert GraphSolver(dim=4).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GraphSolver(dim=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GraphApplication(dim=4)
+    assert GraphSolver(dim=4, device="cpu").device.type == "cpu"

@@ -1,0 +1,268 @@
+"""The port's walk route as a whole (solver.py, application/), on the CPU:
+bridged reference weights score identically, DeepWalk and LINE learn the
+two-block graph as well as the reference does, checkpoints and embeddings
+round-trip, the application pipeline runs, and what later slices port
+raises NotImplementedError."""
+import numpy as np
+import pytest
+import torch
+
+import graphvite_tpu.solver as ref_solver
+from graphvite_tpu_torch import GraphApplication, state_from_numpy, state_to_numpy
+from graphvite_tpu_torch.application.evaluate import rank_sum_auc
+from graphvite_tpu_torch.graph import Graph
+from graphvite_tpu_torch.solver import GraphSolver
+from test_solver import two_blocks
+
+
+def _port_graph(ref_graph):
+    """The same input edge list through the port's Graph."""
+    n = ref_graph.num_edge
+    edges = [(ref_graph.id2name[u], ref_graph.id2name[v])
+             for u, v in zip(ref_graph.edge_heads[:n], ref_graph.edge_tails[:n])]
+    g = Graph().load_edge_list(edges)
+    np.testing.assert_array_equal(g.edge_heads, ref_graph.edge_heads)
+    return g
+
+
+def _link_auc(solver, g):
+    """AUC of real edges against random cross-block pairs (the protocol of
+    tests/test_solver.py)."""
+    rng = np.random.default_rng(1)
+    half = g.num_vertex // 2
+    k = min(300, g.num_directed_edge)
+    sel = rng.choice(g.num_directed_edge, size=k, replace=False)
+    pos = np.stack([g.edge_heads[sel], g.edge_tails[sel]], axis=1)
+    neg = np.stack([rng.integers(half, size=k),
+                    rng.integers(half, size=k) + half], axis=1)
+    scores = solver.predict(np.concatenate([pos, neg]))
+    return rank_sum_auc(scores, np.array([1] * k + [0] * k))
+
+
+def _train_small(solver, g, model="DeepWalk", num_epoch=40, **kw):
+    solver.build(g, num_negative=1, batch_size=512, episode_size=4)
+    solver.train(model=model, num_epoch=num_epoch, augmentation_step=2,
+                 random_walk_length=6, log_frequency=10**9, **kw)
+    return solver
+
+
+@pytest.mark.parametrize("float_type", ["float32", "bfloat16"])
+def test_bridged_reference_weights_score_identically(float_type):
+    g = two_blocks(40)
+    ref = _train_small(ref_solver.GraphSolver(dim=8, float_type=float_type),
+                       g)
+    import jax
+    state_np = jax.tree_util.tree_map(np.asarray, ref.state)
+    port = GraphSolver(dim=8, float_type=float_type, device="cpu")
+    port.build(_port_graph(g), num_negative=1, batch_size=512)
+    port.state = state_from_numpy(state_np, "cpu", float_type)
+    port.model = ref.model
+    np.testing.assert_array_equal(port.vertex_embeddings,
+                                  ref.vertex_embeddings)
+    np.testing.assert_array_equal(port.context_embeddings,
+                                  ref.context_embeddings)
+    rng = np.random.default_rng(0)
+    pairs = rng.integers(0, g.num_vertex, (200, 2))
+    np.testing.assert_allclose(port.predict(pairs), ref.predict(pairs),
+                               rtol=1e-6, atol=1e-7 if float_type ==
+                               "float32" else 1e-2)
+    back = state_to_numpy(port.state)
+    for a, b in zip(back["tables"], state_np["tables"]):
+        np.testing.assert_array_equal(a, b.view(a.dtype))
+
+
+@pytest.mark.parametrize("model", ["DeepWalk", "LINE"])
+def test_learns_two_blocks_like_the_reference(model):
+    """Statistical: the random streams differ, so the AUCs differ a little;
+    both must clear 0.9 and stay within 0.03 of each other."""
+    g = two_blocks()
+    kw = dict(model=model, num_epoch=2000, augmentation_step=2,
+              random_walk_length=8, negative_weight=1.0,
+              log_frequency=10**9)
+    opt = {"type": "SGD", "lr": 0.1, "weight_decay": 5e-3}
+    aucs = []
+    for solver, graph in ((ref_solver.GraphSolver(dim=16), g),
+                          (GraphSolver(dim=16, device="cpu"),
+                           _port_graph(g))):
+        solver.build(graph, optimizer=opt, num_negative=1, batch_size=2048,
+                     episode_size=8)
+        solver.train(**kw)
+        aucs.append(_link_auc(solver, graph))
+    ref_auc, port_auc = aucs
+    assert port_auc > 0.9, aucs
+    assert abs(port_auc - ref_auc) < 0.03, aucs
+
+
+def test_losses_stay_on_device_and_fall():
+    g = _port_graph(two_blocks(40))
+    s = _train_small(GraphSolver(dim=8, device="cpu"), g, num_epoch=200)
+    losses = s.batch_losses
+    assert torch.is_tensor(losses) and losses.shape[0] >= s.num_batch
+    assert torch.isfinite(losses).all()
+    assert losses[-10:].mean() < losses[:10].mean()
+
+
+@pytest.mark.parametrize("float_type", ["float32", "bfloat16"])
+def test_checkpoint_roundtrip_and_resume(tmp_path, float_type):
+    g = _port_graph(two_blocks(40))
+    s = _train_small(GraphSolver(dim=8, float_type=float_type, device="cpu"),
+                     g, model="DeepWalk")
+    path = str(tmp_path / "ckpt.pkl")
+    s.save_checkpoint(path)
+    t = GraphSolver(dim=8, float_type=float_type, device="cpu")
+    t.build(g, num_negative=1, batch_size=512, episode_size=4)
+    t.load_checkpoint(path)
+    assert (t.batch_id, t.num_batch, t.model) == (s.batch_id, s.num_batch,
+                                                  s.model)
+    assert t.optimizer == s.optimizer
+    for a, b in zip(t.state["tables"], s.state["tables"]):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+    t.train(model="DeepWalk", num_epoch=80, resume=True,
+            augmentation_step=2, random_walk_length=6, log_frequency=10**9)
+    assert np.isfinite(t.vertex_embeddings).all()
+
+
+def test_save_embeddings_roundtrip(tmp_path):
+    g = _port_graph(two_blocks(40))
+    s = _train_small(GraphSolver(dim=8, device="cpu"), g)
+    path = tmp_path / "emb.bin"
+    s.save_embeddings(str(path))
+    data = path.read_bytes()
+    header, rest = data.split(b"\n", 1)
+    assert header == b"%d 8" % g.num_vertex
+    emb = s.vertex_embeddings
+    for i in range(g.num_vertex):
+        name, rest = rest.split(b" ", 1)
+        assert name.decode() == g.id2name[i]
+        row = np.frombuffer(rest[:32], np.float32)
+        np.testing.assert_array_equal(row, emb[i])
+        assert rest[32:33] == b"\n"
+        rest = rest[33:]
+    assert rest == b""
+
+
+def test_graph_application_pipeline(tmp_path):
+    rng = np.random.default_rng(0)
+    g = two_blocks()
+    half = g.num_vertex // 2
+    edge_file = tmp_path / "edges.txt"
+    n = g.num_edge
+    edge_file.write_text("".join(
+        "%s\t%s\n" % (g.id2name[u], g.id2name[v])
+        for u, v in zip(g.edge_heads[:n], g.edge_tails[:n])))
+    link_file = tmp_path / "links.txt"
+    lines = ["%s\t%s\t1\n" % (g.id2name[u], g.id2name[v])
+             for u, v in zip(g.edge_heads[:100], g.edge_tails[:100])]
+    lines += ["%d\t%d\t0\n" % (rng.integers(half), rng.integers(half) + half)
+              for _ in range(100)]
+    link_file.write_text("".join(lines))
+    label_file = tmp_path / "labels.txt"
+    label_file.write_text("".join("%d\t%s\n" % (i, "a" if i < half else "b")
+                                  for i in range(g.num_vertex)))
+
+    app = GraphApplication(dim=16, device="cpu")
+    app.load(file_name=str(edge_file))
+    app.build(optimizer={"type": "SGD", "lr": 0.1, "weight_decay": 5e-3},
+              num_negative=1, batch_size=2048, episode_size=8)
+    app.train(model="DeepWalk", num_epoch=1000, augmentation_step=2,
+              random_walk_length=8, negative_weight=1.0, log_frequency=10**9)
+    link = app.evaluate("link prediction", file_name=str(link_file))
+    assert link["AUC"] > 0.8
+    nc = app.evaluate("node classification", file_name=str(label_file),
+                      portions=(0.5,), patience=20)
+    assert nc["micro-F1@50%"] > 0.8
+
+    model_file = str(tmp_path / "model.pkl")
+    app.save_model(model_file, save_hyperparameter=True)
+    other = GraphApplication(dim=16, device="cpu")
+    other.load(file_name=str(edge_file))
+    other.build(num_negative=1, batch_size=2048)
+    other.load_model(model_file)
+    np.testing.assert_array_equal(other.solver.vertex_embeddings,
+                                  app.solver.vertex_embeddings)
+    assert other.evaluate("link prediction",
+                          file_name=str(link_file)) == link
+
+
+def test_linear_classification_matches_reference():
+    """The torch probe follows the reference's protocol: same split, same
+    updates; F1 agrees on a separable problem."""
+    from graphvite_tpu.application import evaluate as ref_ev
+    from graphvite_tpu_torch.application import evaluate as port_ev
+
+    rng = np.random.default_rng(3)
+    emb = rng.normal(size=(120, 6)).astype(np.float32)
+    labels = np.zeros((120, 3), np.int32)
+    labels[np.arange(120), np.argmax(emb[:, :3], axis=1)] = 1
+    a = ref_ev.linear_classification(emb, labels, 0.5, patience=10)
+    b = port_ev.linear_classification(emb, labels, 0.5, patience=10)
+    assert a.keys() == b.keys()
+    for key in a:
+        assert abs(a[key] - b[key]) < 0.02, (a, b)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(augmentation_step=1), "item 10"),
+    (dict(model="node2vec"), "item 11"),
+])
+def test_unported_training_paths_raise(kwargs, match):
+    g = _port_graph(two_blocks(40))
+    s = GraphSolver(dim=8, device="cpu")
+    s.build(g, batch_size=512)
+    kw = dict(model="DeepWalk", num_epoch=1, augmentation_step=2,
+              random_walk_length=6)
+    kw.update(kwargs)
+    with pytest.raises(NotImplementedError, match=match):
+        s.train(**kw)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(num_worker=2), "item 16"),
+    (dict(sampler_backend="host"), "item 11"),
+])
+def test_unported_solver_options_raise(kwargs, match):
+    with pytest.raises(NotImplementedError, match=match):
+        GraphSolver(dim=8, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("v,batch,dim,k,slot,max_touch,step_bytes", [
+    (60, 2048, 16, 1, 36, None, None),
+    (1_138_499, 100000, 128, 1, 410, None, None),
+    (1_138_499, 250000, 128, 1, 410, None, None),
+    (5000, 100000, 64, 1, 410, "4", None),      # micro-steps engage
+    (20000, 100000, 128, 3, 246, None, "1e8"),  # memory cap binds
+])
+def test_batch_plan_matches_reference(v, batch, dim, k, slot, max_touch,
+                                      step_bytes, monkeypatch):
+    """The batch plan (effective batch, micro batch, micro-step count) of
+    the banded route matches the reference's, env knobs included."""
+    import types
+
+    for name, value in (("GRAPHVITE_MAX_TOUCH", max_touch),
+                        ("GRAPHVITE_STEP_BYTES", step_bytes)):
+        if value is not None:
+            monkeypatch.setenv(name, value)
+    plans = []
+    for solver in (ref_solver.GraphSolver(dim=dim),
+                   GraphSolver(dim=dim, device="cpu")):
+        solver.graph = types.SimpleNamespace(num_vertex=v)
+        solver.batch_size, solver.num_negative = batch, k
+        solver._pooled_step, solver._walk_slot_unit = True, slot
+        plans.append(solver._batch_plan())
+    assert plans[0] == plans[1]
+    if max_touch:
+        assert plans[1][2] > 1
+
+
+def test_micro_steps_train_through_the_solver(monkeypatch):
+    monkeypatch.setenv("GRAPHVITE_MAX_TOUCH", "2")
+    g = _port_graph(two_blocks(40))
+    s = GraphSolver(dim=8, device="cpu")
+    s.build(g, num_negative=1, batch_size=2048, episode_size=2)
+    s._pooled_step, s._walk_slot_unit = True, 28
+    assert s._batch_plan()[2] > 1
+    s.train(model="DeepWalk", num_epoch=20, augmentation_step=2,
+            random_walk_length=6, log_frequency=10**9)
+    assert np.isfinite(s.vertex_embeddings).all()
+    assert s.batch_losses.shape[0] >= s.num_batch
