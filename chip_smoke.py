@@ -1,41 +1,63 @@
 """Smoke run of graphvite_tpu_torch on one NVIDIA GPU (an H100 is the target).
 
-    python3 chip_smoke.py [--seed N] [--main-batches N]
+    python3 chip_smoke.py [--seed N] [--main-batches N] [--edge-batches N]
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
 1. device   require CUDA; print the card's name and power limit; TF32 off.
-2. build    compile the hand-written CUDA kernel (csrc/scatter_add.cu) with
-            nvcc, from the checkout's sources.
+2. build    compile the hand-written CUDA kernels (csrc/*.cu: scatter_add,
+            gather_sorted, scatter_update) with nvcc, one process each, all
+            started together, from the checkout's sources.
 3. main     DeepWalk through GraphSolver.build/train at the
             config/graph/deepwalk_youtube.yaml hyperparameters (dim 128,
             SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5, walk 40,
             batch 100000) on a Youtube-sized synthetic power-law graph
             (1,138,499 vertices, ~4.9M undirected edges) made from --seed:
-            float32 (the kernel's launch count is set to 0 just before and
-            read just after), a torch.profiler trace of 10 more batches,
-            a shorter bfloat16 run, and one batch at batch 250000. Checks
-            the fused arena path, one kernel launch per batch, finite and
-            falling losses, finite tables; prints pair-slot and valid-pair
-            rates. From each run one batch is captured (the solver's own
-            walk sampler, pool shape and negative sampler) and replayed:
-            the fused step on the card against the same step on the CPU,
-            over the whole 1,138,499 x 256 arena.
-4. kernel   the scatter-add kernel against its plain torch version on the
-            card, on the update ids of the captured float32 batches (batch
-            100000 and 250000: the ids and their count come from the main
-            path), with dropped ids added, float32 and bfloat16 tables;
-            times the kernel, the plain version and torch's index_add_
-            (the yardstick, never called by the port), beside the bytes
-            bound.
-5. quality  GraphApplication on a small two-block graph on the card (the
-            unfused trust-clip route): link-prediction AUC > 0.9.
-6. summary  the card line, the kernels line, and the result line.
+            float32 (the kernels' launch counts are set to 0 just before
+            and read just after), a torch.profiler trace of 10 more
+            batches, a shorter bfloat16 run, and one batch at batch 250000.
+            Checks the fused arena path, one scatter-add launch per batch,
+            finite and falling losses, finite tables; prints pair-slot and
+            valid-pair rates. From each run one batch is captured (the
+            solver's own walk sampler, pool shape and negative sampler) and
+            replayed: the fused step on the card against the same step on
+            the CPU, over the whole 1,138,499 x 256 arena.
+4. edge     LINE through GraphSolver.build/train at the
+            config/graph/line_flickr.yaml hyperparameters (dim 128, SGD lr
+            0.025 wd 5e-3, K 1, negative_weight 5, aug 1, batch 100000,
+            episode 1000) on a Flickr-sized synthetic power-law graph
+            (1,715,256 vertices, ~22.6M undirected edges) made from --seed:
+            the sorted edge stream and the sweep routes. float32 SGD (rate,
+            ms/batch, a torch.profiler trace of 10 batches, a falling
+            loss; per batch one gather_sorted launch and one launch of each
+            scatter-add entry), a shorter bfloat16 SGD run, and a float32
+            Adam run (per batch one launch of each scatter_update entry;
+            the moments move). From each run one batch is captured and
+            replayed through the pool step on the card and on the CPU from
+            the same tables and moments; its heads must ascend and, in
+            float32, every head's vertex row must move.
+5. kernel   each kernel against its plain torch version on the card, on the
+            ids the main paths drew: scatter_add on the DeepWalk update ids
+            (batch 100000 and 250000, with dropped ids added, float32 and
+            bfloat16 tables) and on the edge route's sorted heads;
+            gather_sorted on the edge route's 99,328 sorted heads (float32
+            and bfloat16 tables, float32 out); scatter_update (Adam) on its
+            vertex side (sorted heads) and context side (107,520 unsorted
+            tail and pool ids). Times each wrapper, each kernel alone, the
+            plain version and, where one PyTorch call computes the same
+            function, that call (the yardstick, never called by the port),
+            beside the bytes bound.
+6. quality  GraphApplication on a small two-block graph on the card:
+            DeepWalk (the unfused trust-clip route) and LINE on the edge
+            route (the small-table route, the trust clip on the
+            scatter-add): link-prediction AUC > 0.9.
+7. summary  the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,7 +71,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 YOUTUBE_V = 1_138_499
 YOUTUBE_E = 4_945_382
+FLICKR_V = 1_715_256
+FLICKR_E = 22_613_981
 WIDTH = 256          # the fused (vertex|context) arena row: 2 x dim 128
+DIM = 128
 
 
 def log(*args):
@@ -94,18 +119,18 @@ def bf16_ulp(x):
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def youtube_graph(seed):
-    """Power-law random graph at Youtube scale: 1,138,499 vertices and
-    ~4.9M undirected input edges (self loops dropped), symmetrized."""
+def power_law_graph(num_vertex, num_edge, seed):
+    """Power-law random graph: `num_edge` undirected input edges (self
+    loops dropped) over `num_vertex` vertices, symmetrized, unweighted."""
     from graphvite_tpu_torch.graph import Graph
 
     rng = np.random.default_rng(seed)
-    u = (rng.random(YOUTUBE_E) ** 2.5 * YOUTUBE_V).astype(np.int64)
-    v = (rng.random(YOUTUBE_E) ** 2.5 * YOUTUBE_V).astype(np.int64)
+    u = (rng.random(num_edge) ** 2.5 * num_vertex).astype(np.int64)
+    v = (rng.random(num_edge) ** 2.5 * num_vertex).astype(np.int64)
     keep = u != v
     u, v = u[keep], v[keep]
     g = Graph()
-    g.num_vertex = YOUTUBE_V
+    g.num_vertex = num_vertex
     g.num_edge = int(u.size)
     g.id2name = g.name2id = None   # anonymous: the samplers use the arrays
     g.as_undirected = True
@@ -120,6 +145,28 @@ DEEPWALK_YOUTUBE = dict(model="DeepWalk", augmentation_step=5,
                         random_walk_length=40, negative_weight=5.0,
                         log_frequency=10**9)
 SGD_YOUTUBE = {"type": "SGD", "lr": 0.025, "weight_decay": 5e-3}
+
+
+def wrappers():
+    """Every kernel wrapper of the port, by name: each counts its own
+    kernel launches (scatter_add_ and scatter_add_sorted_ launch kernel 1,
+    scatter_update_ and scatter_update_sorted_ kernel 2, gather_sorted
+    kernel 3)."""
+    from graphvite_tpu_torch.ops import gather, scatter
+
+    fns = (scatter.scatter_add_, scatter.scatter_add_sorted_,
+           scatter.scatter_update_, scatter.scatter_update_sorted_,
+           gather.gather_sorted)
+    return {fn.__name__: fn for fn in fns}
+
+
+def reset_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def valid_fraction(solver, probes=8, seed=123):
@@ -218,10 +265,9 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     list of problems. `falling` asks for a falling loss (a run of many
     batches)."""
     import torch
-    from graphvite_tpu_torch.ops import scatter
     from graphvite_tpu_torch.solver import GraphSolver
 
-    solver = GraphSolver(dim=128, float_type=float_type)
+    solver = GraphSolver(dim=DIM, float_type=float_type)
     solver.build(graph, optimizer=SGD_YOUTUBE, num_negative=1,
                  batch_size=batch_size, episode_size=25)
     # train() runs int(num_epoch * num_edge // effective_batch) batches
@@ -231,12 +277,13 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     warm_s = time.perf_counter() - t0
     eff = solver.effective_batch
 
-    scatter.scatter_add_.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     solver.train(num_epoch=batches * eff / graph.num_edge + 1e-9,
                  **DEEPWALK_YOUTUBE)
     elapsed = time.perf_counter() - t0      # train() ends synchronized
-    launches = scatter.scatter_add_.launches
+    counts = read_launches()
+    launches = counts["scatter_add_"]
 
     run = solver.batch_id
     # at this graph size the loss moves slowly from ln 2 (context rows
@@ -265,8 +312,8 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     problems = []
     if not rec["fused_arena"]:
         problems.append("the fused arena was not chosen")
-    if launches != run:
-        problems.append("%d kernel launches for %d batches" % (launches, run))
+    if launches != run or sum(counts.values()) != launches:
+        problems.append("kernel launches %r for %d batches" % (counts, run))
     if not rec["losses_finite"]:
         problems.append("losses not finite")
     if falling and not rec["loss_last"] < rec["loss_first"]:
@@ -276,7 +323,7 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     return solver, rec, problems
 
 
-def trace_episode(solver, ms_per_batch, batches=10):
+def trace_episode(solver, ms_per_batch, train_kwargs, batches=10):
     """Device kernel time per batch over a short training call
     (torch.profiler), and its share of the unprofiled batch time."""
     import torch
@@ -286,7 +333,7 @@ def trace_episode(solver, ms_per_batch, batches=10):
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         solver.train(num_epoch=batches * solver.effective_batch
-                     / solver.graph.num_edge + 1e-9, **DEEPWALK_YOUTUBE)
+                     / solver.graph.num_edge + 1e-9, **train_kwargs)
         torch.cuda.synchronize()
     run = solver.batch_id
     rows = []
@@ -307,7 +354,173 @@ def trace_episode(solver, ms_per_batch, batches=10):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the kernel against its plain version
+# phase 4: the edge route
+# ---------------------------------------------------------------------------
+
+LINE_FLICKR = dict(model="LINE", augmentation_step=1, negative_weight=5.0,
+                   log_frequency=10**9)
+SGD_FLICKR = {"type": "SGD", "lr": 0.025, "weight_decay": 5e-3}
+# Adam's closed-form c-touch update (GraphVite's beta1 0.999, beta2
+# 0.99999) moves a row by up to ~6 lr c in one batch once c reaches ~2000:
+# the sorted stream hands the synthetic graph's hub (vertex 0) whole
+# 1024-edge blocks, c = 2048 per block. lr 1e-6 keeps that step ~0.01.
+# No weight decay: the squared gradients leave it out (as the reference's
+# do), so with zero-initialized context rows it would be divided by
+# ~epsilon and run away.
+ADAM_FLICKR = {"type": "Adam", "lr": 1e-6, "weight_decay": 0.0}
+# launches per batch each edge run must show, by wrapper (others 0)
+EDGE_SGD_LAUNCHES = {"gather_sorted": 1, "scatter_add_sorted_": 1,
+                     "scatter_add_": 1}
+EDGE_ADAM_LAUNCHES = {"gather_sorted": 1, "scatter_update_sorted_": 1,
+                      "scatter_update_": 1}
+
+
+def train_edge_path(graph, float_type, optimizer, batches, per_batch,
+                    falling):
+    """LINE at the line_flickr.yaml shape: 5 warm-up batches (sampler
+    build, first launches), then the measured call with the launch counts
+    set to 0 just before it and read just after. Returns the solver, the
+    record and a list of problems."""
+    import torch
+    from graphvite_tpu_torch.solver import GraphSolver
+
+    solver = GraphSolver(dim=DIM, float_type=float_type)
+    solver.build(graph, optimizer=optimizer, num_negative=1,
+                 batch_size=100000, episode_size=1000)
+    t0 = time.perf_counter()
+    solver.train(num_epoch=5 * 100000 / graph.num_edge, **LINE_FLICKR)
+    warm_s = time.perf_counter() - t0
+    eff = solver.effective_batch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    solver.train(num_epoch=batches * eff / graph.num_edge + 1e-9,
+                 **LINE_FLICKR)
+    elapsed = time.perf_counter() - t0      # train() ends synchronized
+    counts = read_launches()
+    run = solver.batch_id
+    losses = solver.batch_losses.double()
+    k = max(run // 10, 5)
+    tables_finite = all(bool(torch.isfinite(t.float()).all())
+                        for t in solver.state["tables"])
+    moment_rows = [int((m != 0).any(dim=1).sum())
+                   for group in solver.state["moments"] for m in group]
+    rec = {"float_type": float_type, "optimizer": optimizer["type"],
+           "batches": run, "effective_batch": eff, "warmup_s": warm_s,
+           "elapsed_s": elapsed, "ms_per_batch": elapsed / run * 1e3,
+           "samples_per_s": run * eff / elapsed,
+           "pool_shape": list(solver._active_step_fn.pool_shape),
+           "sweeps": [solver._sweep_gather, solver._sweep_scatter,
+                      solver._sweep_context],
+           "launches": counts,
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": tables_finite,
+           "max_abs_table": max(float(t.float().abs().max())
+                                for t in solver.state["tables"]),
+           "nonzero_moment_rows": moment_rows,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    problems = []
+    if rec["sweeps"] != [True, True, True]:
+        problems.append("the sweep routes were not chosen: %r"
+                        % rec["sweeps"])
+    if eff != 99328 or rec["pool_shape"] != [64, 128]:
+        problems.append("batch plan %d, pool %r (want 99328, [64, 128])"
+                        % (eff, rec["pool_shape"]))
+    want = {name: per_batch.get(name, 0) * run for name in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if not rec["losses_finite"] or not tables_finite:
+        problems.append("losses or tables not finite")
+    if falling and not rec["loss_last"] < rec["loss_first"]:
+        problems.append("losses not falling")
+    if optimizer["type"] == "Adam" and not all(moment_rows):
+        problems.append("a moment table did not move: %r" % moment_rows)
+    return solver, rec, problems
+
+
+def replay_edge_batch(solver, seed):
+    """Capture one batch as the solver's runner makes it (its sorted edge
+    stream, pool draws of the shape its step takes, its negative sampler)
+    and run it through the solver's pool step on the card (in place on the
+    solver's state, whose run is over) and on the CPU from a copy of the
+    same tables and moments.
+
+    Tolerances: those of replay_batch (float32 rtol 3e-4, atol 3e-6, the
+    CPU tests' tolerance against the reference; bfloat16 tables that plus
+    1 bf16 ulp; loss rtol 2e-5); moments are float32. The captured heads
+    must ascend (the sorted entries' contract), and in float32 every
+    head's vertex row must move. Returns the record, the batch's ids and a
+    list of problems."""
+    import torch
+    from graphvite_tpu_torch.ops.alias import device_sample
+
+    dev = solver.device
+    step, neg = solver._active_step_fn, solver._active_neg_state
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    heads, tails, mask = solver._active_sample_fn(
+        *solver._active_sampler.arrays(), generator=gen)
+    G, M = step.pool_shape
+    draws = tuple(torch.rand((G, M), generator=gen, device=dev)
+                  for _ in range(2))
+    lr = solver.optimizer.schedule_lr(0, solver.num_batch)
+    ascending = bool((heads[1:] >= heads[:-1]).all())
+    state = solver.state
+    cpu_state = {"tables": tuple(t.to("cpu", copy=True)
+                                 for t in state["tables"]),
+                 "moments": tuple(tuple(m.to("cpu", copy=True) for m in g)
+                                  for g in state["moments"])}
+    uh = heads.unique()
+    before = state["tables"][0][uh].clone()
+    with torch.no_grad():
+        new, loss = step(state, heads, tails, lr, *neg, mask=mask,
+                         draws=draws)
+        cpu_new, cpu_loss = step(cpu_state, heads.cpu(), tails.cpu(), lr,
+                                 *(t.cpu() for t in neg), mask=mask.cpu(),
+                                 draws=tuple(d.cpu() for d in draws))
+    solver.state = new
+    ok, max_diff = True, 0.0
+    pairs = list(zip(new["tables"], cpu_new["tables"]))
+    pairs += [(a, b) for ga, gb in zip(new["moments"], cpu_new["moments"])
+              for a, b in zip(ga, gb)]
+    for got, want in pairs:
+        bf16 = got.dtype == torch.bfloat16
+        got, want = got.cpu().float(), want.float()
+        diff = (got - want).abs()
+        tol = 3e-6 + 3e-4 * want.abs()
+        if bf16:
+            tol = tol + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+        ok = ok and bool((diff <= tol).all())
+        max_diff = max(max_diff, float(diff.max()))
+        del got, want, diff, tol
+    v_moved = int((new["tables"][0][uh] != before).any(dim=1).sum())
+    pool_ids = device_sample(*neg, *draws)
+    ctx_ids = torch.cat([tails, pool_ids.reshape(-1).to(tails.dtype)])
+    loss, cpu_loss = float(loss), float(cpu_loss)
+    rec = {"float_type": str(state["tables"][0].dtype).replace("torch.", ""),
+           "optimizer": solver.optimizer.type, "heads_ascending": ascending,
+           "batch": int(heads.numel()), "context_rows": int(ctx_ids.numel()),
+           "loss": loss, "cpu_loss": cpu_loss, "max_abs_diff": max_diff,
+           "tolerance": "rtol 3e-4, atol 3e-6 (+ 1 bf16 ulp on bf16 tables)",
+           "heads": int(uh.numel()), "vertex_rows_moved": v_moved}
+    del cpu_state, cpu_new, before
+    problems = []
+    if not ascending:
+        problems.append("the captured heads are not ascending")
+    if not ok:
+        problems.append("card and CPU disagree on a batch: %r" % rec)
+    if abs(loss - cpu_loss) > 2e-5 * abs(cpu_loss):
+        problems.append("card loss %r vs CPU loss %r" % (loss, cpu_loss))
+    if v_moved == 0 or (rec["float_type"] == "float32"
+                        and v_moved != rec["heads"]):
+        problems.append("vertex rows did not move: %r" % rec)
+    ids = {"heads": heads, "ctx": ctx_ids, "G": G, "M": M}
+    return rec, ids, problems
+
+
+# ---------------------------------------------------------------------------
+# phase 5: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def check_kernel(ids, dtype, gen):
@@ -350,7 +563,7 @@ def check_kernel(ids, dtype, gen):
     ms = cuda_ms(lambda: scatter.scatter_add_(t_kernel, ids, upd))
     sid, order = torch.sort(ids.to(torch.int32), stable=True)
     supd = upd.index_select(0, order)
-    lib = scatter._library()
+    lib = scatter._library("scatter_add")
     code = 0 if dtype == torch.float32 else 1
     stream = torch.cuda.current_stream().cuda_stream
     kernel_only_ms = cuda_ms(lambda: lib.gv_scatter_add(
@@ -373,8 +586,159 @@ def check_kernel(ids, dtype, gen):
             >= n * w / FP32_OPS_PER_S else "operations"}
 
 
+def bytes_bound(nbytes, ops=0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the float32 operations over the card's float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_sorted_add(heads, gen):
+    """Kernel 1's sorted entry on the edge route's sorted heads: a float32
+    [1,715,256, 128] table, the vertex update's shape."""
+    import torch
+    from graphvite_tpu_torch.ops import scatter
+
+    dev = torch.device("cuda")
+    v, w, n = FLICKR_V, DIM, heads.numel()
+    upd = torch.randn((n, w), generator=gen, device=dev) * 1e-2
+    table = torch.randn((v, w), generator=gen, device=dev) * 0.1
+    plain = scatter.scatter_add_plain(table.clone(), heads, upd)
+    got = scatter.scatter_add_sorted_(table.clone(), heads, upd)
+    torch.cuda.synchronize()
+    mag = scatter.scatter_add_plain(table.abs(), heads, upd.abs())
+    diff = (got - plain).abs()
+    max_err = float(diff.max())
+    if not bool((diff <= 1e-6 * mag).all()):
+        raise AssertionError("sorted scatter_add disagrees with its plain "
+                             "version: max |err| %g" % max_err)
+    del plain, got, mag, diff
+    t = table.clone()
+    ids32 = heads.to(torch.int32).contiguous()
+    ms = cuda_ms(lambda: scatter.scatter_add_sorted_(t, ids32, upd))
+    plain_ms = cuda_ms(lambda: scatter.scatter_add_plain(t, heads, upd))
+    ids64 = heads.long()
+    library_ms = cuda_ms(lambda: t.index_add_(0, ids64, upd))
+    uniq = int(torch.unique(heads).numel())
+    bound_ms, bound_by = bytes_bound(n * w * 4 + 2 * uniq * w * 4 + 4 * n,
+                                     n * w)
+    del t, table
+    return {"n": n, "dtype": "float32", "unique_rows": uniq,
+            "max_abs_err": max_err, "tolerance": "|err| <= 1e-6 * (|table| "
+            "+ sum|upd|)", "ms": ms, "kernel_only_ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_gather(heads, dtype, gen):
+    """Kernel 3 on the edge route's sorted heads, float32 out (what the
+    step asks for), from a [1,715,256, 128] table of `dtype`."""
+    import torch
+    from graphvite_tpu_torch.ops import gather
+
+    dev = torch.device("cuda")
+    v, d, n = FLICKR_V, DIM, heads.numel()
+    table = torch.randn((v, d), generator=gen, device=dev).to(dtype)
+    want = gather.gather_sorted_plain(table, heads, torch.float32)
+    got = gather.gather_sorted(table, heads, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    max_err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("gather_sorted disagrees with its plain "
+                             "version at %s: max |err| %g" % (dtype, max_err))
+    ms = cuda_ms(lambda: gather.gather_sorted(table, heads,
+                                              out_dtype=torch.float32))
+    ids32 = heads.to(torch.int32).contiguous()
+    out = torch.empty((n, d), device=dev)
+    lib = gather._library()
+    code = 0 if dtype == torch.float32 else 1
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel_only_ms = cuda_ms(lambda: lib.gv_gather_sorted(
+        table.data_ptr(), code, ids32.data_ptr(), out.data_ptr(), 0, n, v, d,
+        1, stream))
+    plain_ms = cuda_ms(lambda: gather.gather_sorted_plain(table, heads,
+                                                          torch.float32))
+    ids64 = heads.long()
+    # one PyTorch call computes the same function only for float32 rows
+    library_ms = (cuda_ms(lambda: torch.index_select(table, 0, ids64))
+                  if dtype == torch.float32 else None)
+    uniq = int(torch.unique(heads).numel())
+    s = table.element_size()
+    bound_ms, bound_by = bytes_bound(uniq * d * s + n * d * 4 + 4 * n)
+    del table, want, got, out
+    return {"n": n, "dtype": str(dtype).replace("torch.", ""),
+            "out_dtype": "float32", "unique_rows": uniq,
+            "max_abs_err": max_err, "tolerance": "exact", "ms": ms,
+            "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def check_update(ids, counts, sorted_entry, gen):
+    """Kernel 2 (Adam, float32 table and moments of [1,715,256, 128]) on
+    one side of an edge batch: the sorted heads with their K+1 touch
+    counts, or the unsorted tail and pool ids with theirs. Gradients and
+    squares are random; the ids and counts are the batch's."""
+    import torch
+    from graphvite_tpu_torch.ops import scatter
+    from graphvite_tpu_torch.optim import Optimizer
+
+    dev = torch.device("cuda")
+    v, d, n = FLICKR_V, DIM, ids.numel()
+    opt = Optimizer(type="Adam", lr=1e-3, weight_decay=5e-3)
+    grads = torch.randn((n, d), generator=gen, device=dev) * 1e-2
+    sqs = grads * grads * (1.0 + torch.rand((n, d), generator=gen,
+                                            device=dev))
+    table = torch.randn((v, d), generator=gen, device=dev) * 0.1
+    moms = tuple(torch.rand((v, d), generator=gen, device=dev) * 1e-4
+                 for _ in range(2))
+    fn = (scatter.scatter_update_sorted_ if sorted_entry
+          else scatter.scatter_update_)
+    kw = dict(entry_counts=counts, entry_sqs=sqs)
+    want_t, want_m = scatter.scatter_update_plain(
+        table.clone(), tuple(m.clone() for m in moms), ids, grads, opt, 1e-3,
+        counts, sqs)
+    got_t, got_m = fn(table.clone(), tuple(m.clone() for m in moms), ids,
+                      grads, opt, 1e-3, **kw)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for a, b in zip((got_t,) + got_m, (want_t,) + want_m):
+        diff = (a - b).abs()
+        max_err = max(max_err, float(diff.max()))
+        if not bool((diff <= 2e-5 + 2e-5 * b.abs()).all()):
+            raise AssertionError("scatter_update disagrees with its plain "
+                                 "version: max |err| %g" % float(diff.max()))
+        del diff
+    del want_t, want_m, got_t, got_m
+    t, m = table.clone(), tuple(x.clone() for x in moms)
+    ms = cuda_ms(lambda: fn(t, m, ids, grads, opt, 1e-3, **kw))
+    sid, order = torch.sort(ids.to(torch.int32), stable=True)
+    sg, sq, sc = (grads.index_select(0, order), sqs.index_select(0, order),
+                  counts.index_select(0, order))
+    lib = scatter._library("scatter_update")
+    stream = torch.cuda.current_stream().cuda_stream
+    kernel_only_ms = cuda_ms(lambda: lib.gv_scatter_update(
+        t.data_ptr(), 0, m[0].data_ptr(), m[1].data_ptr(), sid.data_ptr(),
+        sg.data_ptr(), sc.data_ptr(), sq.data_ptr(), n, v, d, 4, 1e-3, 1.0,
+        math.log(opt.beta1), math.log(opt.beta2), opt.epsilon, 1, stream))
+    plain_ms = cuda_ms(lambda: scatter.scatter_update_plain(
+        t, m, ids, grads, opt, 1e-3, counts, sqs), reps=5, warmup=1)
+    uniq = int(torch.unique(ids).numel())
+    # entries: grads, squares, counts, ids; rows: table + 2 moments, read
+    # and written once each
+    bound_ms, bound_by = bytes_bound(n * d * 8 + 8 * n + 2 * uniq * d * 12,
+                                     n * d * 3 + uniq * d * 20)
+    del t, m, table, moms, sg, sq
+    return {"n": n, "sorted": sorted_entry, "optimizer": "Adam",
+            "dtype": "float32", "unique_rows": uniq, "max_abs_err": max_err,
+            "tolerance": "|err| <= 2e-5 + 2e-5 |want|", "ms": ms,
+            "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 # ---------------------------------------------------------------------------
-# phase 5: quality
+# phase 6: quality
 # ---------------------------------------------------------------------------
 
 def two_blocks(n=60, seed=0):
@@ -393,19 +757,27 @@ def two_blocks(n=60, seed=0):
     return edges
 
 
-def quality(device=None):
+def quality(model="DeepWalk", device=None):
+    """Two-block link prediction and node classification through
+    GraphApplication: DeepWalk (augmentation 2, the unfused trust-clip
+    walk route) or LINE (augmentation 1, the edge route on a table below
+    the dense-update size: the trust clip on the scatter-add), with the
+    protocols of tests/test_solver.py."""
     from graphvite_tpu_torch import GraphApplication
-    from graphvite_tpu_torch.ops import scatter
 
     edges = two_blocks()
     app = GraphApplication(dim=16, device=device)
     app.load(edge_list=edges)
-    app.build(optimizer={"type": "SGD", "lr": 0.1, "weight_decay": 5e-3},
-              num_negative=1, batch_size=2048, episode_size=8)
-    before = scatter.scatter_add_.launches
-    app.train(model="DeepWalk", num_epoch=2000, augmentation_step=2,
-              random_walk_length=8, negative_weight=1.0, log_frequency=10**9)
-    launches = scatter.scatter_add_.launches - before
+    if model == "DeepWalk":
+        app.build(optimizer={"type": "SGD", "lr": 0.1, "weight_decay": 5e-3},
+                  num_negative=1, batch_size=2048, episode_size=8)
+        kw = dict(num_epoch=2000, augmentation_step=2, random_walk_length=8)
+    else:
+        app.build(num_negative=2, batch_size=512, episode_size=8)
+        kw = dict(num_epoch=1000, augmentation_step=1)
+    reset_launches()
+    app.train(model=model, negative_weight=1.0, log_frequency=10**9, **kw)
+    launches = read_launches()
     g = app.graph
     rng = np.random.default_rng(1)
     half = g.num_vertex // 2
@@ -421,17 +793,31 @@ def quality(device=None):
     classes = ["a" if int(x) < half else "b" for x in labels]
     nc = app.evaluate("node classification", X=labels, Y=classes,
                       portions=(0.5,), patience=20)
-    return {"auc": auc, "micro_f1": nc["micro-F1@50%"],
-            "fused_arena": app.solver._banded_fused,
-            "batches": app.solver.batch_id, "launches": launches}
+    s = app.solver
+    return {"model": model, "auc": auc, "micro_f1": nc["micro-F1@50%"],
+            "fused_arena": s._banded_fused,
+            "sweeps": [s._sweep_gather, s._sweep_scatter, s._sweep_context],
+            "batches": s.batch_id, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
+
+def kernel_row(name, source, replaces, launches, by_path, cases, case):
+    """One kernel's entry of the kernels line: `case` gives the times."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": case["ms"], "kernel_ms": case["kernel_only_ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--main-batches", type=int, default=1000)
+    ap.add_argument("--edge-batches", type=int, default=1000)
     args = ap.parse_args()
 
     try:
@@ -444,7 +830,7 @@ def main():
                          "runs on a GPU only\n")
         return 2
     try:
-        from graphvite_tpu_torch.ops import scatter
+        from graphvite_tpu_torch.ops import gather, kernels, scatter
     except ImportError as e:
         sys.stderr.write("chip_smoke: run from the root of a checkout of "
                          "the repository (%s)\n" % e)
@@ -479,24 +865,31 @@ def main():
     if not phase("device", device):
         return 1
 
-    # 2. build
+    # 2. build: every kernel, one nvcc each, in parallel
     def build():
         t0 = time.perf_counter()
-        path, report = scatter.build(verbose=True)
+        paths, reports = kernels.build(verbose=True)
         secs = time.perf_counter() - t0
-        log("built %s in %.1f s" % (path, secs))
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log("   ptxas:", line.strip())
-        scatter._library()
+        for name, path in sorted(paths.items()):
+            log("built %s" % path)
+            for line in reports[name].splitlines():
+                if "registers" in line or "spill" in line:
+                    log("   ptxas:", line.strip())
+        log("built %d kernels in %.1f s" % (len(paths), secs))
+        if sorted(paths) != ["gather_sorted", "scatter_add",
+                             "scatter_update"]:
+            raise AssertionError("kernels built: %r" % sorted(paths))
+        scatter._library("scatter_add")
+        scatter._library("scatter_update")
+        gather._library()
         return secs
     if not phase("build", build):
         return 1
 
-    # 3. main path
+    # 3. main path (DeepWalk)
     def main_path():
         t0 = time.perf_counter()
-        graph = youtube_graph(args.seed)
+        graph = power_law_graph(YOUTUBE_V, YOUTUBE_E, args.seed)
         log("graph: %d vertices, %d input edges, %d directed, built in %.1f s"
             % (graph.num_vertex, graph.num_edge, graph.num_directed_edge,
                time.perf_counter() - t0))
@@ -515,7 +908,8 @@ def main():
         log("   float32:", json.dumps(rec))
         out["float32"] = rec
         problems += ["float32: " + p for p in bad]
-        out["trace"] = trace_episode(solver, rec["ms_per_batch"])
+        out["trace"] = trace_episode(solver, rec["ms_per_batch"],
+                                     DEEPWALK_YOUTUBE)
         log("   trace:", json.dumps(out["trace"]))
         out["batch_ids"].append(replay(solver, "float32"))
         del solver
@@ -545,57 +939,139 @@ def main():
         return out
     phase("main", main_path)
 
-    # 4. kernel against its plain version, on the main path's update ids
+    # 4. the edge route (LINE)
+    def edge_path():
+        t0 = time.perf_counter()
+        graph = power_law_graph(FLICKR_V, FLICKR_E, args.seed)
+        log("graph: %d vertices, %d input edges, %d directed, built in %.1f s"
+            % (graph.num_vertex, graph.num_edge, graph.num_directed_edge,
+               time.perf_counter() - t0))
+        torch.cuda.reset_peak_memory_stats()
+        out = {}
+        problems = []
+        n = args.edge_batches
+        runs = (("float32", "float32", SGD_FLICKR, n, EDGE_SGD_LAUNCHES),
+                ("bfloat16", "bfloat16", SGD_FLICKR, max(n // 2, 10),
+                 EDGE_SGD_LAUNCHES),
+                ("adam", "float32", ADAM_FLICKR, max(n // 5, 10),
+                 EDGE_ADAM_LAUNCHES))
+        for name, float_type, opt, batches, per_batch in runs:
+            solver, rec, bad = train_edge_path(
+                graph, float_type, opt, batches, per_batch,
+                falling=(name == "float32"))
+            log("   %s:" % name, json.dumps(rec))
+            out[name] = rec
+            problems += ["%s: %s" % (name, p) for p in bad]
+            if name == "float32":
+                out["trace"] = trace_episode(solver, rec["ms_per_batch"],
+                                             LINE_FLICKR)
+                log("   trace:", json.dumps(out["trace"]))
+            rep, ids, bad = replay_edge_batch(solver, args.seed + 1)
+            log("   %s batch, card vs CPU:" % name, json.dumps(rep))
+            out["replay_" + name] = rep
+            problems += ["%s replay: %s" % (name, p) for p in bad]
+            if name == "float32":
+                out["ids"] = ids
+            del solver
+            torch.cuda.empty_cache()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log("   edge phase peak device memory %.2f GB" % out["peak_mem_gb"])
+        if problems:
+            raise AssertionError("; ".join(problems))
+        return out
+    phase("edge", edge_path)
+
+    # 5. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        cases = []
+        cases = {"scatter_add": [], "gather_sorted": [],
+                 "scatter_update": []}
         for ids in results["main"]["batch_ids"]:
             for dtype in (torch.float32, torch.bfloat16):
                 rec = check_kernel(ids, dtype, gen)
                 log("   scatter_add", json.dumps(rec))
-                cases.append(rec)
+                cases["scatter_add"].append(rec)
+        e = results["edge"]["ids"]
+        heads, ctx = e["heads"], e["ctx"]
+        rec = check_sorted_add(heads, gen)
+        log("   scatter_add_sorted_ (edge heads)", json.dumps(rec))
+        cases["scatter_add"].append(rec)
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = check_gather(heads, dtype, gen)
+            log("   gather_sorted", json.dumps(rec))
+            cases["gather_sorted"].append(rec)
+        G, M = e["G"], e["M"]
+        b = heads.numel()
+        v_counts = torch.full((b,), 2.0, device="cuda")      # K + 1
+        c_counts = torch.cat([torch.ones(b, device="cuda"),
+                              torch.full((G * M,), b // G / M,
+                                         device="cuda")])
+        for ids, counts, sorted_entry in ((heads, v_counts, True),
+                                          (ctx, c_counts, False)):
+            rec = check_update(ids, counts, sorted_entry, gen)
+            log("   scatter_update", json.dumps(rec))
+            cases["scatter_update"].append(rec)
         return cases
-    if "main" in results:
+    if "main" in results and "edge" in results:
         phase("kernel", kernel)
     else:
-        failures.append("kernel (needs the main path's update ids)")
+        failures.append("kernel (needs the main paths' ids)")
 
-    # 5. quality
+    # 6. quality
     def quality_phase():
-        q = quality()
-        log("   two-block DeepWalk on the card:", json.dumps(q))
-        if not q["auc"] > 0.9:
-            raise AssertionError("link-prediction AUC %.4f <= 0.9" % q["auc"])
-        if q["launches"] != 2 * q["batches"] or q["fused_arena"]:
-            raise AssertionError("the unfused route did not launch the "
-                                 "kernel twice per batch: %r" % q)
-        return q
+        out = {}
+        for model in ("DeepWalk", "LINE"):
+            q = quality(model)
+            log("   two-block %s on the card:" % model, json.dumps(q))
+            if not q["auc"] > 0.9:
+                raise AssertionError("%s link-prediction AUC %.4f <= 0.9"
+                                     % (model, q["auc"]))
+            others = sum(q["launches"].values()) - q["launches"]["scatter_add_"]
+            if (q["launches"]["scatter_add_"] != 2 * q["batches"] or others
+                    or q["fused_arena"] or any(q["sweeps"])):
+                raise AssertionError("the small-table route did not launch "
+                                     "the scatter-add twice per batch: %r"
+                                     % q)
+            out[model] = q
+        return out
     phase("quality", quality_phase)
 
     if failures:
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 6. summary: the card line, the kernels line, the result line
+    # 7. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
+    edge = results["edge"]
     cases = results["kernel"]
-    case = cases[0]     # the batch-100000 update, float32 table
-    kernels = {"kernels": [{
-        "name": "scatter_add",
-        "route": "cuda",
-        "source": "graphvite_tpu_torch/csrc/scatter_add.cu",
-        "replaces": "graphvite_tpu/ops/pallas_scatter.py:146",
-        "launches": main_rec["launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": case["ms"],
-        "kernel_ms": case["kernel_only_ms"],
-        "plain_ms": case["plain_ms"],
-        "bound_ms": case["bound_ms"],
-        "bound_by": case["bound_by"],
-        "library_ms": case["library_ms"],
-    }]}
+    k1 = {"deepwalk_float32": main_rec["launches"],
+          "edge_float32": (edge["float32"]["launches"]["scatter_add_"]
+                           + edge["float32"]["launches"]
+                           ["scatter_add_sorted_"])}
+    k2 = {"edge_adam": (edge["adam"]["launches"]["scatter_update_"]
+                        + edge["adam"]["launches"]["scatter_update_sorted_"])}
+    k3 = {"edge_float32": edge["float32"]["launches"]["gather_sorted"]}
+    kernels_line = {"kernels": [
+        # the DeepWalk batch-100000 update, float32 table
+        kernel_row("scatter_add", "graphvite_tpu_torch/csrc/scatter_add.cu",
+                   "graphvite_tpu/ops/pallas_scatter.py:146",
+                   sum(k1.values()), k1, cases["scatter_add"],
+                   cases["scatter_add"][0]),
+        # the edge route's sorted heads, float32 table
+        kernel_row("gather_sorted",
+                   "graphvite_tpu_torch/csrc/gather_sorted.cu",
+                   "graphvite_tpu/ops/pallas_scatter.py:342",
+                   sum(k3.values()), k3, cases["gather_sorted"],
+                   cases["gather_sorted"][0]),
+        # Adam on the edge route's sorted heads
+        kernel_row("scatter_update",
+                   "graphvite_tpu_torch/csrc/scatter_update.cu",
+                   "graphvite_tpu/ops/pallas_scatter.py:530",
+                   sum(k2.values()), k2, cases["scatter_update"],
+                   cases["scatter_update"][0]),
+    ]}
     log(card_line())
-    log(json.dumps(kernels))
+    log(json.dumps(kernels_line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,10 +2,11 @@
 
 A second package beside the JAX one, which stays the reference. It imports
 torch and numpy, never jax or graphvite_tpu. So far it trains DeepWalk and
-LINE node embeddings through the banded walk route, with every table update
-on a hand-written CUDA scatter-add kernel (graphvite_tpu_torch/csrc/). Its
-solvers and applications run on CUDA unless the caller asks for the CPU
-(`device="cpu"`).
+LINE node embeddings through the banded walk route (augmentation_step >= 2)
+and the edge route (augmentation_step 1), with the table updates and the
+edge route's sorted gather on hand-written CUDA kernels
+(graphvite_tpu_torch/csrc/). Its solvers and applications run on CUDA
+unless the caller asks for the CPU (`device="cpu"`).
 """
 
 __version__ = "0.1.0"

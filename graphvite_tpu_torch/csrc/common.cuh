@@ -1,0 +1,79 @@
+// Helpers shared by the port's kernels (csrc/*.cu): row access in 4-column
+// vectors or single columns for float32 and bfloat16 rows, the warp scan
+// to the end of a run of equal sorted ids, and the error string of the
+// plain C interface. Each kernel source is built into a library of its
+// own (graphvite_tpu_torch/ops/kernels.py), so each defines this once.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gv {
+
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = 8;
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const uint32_t*>(&a);
+  raw.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// x rounded to the element type T and back (the identity for float)
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// End of the run of ids equal to ids[j] == id, which starts at j: the ids
+// are ascending, so the equal ids form a prefix of each 32-wide window and
+// the first lane that differs ends the run. Warp-collective: every lane
+// of the warp must call it with the same j.
+__device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ ids,
+                                           int64_t j, int64_t n, int32_t id,
+                                           int lane) {
+  int64_t end = j + 1;
+  while (true) {
+    const int64_t p = end + lane;
+    const bool same = p < n && ids[p] == id;
+    const unsigned ballot = __ballot_sync(0xffffffffu, same);
+    if (ballot != 0xffffffffu) return end + __ffs(~ballot) - 1;
+    end += kWarp;
+  }
+}
+
+}  // namespace gv
+
+extern "C" const char* gv_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

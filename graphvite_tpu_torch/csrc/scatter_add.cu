@@ -7,15 +7,17 @@
 // one-hot MXU matmuls, because the TPU has no cheap random row access.
 // Hopper has it, so this kernel touches only the rows the updates name.
 //
-// Contract (the caller, graphvite_tpu_torch/ops/scatter.py, sorts the ids
-// with a stable sort and permutes the update rows to match):
+// Contract (the callers in graphvite_tpu_torch/ops/scatter.py pass ids
+// that are sorted: scatter_add_sorted_ takes them sorted, scatter_add_
+// sorts them with a stable sort and permutes the update rows to match):
 //   table  [V, W] float32 or bfloat16, contiguous, updated in place;
 //   ids    [N] int32, ascending; ids < 0 or >= V are dropped;
 //   upd    [N, W] float32, row j belongs to ids[j].
 // Each row's updates are summed in float32 registers in sorted order,
 // added to the row's value, and the row is written once, cast to the
 // table's type. One warp owns each run of equal ids, so every row has
-// exactly one writer: no atomics, and the result is deterministic.
+// exactly one writer: no atomics, and the result is deterministic. Ids
+// that are not ascending break that: two warps would own one row.
 //
 // What bounds it: memory. It must read N*W*4 bytes of updates and 4*N
 // bytes of ids and read and write the U touched rows (2*U*W*s bytes for
@@ -26,49 +28,12 @@
 // A hub id's long run is summed by a single warp; at the main path's
 // sizes (N ~ 12k-28k rows) that serial run, not bandwidth, sets the time.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const uint32_t*>(&a);
-  raw.y = *reinterpret_cast<const uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+using gv::kWarp;
+using gv::kWarpsPerBlock;
 
 // One warp per sorted position j. The warp whose position heads a run of
 // equal in-range ids sums the whole run (past its own position, however
@@ -82,25 +47,12 @@ scatter_add_kernel(T* __restrict__ table, const int32_t* __restrict__ ids,
                     threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   // j is the same for all lanes of a warp, so every branch below is
-  // warp-uniform and the ballot sees all 32 lanes
+  // warp-uniform and the ballot in run_end sees all 32 lanes
   if (j >= n) return;
   const int32_t id = ids[j];
   if (id < 0 || id >= v) return;
   if (j > 0 && ids[j - 1] == id) return;
-
-  // end of the run: the ids are sorted, so the equal ids form a prefix of
-  // each 32-wide window; the first lane that differs ends the run
-  int64_t end = j + 1;
-  while (true) {
-    const int64_t p = end + lane;
-    const bool same = p < n && ids[p] == id;
-    const unsigned ballot = __ballot_sync(0xffffffffu, same);
-    if (ballot != 0xffffffffu) {
-      end += __ffs(~ballot) - 1;
-      break;
-    }
-    end += kWarp;
-  }
+  const int64_t end = gv::run_end(ids, j, n, id, lane);
 
   T* row = table + static_cast<int64_t>(id) * w;
   const float* first = upd + j * w;
@@ -110,15 +62,15 @@ scatter_add_kernel(T* __restrict__ table, const int32_t* __restrict__ ids,
       const float* u = first + c;
 #pragma unroll 4
       for (int64_t r = j; r < end; ++r, u += w) {
-        const float4 x = load4(u);
+        const float4 x = gv::load4(u);
         acc.x += x.x;
         acc.y += x.y;
         acc.z += x.z;
         acc.w += x.w;
       }
-      const float4 old = load4(row + c);
-      store4(row + c, make_float4(old.x + acc.x, old.y + acc.y,
-                                  old.z + acc.z, old.w + acc.w));
+      const float4 old = gv::load4(row + c);
+      gv::store4(row + c, make_float4(old.x + acc.x, old.y + acc.y,
+                                      old.z + acc.z, old.w + acc.w));
     }
   } else {
     for (int64_t c = lane; c < w; c += kWarp) {
@@ -126,7 +78,7 @@ scatter_add_kernel(T* __restrict__ table, const int32_t* __restrict__ ids,
       const float* u = first + c;
 #pragma unroll 4
       for (int64_t r = j; r < end; ++r, u += w) acc += *u;
-      store1(row + c, to_float(row[c]) + acc);
+      gv::store1(row + c, gv::to_float(row[c]) + acc);
     }
   }
 }
@@ -168,10 +120,6 @@ int gv_scatter_add(void* table, int dtype, const void* ids, const void* upd,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-const char* gv_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

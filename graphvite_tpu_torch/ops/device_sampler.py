@@ -1,24 +1,166 @@
-"""On-device walk generation for the banded walk step (the port of the
-first-order parts of graphvite_tpu/ops/device_sampler.py).
+"""On-device positive samples (the port of the edge sampler and the
+first-order walk parts of graphvite_tpu/ops/device_sampler.py).
 
-Walks start from alias-sampled edges and step through per-vertex alias
-tables over out-edge weights; they truncate at dead ends (the reference's
-graph.cuh:376-450 semantics). The banded emitter hands whole walks to the
-step with one pair-validity mask per (position, offset).
+Edges (augmentation_step 1): `DeviceEdgeSampler` draws each batch's
+positive edges on the device, from a host-shuffled stream of 1024-edge
+chunks (optionally sorted by head id), uniformly, or by edge weight.
 
-Random draws: the chain function takes its uniforms as optional inputs
-(`draws`), so a test can feed it the JAX reference's own draws and get the
-same chain; otherwise it draws from an explicit `torch.Generator` on the
-arrays' device.
+Walks: walks start from alias-sampled edges and step through per-vertex
+alias tables over out-edge weights; they truncate at dead ends (the
+reference's graph.cuh:376-450 semantics). The banded emitter hands whole
+walks to the step with one pair-validity mask per (position, offset).
+
+Random draws: the sample and chain functions take their random numbers as
+optional inputs (`draws`), so a test can feed them the JAX reference's own
+draws and get the same samples; otherwise they draw from an explicit
+`torch.Generator` on the arrays' device.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
-from graphvite_tpu_torch.ops.alias import AliasTable, PackedAliasTables
+from graphvite_tpu_torch.ops.alias import (AliasTable, PackedAliasTables,
+                                           device_alias_arrays,
+                                           device_sample)
+
+
+@dataclasses.dataclass
+class DeviceEdgeSampler:
+    """Positive edges on the device, in one of four modes:
+
+    * streamed (unweighted graphs with at least MIN_STREAM_BLOCKS chunks of
+      edges): the packed [E, 2] (head, tail) array is shuffled on the host
+      once, padded with re-drawn edges to whole STREAM_CHUNK blocks, and
+      each batch gathers ceil(B / 1024) random whole blocks;
+    * sorted stream (`sort_stream`, or GRAPHVITE_SORTED_STREAM=1): the
+      shuffled stream is also stable-sorted by head id, so sorting the
+      drawn block ids gives a batch whose heads ascend (the copies of a
+      block drawn more than once are interleaved to keep it so); where B
+      is not a multiple of 1024, the batch is rotated by a uniform offset
+      before truncation, so truncation drops every row with equal
+      probability, and leaves two ascending runs;
+    * uniform random edges (unweighted, too few edges to stream);
+    * alias-weighted edges (weighted graphs).
+
+    The host shuffle uses the reference's np.random.default_rng(0x5eed ^
+    num_edge), so the stream is the reference's, bit for bit."""
+
+    STREAM_CHUNK = 1024
+    MIN_STREAM_BLOCKS = 64   # enough blocks for batch diversity
+
+    edges: torch.Tensor      # [E, 2] int32, or [nblocks, C, 2] streamed
+    alias_arrays: tuple      # () uniform | (packed,) | (prob, alias)
+    num_edge: int
+    uniform: bool
+    streamed: bool = False
+    sorted_stream: bool = False
+
+    @classmethod
+    def build(cls, graph, sort_stream=None, device="cpu"):
+        w = np.asarray(graph.edge_weights)
+        uniform = bool(w.size == 0 or np.all(w == w[0]))
+        alias_arrays = () if uniform else device_alias_arrays(AliasTable(w))
+        packed = np.stack([np.asarray(graph.edge_heads, np.int32),
+                           np.asarray(graph.edge_tails, np.int32)], axis=1)
+        n_edge = int(packed.shape[0])
+        C = cls.STREAM_CHUNK
+        streamed = uniform and n_edge >= C * cls.MIN_STREAM_BLOCKS
+        if sort_stream is None:
+            sort_stream = os.environ.get("GRAPHVITE_SORTED_STREAM",
+                                         "0") != "0"
+        sorted_stream = bool(streamed and sort_stream)
+        if streamed:
+            rng = np.random.default_rng(0x5eed ^ n_edge)
+            packed = packed[rng.permutation(n_edge)]
+            pad = (-n_edge) % C
+            if pad:
+                # re-drawn edges; their ~C/E over-weight is negligible
+                packed = np.concatenate(
+                    [packed, packed[rng.integers(0, n_edge, pad)]])
+            if sorted_stream:
+                # stable: within a head, the shuffled order stays
+                packed = packed[np.argsort(packed[:, 0], kind="stable")]
+            packed = packed.reshape(-1, C, 2)
+        return cls(
+            edges=torch.as_tensor(packed, device=device),
+            alias_arrays=tuple(torch.as_tensor(a, device=device)
+                               for a in alias_arrays),
+            num_edge=n_edge, uniform=uniform, streamed=streamed,
+            sorted_stream=sorted_stream)
+
+    def arrays(self):
+        return (self.edges,) + self.alias_arrays
+
+    def make_sample_fn(self, batch_size: int):
+        """fn(edges, *alias_arrays, generator=None, draws=None) -> (heads
+        [B] int32, tails [B] int32, mask [B] float32 ones). `draws`
+        replaces the generator's numbers: (block ids [ceil(B/1024)], roll
+        shift or None) when streamed, edge ids [B] when uniform, (u1, u2)
+        [B] when weighted."""
+        B = int(batch_size)
+        C = self.STREAM_CHUNK
+        streamed, sorted_stream = self.streamed, self.sorted_stream
+        uniform, n_edge = self.uniform, self.num_edge
+
+        def sample(edges, *alias_arrays, generator=None, draws=None):
+            dev = edges.device
+            if streamed:
+                nb = -(-B // C)
+                roll = sorted_stream and B % C
+                if draws is None:
+                    bid = torch.randint(0, edges.shape[0], (nb,),
+                                        generator=generator, device=dev)
+                    shift = (torch.randint(0, nb * C, (), generator=generator,
+                                           device=dev) if roll else None)
+                else:
+                    bid, shift = draws
+                if sorted_stream:
+                    # blocks are disjoint slices of a head-sorted array:
+                    # block-id order is head order
+                    bid = torch.sort(bid).values
+                row = edges[bid].reshape(nb * C, 2)
+                if sorted_stream:
+                    row = _interleave_repeats(row, bid, C)
+                if roll:
+                    idx = (torch.arange(nb * C, device=dev) + shift) % (nb * C)
+                    row = row[idx]
+                row = row[:B]
+            elif uniform:
+                eid = draws if draws is not None else torch.randint(
+                    0, n_edge, (B,), generator=generator, device=dev)
+                row = edges[eid]
+            else:
+                if draws is None:
+                    draws = (torch.rand(B, generator=generator, device=dev),
+                             torch.rand(B, generator=generator, device=dev))
+                row = edges[device_sample(*alias_arrays, *draws)]
+            heads, tails = row.t().contiguous()
+            mask = torch.ones(B, dtype=torch.float32, device=dev)
+            return heads, tails, mask
+
+        return sample
+
+
+def _interleave_repeats(row, bid, C):
+    """Rows [nb * C, 2] of the ascending block ids `bid`, reordered so that
+    a block drawn k times contributes each of its rows k times in a row:
+    the batch then ascends by head even when a block repeats (the
+    reference concatenates the copies, which leaves its batch unsorted; at
+    97 draws of 44k blocks about one batch in ten repeats a block). The
+    identity when no block repeats. Runs on the device, no host sync."""
+    nb = bid.shape[0]
+    first = torch.searchsorted(bid, bid)
+    mult = torch.searchsorted(bid, bid, right=True) - first
+    rank = torch.arange(nb, device=bid.device) - first
+    col = torch.arange(C, device=bid.device)
+    dest = (first * C + rank)[:, None] + col[None, :] * mult[:, None]
+    out = torch.empty_like(row)
+    out[dest.reshape(-1)] = row
+    return out
 
 
 def _alias_pick(prob, alias, u1, u2):

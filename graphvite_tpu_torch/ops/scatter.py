@@ -1,87 +1,67 @@
-"""Row scatter-add: table[ids[j]] += upd[j], duplicates summed.
+"""Row scatter updates: the ports of two TPU kernels of
+graphvite_tpu/ops/pallas_scatter.py, each with its sorted entry and its
+unsorted front end.
 
-The port of the TPU kernel graphvite_tpu/ops/pallas_scatter.py:
-sweep_scatter_add (with its argsort front end sweep_scatter_add_unsorted).
-Every table update of the banded walk steps goes through `scatter_add_`:
-the fused (vertex|context) arena update and both SGD branches of
-`optim.apply_row_updates`.
+Kernel 1, scatter-add (`sweep_scatter_add` and `sweep_scatter_add_unsorted`):
+table[ids[j]] += upd[j], duplicates summed.
 
-Contract (plus the XLA `mode="drop"` rule the callers rely on):
-* ids outside [0, V) are dropped (steps route dead slots to the sentinel V);
-* the table is float32 or bfloat16, contiguous, [V, W] for any W;
-* each row's updates are summed in float32 and the row is written once,
-  cast to the table's type; the table is updated in place.
+* `scatter_add_sorted_(table, sorted_ids, upd)`: ids already ascending, so
+  no sort and no permute (the sorted heads of the edge route).
+* `scatter_add_(table, ids, upd)`: any order; a stable sort of the ids and
+  a permute of the update rows, then the same kernel. Every other SGD
+  table update of the port goes through it.
 
-On a CUDA tensor `scatter_add_` launches the hand-written kernel in
-graphvite_tpu_torch/csrc/scatter_add.cu (built with nvcc for sm_90a at
-first use, bound with ctypes) or raises; on a CPU tensor it runs the plain
-version below. The front end (a stable sort of the ids and a permute of
-the update rows) runs as torch ops, as the TPU front end ran as XLA ops.
-What bounds the kernel and what its design does about it: see the note at
-the top of the CUDA source.
+Kernel 2, moment update (`sweep_scatter_update` and
+`sweep_scatter_update_unsorted`): per unique row, gsum / gsq / touch count
+summed over its entries, then one closed-form c-touch `moment_delta`
+update of the row and its moment rows; rows whose counts sum to 0 pass
+through untouched. SGD hands off to kernel 1.
+
+* `scatter_update_sorted_(...)`: ids ascending.
+* `scatter_update_(...)`: any order; a stable sort, then permutes of the
+  grads, squares and counts.
+
+Shared contract (plus the XLA `mode="drop"` rule the callers rely on): ids
+outside [0, V) are dropped; tables are float32 or bfloat16, contiguous,
+updated in place; sums are taken in float32 and each row is written once.
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(graphvite_tpu_torch/csrc/scatter_add.cu, scatter_update.cu; built with
+nvcc for sm_90a at first use, bound with ctypes) or raises; on a CPU tensor
+it runs the plain version below. The front ends' sorts and permutes run as
+torch ops, as the TPU front ends ran as XLA ops. The sorted entries do not
+check the order on the card (that would cost a host sync): ids that are
+not ascending lose updates there. Their CPU path checks it and raises.
+What bounds each kernel and what its design does about it: see the note
+at the top of its CUDA source.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import tempfile
+import math
 
 import torch
 
-_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PACKAGE, "csrc", "scatter_add.cu")
-# inside the checkout, in a directory .gitignore lists
-BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build",
-                         "graphvite_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from graphvite_tpu_torch.ops import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    return path if os.path.exists(path) else "nvcc"
-
-
-def build(verbose=False):
-    """Compile csrc/scatter_add.cu into BUILD_DIR (once per source digest)
-    and return the library path. `verbose` adds -Xptxas -v and returns the
-    compiler's report as a second value."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so_path = os.path.join(BUILD_DIR, "libgv_scatter_add-%s.so" % digest)
-    report = ""
-    if not os.path.exists(so_path) or verbose:
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            tmp_so = os.path.join(tmp, "lib.so")
-            cmd = ([_nvcc()] + NVCC_FLAGS
-                   + (["-Xptxas", "-v"] if verbose else [])
-                   + ["-o", tmp_so, SOURCE])
-            out = subprocess.run(cmd, capture_output=True, text=True)
-            if out.returncode != 0:
-                raise RuntimeError("nvcc failed (%d):\n%s%s"
-                                   % (out.returncode, out.stdout, out.stderr))
-            report = out.stdout + out.stderr
-            os.replace(tmp_so, so_path)
-    return (so_path, report) if verbose else so_path
+_MOMENT_CODES = {"Momentum": 1, "AdaGrad": 2, "RMSprop": 3, "Adam": 4}
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib = ctypes.CDLL(build())
-    vp = ctypes.c_void_p
-    ll = ctypes.c_longlong
-    lib.gv_scatter_add.argtypes = [vp, ctypes.c_int, vp, vp, ll, ll, ll,
-                                   ctypes.c_int, vp]
-    lib.gv_scatter_add.restype = ctypes.c_int
-    lib.gv_error_string.argtypes = [ctypes.c_int]
-    lib.gv_error_string.restype = ctypes.c_char_p
+def _library(name):
+    """The kernel's library with its launch function typed."""
+    lib = kernels.library(name)
+    vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_float)
+    if name == "scatter_add":
+        lib.gv_scatter_add.argtypes = [vp, i, vp, vp, ll, ll, ll, i, vp]
+        lib.gv_scatter_add.restype = i
+    else:
+        lib.gv_scatter_update.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, ll,
+                                          ll, ll, i, f, f, f, f, f, i, vp]
+        lib.gv_scatter_update.restype = i
     return lib
 
 
@@ -102,6 +82,39 @@ def _check(table, ids, upd):
         raise ValueError("table, ids and upd must be on one device")
 
 
+def _check_sorted(ids):
+    if ids.numel() > 1 and not bool((ids[1:] >= ids[:-1]).all()):
+        raise ValueError("the sorted entry needs ascending ids")
+
+
+def _on_card(table, name):
+    """True for a CUDA table the kernel takes, False for a CPU table;
+    raises for anything else."""
+    if table.device.type == "cpu":
+        return False
+    if table.device.type != "cuda":
+        raise ValueError("%s runs on CUDA or CPU tensors, not %s"
+                         % (name, table.device))
+    if not table.is_contiguous():
+        raise ValueError("%s needs a contiguous table" % name)
+    if table.shape[0] >= 2 ** 31:
+        raise ValueError("table has %d rows; the kernel takes int32 ids"
+                         % table.shape[0])
+    return True
+
+
+def _int32_ids(ids, v):
+    """int32 ids for the kernel: int64 ids are clamped to [-1, V] first,
+    which keeps every dropped id dropped and ascending ids ascending."""
+    if ids.dtype == torch.int64:
+        ids = ids.clamp(-1, v).to(torch.int32)
+    return ids.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: scatter-add
+# ---------------------------------------------------------------------------
+
 def scatter_add_plain(table, ids, upd):
     """The same function as torch index ops (the CPU path and the
     reference the kernel is held against). Sums each row's updates in
@@ -119,47 +132,207 @@ def scatter_add_plain(table, ids, upd):
     return table
 
 
+def _launch_add(table, sid, supd):
+    """Kernel 1 on int32 ascending ids and float32 rows in their order."""
+    v, w = table.shape
+    n = sid.shape[0]
+    if n == 0 or w == 0:
+        return
+    vec = int(w % 4 == 0 and kernels.aligned(table, supd))
+    lib = _library("scatter_add")
+    with torch.cuda.device(table.device):
+        rc = lib.gv_scatter_add(
+            table.data_ptr(), _DTYPE_CODES[table.dtype], sid.data_ptr(),
+            supd.data_ptr(), n, v, w, vec,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check_launch(lib, rc, "scatter_add")
+
+
+def scatter_add_sorted_(table, sorted_ids, upd):
+    """In place: table[sorted_ids[j]] += upd[j], duplicates summed, ids
+    outside [0, V) dropped; `sorted_ids` must be ascending (the contract
+    of the TPU `sweep_scatter_add`). No sort, no permute. Returns
+    `table`."""
+    _check(table, sorted_ids, upd)
+    if not _on_card(table, "scatter_add_sorted_"):
+        _check_sorted(sorted_ids)
+        return scatter_add_plain(table, sorted_ids, upd)
+    _launch_add(table, _int32_ids(sorted_ids, table.shape[0]),
+                upd.float().contiguous())
+    scatter_add_sorted_.launches += 1
+    return table
+
+
 def scatter_add_(table, ids, upd):
-    """In place: table[ids[j]] += upd[j] for every j, duplicates summed,
-    ids outside [0, V) dropped. Returns `table`.
+    """In place: table[ids[j]] += upd[j] for every j in any order,
+    duplicates summed, ids outside [0, V) dropped. Returns `table`.
 
     The kernel takes int32 ids: int64 ids are clamped to [-1, V] (which
     keeps every dropped id dropped) and converted once. `upd` is float32
     (other float types are converted)."""
     _check(table, ids, upd)
-    if table.device.type == "cpu":
+    if not _on_card(table, "scatter_add_"):
         return scatter_add_plain(table, ids, upd)
-    if table.device.type != "cuda":
-        raise ValueError("scatter_add_ runs on CUDA or CPU tensors, not %s"
-                         % table.device)
-    if not table.is_contiguous():
-        raise ValueError("scatter_add_ needs a contiguous table")
-    v, w = table.shape
-    if v >= 2 ** 31:
-        raise ValueError("table has %d rows; the kernel takes int32 ids" % v)
-    n = ids.shape[0]
-    if n == 0 or w == 0:
-        return table
     with torch.cuda.device(table.device):
-        if ids.dtype == torch.int64:
-            ids = ids.clamp(-1, v).to(torch.int32)
-        sid, order = torch.sort(ids, stable=True)
+        sid, order = torch.sort(_int32_ids(ids, table.shape[0]), stable=True)
         supd = upd.float().index_select(0, order)
-        align = 16 if table.dtype == torch.float32 else 8
-        vec = int(w % 4 == 0 and table.data_ptr() % align == 0
-                  and supd.data_ptr() % 16 == 0)
-        lib = _library()
-        rc = lib.gv_scatter_add(
-            table.data_ptr(), _DTYPE_CODES[table.dtype], sid.data_ptr(),
-            supd.data_ptr(), n, v, w, vec,
-            torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError("scatter_add kernel launch failed: %s (%d)"
-                           % (lib.gv_error_string(rc).decode(), rc))
+    _launch_add(table, sid, supd)
     scatter_add_.launches += 1
     return table
 
 
-# kernel launches since the last reset (chip_smoke.py reads it to show the
-# main path went through the kernel); the CPU path does not count
+# ---------------------------------------------------------------------------
+# kernel 2: moment update
+# ---------------------------------------------------------------------------
+
+def _check_update(table, moments, ids, grads, opt, entry_counts, entry_sqs):
+    _check(table, ids, grads)
+    if len(moments) != opt.num_moment:
+        raise ValueError("%s takes %d moment tables, got %d"
+                         % (opt.type, opt.num_moment, len(moments)))
+    for m in moments:
+        if m.shape != table.shape or m.dtype != torch.float32:
+            raise ValueError("moments must be float32 %s"
+                             % (tuple(table.shape),))
+        if m.device != table.device:
+            raise ValueError("moments must be on the table's device")
+    n = ids.shape[0]
+    if entry_counts is not None and entry_counts.shape != (n,):
+        raise ValueError("entry_counts must be [%d]" % n)
+    if entry_sqs is not None and entry_sqs.shape != grads.shape:
+        raise ValueError("entry_sqs must be %s" % (tuple(grads.shape),))
+
+
+def scatter_update_plain(table, moments, ids, grads, opt, lr,
+                         entry_counts=None, entry_sqs=None, lr_scale=1.0):
+    """The moment update as torch index ops and optim.moment_delta (the
+    CPU path and the reference kernel 2 is held against), in place on
+    `table` and `moments`. Returns (table, moments)."""
+    # optim imports this module, so its moment rules are looked up here
+    from graphvite_tpu_torch.optim import moment_delta
+
+    _check_update(table, moments, ids, grads, opt, entry_counts, entry_sqs)
+    v, d = table.shape
+    ids = ids.long()
+    keep = (ids >= 0) & (ids < v)
+    g = grads.float()
+    sq = g * g if entry_sqs is None else entry_sqs.float()
+    cnt = (torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+           if entry_counts is None else entry_counts.float())
+    sid, order = torch.sort(ids[keep], stable=True)
+    rows, inverse = torch.unique_consecutive(sid, return_inverse=True)
+    u = rows.numel()
+
+    def seg_sum(x):
+        return torch.zeros((u,) + x.shape[1:], dtype=torch.float32,
+                           device=x.device).index_add_(0, inverse,
+                                                       x[keep][order])
+
+    gsum, gsq, counts = seg_sum(g), seg_sum(sq), seg_sum(cnt)
+    touched = counts > 0
+    rows, gsum, gsq = rows[touched], gsum[touched], gsq[touched]
+    c = counts[touched].clamp(min=1.0)[:, None]
+    delta, new_moms = moment_delta(opt, lr, gsum,
+                                   tuple(m[rows] for m in moments), c, gsq)
+    table[rows] = table[rows] - (lr_scale * delta).to(table.dtype)
+    for m, nm in zip(moments, new_moms):
+        m[rows] = nm
+    return table, moments
+
+
+def _launch_update(table, moments, sid, grads, opt, lr, counts, sqs,
+                   lr_scale):
+    """Kernel 2 on int32 ascending ids and float32 entries in their
+    order (counts and sqs may be None)."""
+    v, d = table.shape
+    n = sid.shape[0]
+    if n == 0 or d == 0:
+        return
+    m1 = moments[0]
+    m2 = moments[1] if len(moments) > 1 else None
+    rows = [t for t in (table, m1, m2, grads, sqs) if t is not None]
+    vec = int(d % 4 == 0 and kernels.aligned(*rows))
+    beta1 = {"Momentum": opt.momentum, "RMSprop": opt.alpha,
+             "Adam": opt.beta1}.get(opt.type, 1.0)
+    lib = _library("scatter_update")
+    with torch.cuda.device(table.device):
+        rc = lib.gv_scatter_update(
+            table.data_ptr(), _DTYPE_CODES[table.dtype], m1.data_ptr(),
+            None if m2 is None else m2.data_ptr(), sid.data_ptr(),
+            grads.data_ptr(), None if counts is None else counts.data_ptr(),
+            None if sqs is None else sqs.data_ptr(), n, v, d,
+            _MOMENT_CODES[opt.type], float(lr), float(lr_scale),
+            math.log(beta1), math.log(opt.beta2), float(opt.epsilon), vec,
+            torch.cuda.current_stream().cuda_stream)
+    kernels.check_launch(lib, rc, "scatter_update")
+
+
+def _f32(x):
+    return None if x is None else x.float().contiguous()
+
+
+def _check_moment_tables(moments):
+    if not all(m.is_contiguous() for m in moments):
+        raise ValueError("the moment kernel needs contiguous moment tables")
+
+
+def scatter_update_sorted_(table, moments, sorted_ids, grads, opt, lr, *,
+                           entry_counts=None, entry_sqs=None, lr_scale=1.0):
+    """One optimizer update of the rows `sorted_ids` (ascending) names, in
+    place on `table` and `moments` (the contract of the TPU
+    `sweep_scatter_update`). grads [N, D]: each entry's summed regularized
+    gradient; entry_counts [N]: its touch count (default 1; 0 registers no
+    touch); entry_sqs [N, D]: its summed squared per-touch gradients
+    (default grad**2). `lr_scale` scales only the applied delta. SGD hands
+    off to scatter_add_sorted_. Returns (table, moments)."""
+    if opt.num_moment == 0:
+        return (scatter_add_sorted_(table, sorted_ids,
+                                    grads.float() * -(lr * lr_scale)),
+                moments)
+    _check_update(table, moments, sorted_ids, grads, opt, entry_counts,
+                  entry_sqs)
+    if not _on_card(table, "scatter_update_sorted_"):
+        _check_sorted(sorted_ids)
+        return scatter_update_plain(table, moments, sorted_ids, grads, opt,
+                                    lr, entry_counts, entry_sqs, lr_scale)
+    _check_moment_tables(moments)
+    _launch_update(table, moments, _int32_ids(sorted_ids, table.shape[0]),
+                   _f32(grads), opt, lr, _f32(entry_counts), _f32(entry_sqs),
+                   lr_scale)
+    scatter_update_sorted_.launches += 1
+    return table, moments
+
+
+def scatter_update_(table, moments, ids, grads, opt, lr, *,
+                    entry_counts=None, entry_sqs=None, lr_scale=1.0):
+    """scatter_update_sorted_ for ids in any order (the TPU front end
+    `sweep_scatter_update_unsorted`): a stable sort of the ids, then
+    permutes of the grads, counts and squares, as torch ops. SGD hands off
+    to scatter_add_. Returns (table, moments)."""
+    if opt.num_moment == 0:
+        return (scatter_add_(table, ids, grads.float() * -(lr * lr_scale)),
+                moments)
+    _check_update(table, moments, ids, grads, opt, entry_counts, entry_sqs)
+    if not _on_card(table, "scatter_update_"):
+        return scatter_update_plain(table, moments, ids, grads, opt, lr,
+                                    entry_counts, entry_sqs, lr_scale)
+    _check_moment_tables(moments)
+    with torch.cuda.device(table.device):
+        sid, order = torch.sort(_int32_ids(ids, table.shape[0]), stable=True)
+
+        def permute(x):
+            return None if x is None else x.float().index_select(0, order)
+
+        _launch_update(table, moments, sid, permute(grads), opt, lr,
+                       permute(entry_counts), permute(entry_sqs), lr_scale)
+    scatter_update_.launches += 1
+    return table, moments
+
+
+# kernel launches since the last reset, one count per wrapper (chip_smoke.py
+# reads them to show the main path went through the kernels); the CPU path
+# does not count
 scatter_add_.launches = 0
+scatter_add_sorted_.launches = 0
+scatter_update_.launches = 0
+scatter_update_sorted_.launches = 0

@@ -1,12 +1,15 @@
-"""Banded walk training steps and the episode runner (the port of the
-walk-route parts of graphvite_tpu/ops/steps.py).
+"""Node-embedding training steps and the episode runner (the port of the
+shared-negative-pool parts of graphvite_tpu/ops/steps.py).
 
 Each step takes a state dict {"tables": (...), "moments": (...)} and one
-batch of whole walks (chain [B, L+1] plus a pair mask [B, L+1, T]),
-samples a shared negative pool per walk group, computes hand-derived
-gradients (no autograd) and applies the row updates. Table updates go
-through ops.scatter.scatter_add_, the hand-written CUDA kernel on the card.
-Tables are updated in place where the update is a scatter-add.
+batch, samples a shared negative pool per sample group, computes
+hand-derived gradients (no autograd) and applies the row updates. Two
+batch layouts: whole walks (chain [B, L+1] plus a pair mask [B, L+1, T];
+the banded steps, augmentation_step >= 2) and edges (heads [B], tails [B],
+mask [B]; `make_graph_pool_step`, augmentation_step 1). Table updates go
+through the hand-written CUDA kernels on the card (ops/scatter.py,
+ops/gather.py). Tables are updated in place where the update is a
+scatter-add, and by the moment kernel.
 
 Random draws: the pool draws (u1, u2) [G, M] are optional inputs
 (`draws`); otherwise they come from the `generator` on the tables' device.
@@ -20,7 +23,11 @@ import torch.nn.functional as F
 
 from graphvite_tpu_torch.ops.alias import device_sample
 from graphvite_tpu_torch.ops.device_sampler import walk_offsets
-from graphvite_tpu_torch.ops.scatter import scatter_add_
+from graphvite_tpu_torch.ops.gather import gather_sorted
+from graphvite_tpu_torch.ops.scatter import (scatter_add_,
+                                             scatter_add_sorted_,
+                                             scatter_update_,
+                                             scatter_update_sorted_)
 from graphvite_tpu_torch.optim import Optimizer, apply_row_updates
 from graphvite_tpu_torch.utils.common import EPSILON
 
@@ -48,6 +55,161 @@ def graph_pool_groups(batch_size: int, target_group: int = 2048,
     while batch_size % g and g > 1:
         g //= 2
     return max(g, 1)
+
+
+def make_graph_pool_step(opt: Optimizer, num_negative: int,
+                         negative_weight: float, pool_size: int = 256,
+                         pool_groups: int = 8, trust: float = 0.25,
+                         sweep_vertex: bool = False,
+                         sweep_context: bool = False,
+                         sweep_gather: bool = False,
+                         sort_heads: bool = False):
+    """Shared-negative-pool step over a batch of edges (the edge route).
+
+    Each of `pool_groups` sample groups draws ONE pool of `pool_size`
+    negative rows, and every sample of the group scores against the whole
+    pool, weighted negative_weight * K / pool_size per pool row, so the
+    expected negative gradient mass per sample matches K per-sample draws.
+    All graph models score <v, c>, so scoring is a batched matmul. Moment
+    optimizers get the emulated K-draw touch counts and squared-gradient
+    sums of the reference.
+
+    Switches (the solver sets them, as the reference's solver sets its
+    sweep switches):
+    * sweep_gather: the heads are ascending; gather their vertex rows with
+      kernel 3 (ops/gather.py), converted to float32 in the kernel;
+    * sweep_vertex: the heads are ascending; the vertex update runs the
+      sorted entry of kernel 1 (SGD) or kernel 2 (moment rules);
+    * sweep_context: the context update (tails and pool rows, any order)
+      runs the unsorted front end of kernel 1 or kernel 2;
+    * off: `optim.apply_row_updates` (kernel 1 for SGD).
+    The trust clip on pool-row gradients applies on every route. On the
+    sweep routes masked slots carry zeroed gradients, and masked tails
+    park at row V-1 with no touch count.
+
+    step(state, heads [B], tails [B], lr, *neg_state, mask=None,
+    generator=None, draws=None) -> (state, loss); B % pool_groups == 0;
+    `draws` = (u1, u2) [G, M] pool uniforms (`step.pool_shape`)."""
+    if sort_heads:
+        raise NotImplementedError(
+            "sort_heads (the walk-pair sweep front end, "
+            "GRAPHVITE_SWEEP_WALK=1) is not ported yet (ROADMAP queue 1, "
+            "item 11)")
+    k = num_negative
+    M = int(pool_size)
+    G = int(pool_groups)
+    neg_w = float(negative_weight) * k / M
+
+    def step(state, heads, tails, lr, *neg_state, mask=None,
+             generator=None, draws=None):
+        vertex, context = state["tables"]
+        v_moms, c_moms = state["moments"]
+        b = heads.shape[0]
+        if b % G:
+            raise ValueError("batch %d must divide into %d pool groups"
+                             % (b, G))
+        bg = b // G
+        pool_ids = _pool_ids(neg_state, G, M, vertex.device, generator,
+                             draws)
+
+        if sweep_gather:
+            v = gather_sorted(vertex, heads, out_dtype=torch.float32)
+        else:
+            v = vertex[heads].float()
+        v = v.reshape(G, bg, -1)
+        c = context[tails].reshape(G, bg, -1).float()
+        P = context[pool_ids].float()                        # [G, M, D]
+
+        pos_logit = (v * c).sum(dim=-1)                      # [G, Bg]
+        neg_logits = torch.bmm(v, P.transpose(1, 2))         # [G, Bg, M]
+        gpos = torch.sigmoid(pos_logit) - 1.0
+        gneg = torch.sigmoid(neg_logits) * neg_w
+        if mask is not None:
+            m2 = mask.reshape(G, bg)
+            gpos = gpos * m2
+            gneg = gneg * m2[..., None]
+            n_active = mask.sum()
+        else:
+            m2 = None
+            n_active = torch.tensor(float(b), device=vertex.device)
+        # reported loss on the K-draw scale
+        loss_terms = (F.softplus(-pos_logit)
+                      + neg_w * F.softplus(neg_logits).sum(dim=-1))
+        if m2 is not None:
+            loss_terms = loss_terms * m2
+        mean_loss = (loss_terms.sum() / torch.clamp(n_active, min=1.0)
+                     / (1.0 + k * negative_weight))
+
+        wd = opt.weight_decay
+        dv = (gpos[..., None] * c + torch.bmm(gneg, P)
+              + wd * (1.0 + M * neg_w) * v)
+        dc = gpos[..., None] * v + wd * c
+        dP = torch.bmm(gneg.transpose(1, 2), v) + wd * (neg_w * bg) * P
+        if mask is not None and (sweep_vertex or sweep_context):
+            # the sweep routes keep masked slots in range, so their weight
+            # decay residue (the only unmasked term) is zeroed here
+            dv = dv * m2[..., None]
+            dc = dc * m2[..., None]
+        if trust is not None:
+            # a pool row moves by at most `trust` x (its norm + 1e-2)
+            dnorm = torch.linalg.vector_norm(dP, dim=-1, keepdim=True)
+            limit = (trust * (torch.linalg.vector_norm(P, dim=-1,
+                                                       keepdim=True)
+                              + 1e-2)
+                     / max(lr, EPSILON))
+            dP = dP * torch.clamp(limit / torch.clamp(dnorm, min=EPSILON),
+                                  max=1.0)
+
+        v_counts = v_sqs = c_counts = c_sqs = None
+        if opt.num_moment > 0:
+            # emulated K-draw touch counts (v: K+1, tail: 1, pool row:
+            # Bg*K/M expected draws); squares rescale by M/K
+            sq_scale = M / max(k, 1)
+            v_counts = torch.full((b,), k + 1.0, device=vertex.device)
+            p_counts = torch.full((G, M), bg * k / M, device=vertex.device)
+            tail_cnt = torch.ones((b,), device=vertex.device)
+            if mask is not None:
+                v_counts = v_counts * mask
+                p_counts = (m2.sum(dim=1)[:, None] * (k / M)).expand(G, M)
+                tail_cnt = mask.float()
+            v_sqs = ((gpos[..., None] * c) ** 2
+                     + sq_scale * torch.bmm(gneg ** 2, P ** 2)).reshape(b, -1)
+            c_counts = torch.cat([tail_cnt, p_counts.reshape(-1)])
+            p_sqs = sq_scale * torch.bmm((gneg ** 2).transpose(1, 2), v ** 2)
+            c_sqs = torch.cat([(dc ** 2).reshape(b, -1),
+                               p_sqs.reshape(G * M, -1)])
+
+        dv = dv.reshape(b, -1)
+        if sweep_vertex:
+            new_vertex, new_v_moms = scatter_update_sorted_(
+                vertex, v_moms, heads, dv, opt, lr, entry_counts=v_counts,
+                entry_sqs=v_sqs)
+        else:
+            new_vertex, new_v_moms = apply_row_updates(
+                vertex, v_moms, _mask_ids(heads, mask, vertex.shape[0]), dv,
+                opt, lr, entry_counts=v_counts, entry_sqs=v_sqs, trust=trust)
+        if sweep_context and mask is not None:
+            # sweep ids stay in range: masked tails park at row V-1
+            # (zeroed rows, zero counts) instead of the drop sentinel
+            tails = tails.masked_fill(mask <= 0, context.shape[0] - 1)
+        elif not sweep_context:
+            tails = _mask_ids(tails, mask, context.shape[0])
+        ctx_ids = torch.cat([tails, pool_ids.reshape(-1).to(tails.dtype)])
+        ctx_grads = torch.cat([dc.reshape(b, -1), dP.reshape(G * M, -1)])
+        if sweep_context:
+            new_context, new_c_moms = scatter_update_(
+                context, c_moms, ctx_ids, ctx_grads, opt, lr,
+                entry_counts=c_counts, entry_sqs=c_sqs)
+        else:
+            new_context, new_c_moms = apply_row_updates(
+                context, c_moms, ctx_ids, ctx_grads, opt, lr,
+                entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
+        new_state = {"tables": (new_vertex, new_context),
+                     "moments": (new_v_moms, new_c_moms)}
+        return new_state, mean_loss
+
+    step.pool_shape = (G, M)   # the shape of each of the `draws`
+    return step
 
 
 def walk_shift_fwd(x, kk):

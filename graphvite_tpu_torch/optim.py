@@ -11,7 +11,8 @@ and applies them row-wise:
 * 1/2-moment (Momentum/AdaGrad/RMSprop/Adam): duplicate touches are summed
   per unique row, then ONE closed-form c-touch moment update is applied per
   touched row. These routes stay plain torch, as the reference runs them
-  in XLA, not Pallas.
+  in XLA, not Pallas; the edge route's sweep runs the same update on the
+  moment kernel instead (ops/scatter.py: scatter_update_).
 
 Update rules mirror the reference exactly, including GraphVite's Adam
 defaults (beta1=0.999, beta2=0.99999, no bias correction).

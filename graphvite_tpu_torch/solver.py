@@ -1,17 +1,19 @@
-"""Training solver, walk route (the port of graphvite_tpu/solver.py's
-SolverBase and GraphSolver for augmentation_step >= 2).
+"""Training solver (the port of graphvite_tpu/solver.py's SolverBase and
+GraphSolver).
 
 Embedding tables live on the device for the whole run; an "episode" is one
-runner call that generates walks and trains a run of batches on the device,
-with losses kept there until log time. The solver runs on CUDA unless the
+runner call that samples and trains a run of batches on the device, with
+losses kept there until log time. The solver runs on CUDA unless the
 caller passes `device="cpu"`.
 
-Ported here: the banded walk route with a shared negative pool, in its
-fused (vertex|context) SGD form and its unfused form (moment optimizers,
-or SGD with the trust clip on small tables). What later slices port raises
-NotImplementedError naming its ROADMAP item: the edge route
-(augmentation_step == 1) with its blocked/overflow episodes, node2vec, the
-host sampler backend and the multi-device engines (num_worker > 1).
+Ported here, both with a shared negative pool: the edge route
+(augmentation_step 1: edge sampler, pool step, and on the card the sorted
+stream with the sweep kernels) and the banded walk route (above 1: fused
+(vertex|context) SGD arena, or the unfused step for moment optimizers and
+the trust clip on small tables). What later slices port raises
+NotImplementedError naming its ROADMAP item: the edge route's blocked and
+overflow episodes, node2vec, the host sampler backend and the
+multi-device engines (num_worker > 1).
 """
 from __future__ import annotations
 
@@ -23,12 +25,13 @@ import numpy as np
 import torch
 
 from graphvite_tpu_torch import base
+from graphvite_tpu_torch import optim as _optim
 from graphvite_tpu_torch.models import GRAPH_MODELS
 from graphvite_tpu_torch.ops import steps as _steps
 from graphvite_tpu_torch.ops.alias import AliasTable, device_alias_arrays
-from graphvite_tpu_torch.ops.device_sampler import DeviceWalkSampler
-from graphvite_tpu_torch.optim import (DENSE_UPDATE_ELEMS, Optimizer,
-                                       make_optimizer)
+from graphvite_tpu_torch.ops.device_sampler import (DeviceEdgeSampler,
+                                                    DeviceWalkSampler)
+from graphvite_tpu_torch.optim import Optimizer, make_optimizer
 from graphvite_tpu_torch.utils.common import auto, hbm_budget_bytes, logger
 
 EXPECTED_DEGREE = 1600  # graph.cuh:55, used by the augmentation auto-rule
@@ -202,9 +205,10 @@ class SolverBase:
         of live step intermediates. Staleness: a batched step applies all
         its row updates at one stale parameter point, so the batch is split
         into `num_micro` sequential micro-steps, each under
-        GRAPHVITE_MAX_TOUCH (default 64) touches per row. Banded batches
-        come in whole walks of T * (L+1) slots, with a power-of-2 walk
-        factor so the pool groups can divide them."""
+        GRAPHVITE_MAX_TOUCH (default 64) touches per row. Sweep-route edge
+        batches come in whole 1024-edge stream chunks; banded batches in
+        whole walks of T * (L+1) slots, with a power-of-2 walk factor so
+        the pool groups can divide them."""
         if getattr(self, "_pooled_step", False):
             live_bytes = 16 * self.dim * 4
         else:
@@ -213,6 +217,10 @@ class SolverBase:
         mem_cap = max(int(budget / max(live_bytes, 1)), 512)
         eff = min(self.batch_size, mem_cap)
         unit = 256 if eff >= 256 else 8
+        if getattr(self, "_sweep_scatter", False) and eff >= 1024:
+            # the sweep routes take batches of whole sorted stream chunks:
+            # a partial chunk forces the roll, leaving two sorted runs
+            unit = 1024
         s = int(getattr(self, "_walk_slot_unit", 0) or 0)
         if s > 1:
             mult = 64
@@ -343,7 +351,10 @@ class GraphSolver(SolverBase):
 
     def init_embeddings(self):
         """vertex ~ U(-0.5/dim, 0.5/dim), context = 0 (graph.cuh:724-731),
-        drawn on the device from a generator seeded by the solver's rng."""
+        drawn on the device from a generator seeded by the solver's rng.
+        The previous state is dropped first, so the device never holds two
+        (tables and moments are most of its memory)."""
+        self.state = None
         v = self.graph.num_vertex
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(self._rng.integers(2**31)))
@@ -371,7 +382,8 @@ class GraphSolver(SolverBase):
               positive_reuse=1, negative_sample_exponent=0.75,
               negative_weight=5.0, negative_sharing=auto,
               log_frequency=1000):
-        """Train through the banded walk route with a shared negative pool.
+        """Train with a shared negative pool: the edge route for
+        augmentation_step 1, the banded walk route above it.
         `random_walk_batch_size` and `shuffle_base` serve the host sampler
         only, and are accepted for parity; so is `negative_sharing`, which
         the reference reads as auto (on) for every value a caller can pass
@@ -389,11 +401,6 @@ class GraphSolver(SolverBase):
             augmentation_step = max(
                 int(math.log(EXPECTED_DEGREE) / math.log(avg_degree)), 1)
         augmentation_step = int(augmentation_step)
-        if augmentation_step == 1:
-            raise NotImplementedError(
-                "augmentation_step == 1 (the edge route, with its blocked "
-                "and overflow episodes) is not ported yet (ROADMAP queue 1, "
-                "item 10)")
         if augmentation_step > random_walk_length:
             raise ValueError("`random_walk_length` must be >= `augmentation_step`")
         self.model = model
@@ -413,6 +420,32 @@ class GraphSolver(SolverBase):
         self._pooled_step = True
         # SGD safety net for dense small graphs (optim.apply_row_updates)
         trust = float(os.environ.get("GRAPHVITE_TRUST", 0.25)) or None
+        # the sweep routes (the hand-written sorted-id kernels): on by
+        # default on the card, GRAPHVITE_SWEEP_SCATTER=1 forces them on any
+        # device (the CPU tests), "0" turns them off; they engage only for
+        # tables above the dense-update size, read at call time
+        sweep_env = os.environ.get("GRAPHVITE_SWEEP_SCATTER", "")
+        sweep_enabled = (sweep_env == "1"
+                         or (sweep_env != "0" and self.device.type == "cuda"))
+        big = num_vertex * self.dim > _optim.DENSE_UPDATE_ELEMS
+        self._sweep_scatter = self._sweep_gather = False
+        self._sweep_context = False
+        self._banded_fused = False
+        if augmentation_step == 1:
+            # the context sweep needs no sorted ids, so it has a gate of
+            # its own (GRAPHVITE_SWEEP_CONTEXT: "1" forces it, "0" stops it)
+            ctx_env = os.environ.get("GRAPHVITE_SWEEP_CONTEXT", "")
+            sweep_context = big and (ctx_env == "1" or (ctx_env != "0"
+                                                        and sweep_enabled))
+            self._train_edges(num_epoch, positive_reuse, negative_weight,
+                              neg_state, trust, sweep_enabled and big,
+                              sweep_context, log_frequency)
+            return
+        if (sweep_enabled and big
+                and os.environ.get("GRAPHVITE_SWEEP_WALK", "0") == "1"):
+            raise NotImplementedError(
+                "GRAPHVITE_SWEEP_WALK=1 (walk pairs with the sort_heads sweep "
+                "front end) is not ported yet (ROADMAP queue 1, item 11)")
         # bidirectional emission mines the reversed pairs of each walk
         # (first-order walks from stationary starts on an undirected graph
         # are reversible); GRAPHVITE_WALK_BIDIR=0 restores forward-only
@@ -434,7 +467,7 @@ class GraphSolver(SolverBase):
         # logic is per table); packed/unpacked once per episode
         self._banded_fused = (
             self.optimizer.num_moment == 0
-            and (trust is None or num_vertex * self.dim > DENSE_UPDATE_ELEMS)
+            and (trust is None or big)
             and os.environ.get("GRAPHVITE_FUSED_ARENA", "1") != "0")
         if self._banded_fused:
             step_fn = _steps.make_graph_banded_fused_step(
@@ -447,11 +480,7 @@ class GraphSolver(SolverBase):
                 augmentation_step, walk_bidir, pool_size=pool_size,
                 pool_groups=pool_groups, trust=trust)
 
-        n_moms = sum(len(m) for m in self.state["moments"])
-        itemsize = torch.empty((), dtype=self.float_type).element_size()
-        demand = (num_vertex * self.dim * (2 * itemsize + n_moms * 4)
-                  + 16 * num_edge)
-        budget = hbm_budget_bytes(self.gpu_memory_limit, self.device)
+        demand, budget = self._memory_demand()
         if demand > budget:
             logger.warning(
                 "device memory demand %.1f GB > budget %.1f GB; walk "
@@ -471,6 +500,69 @@ class GraphSolver(SolverBase):
             log_frequency,
             state_pack=_steps.banded_fused_pack if fused else None,
             state_unpack=_steps.banded_fused_unpack if fused else None)
+
+    def _memory_demand(self):
+        """(bytes the tables, moments and edge arrays need on the device,
+        the device's budget)."""
+        n_moms = sum(len(m) for m in self.state["moments"])
+        itemsize = torch.empty((), dtype=self.float_type).element_size()
+        demand = (self.graph.num_vertex * self.dim
+                  * (2 * itemsize + n_moms * 4) + 16 * self.graph.num_edge)
+        return demand, hbm_budget_bytes(self.gpu_memory_limit, self.device)
+
+    def _train_edges(self, num_epoch, positive_reuse, negative_weight,
+                     neg_state, trust, use_sweep, use_sweep_ctx,
+                     log_frequency):
+        """The edge route (augmentation_step 1): positive edges from the
+        device edge sampler through the shared-pool step. `use_sweep`: the
+        sweep gate holds (on, and tables above the dense-update size); the
+        vertex-side sweeps then take the sorted stream. `use_sweep_ctx`:
+        the context update takes the unsorted sweep."""
+        blocked = ("blocked and host-master overflow episodes are not "
+                   "ported yet (ROADMAP queue 1, item 17)")
+        if self.num_partition in (auto, None):
+            # the reference trains blocked episodes exactly when the
+            # tables and edges overflow the device (its auto rule)
+            demand, budget = self._memory_demand()
+            if demand > budget:
+                raise NotImplementedError(
+                    "device memory demand %.1f GB > budget %.1f GB needs "
+                    "blocked episodes: %s" % (demand / 1e9, budget / 1e9,
+                                              blocked))
+        elif int(self.num_partition) > 1:
+            raise NotImplementedError("num_partition=%d: %s"
+                                      % (int(self.num_partition), blocked))
+        self._walk_slot_unit = 0      # edge batches: no whole-walk unit
+        if use_sweep:
+            # a graph too small (or weighted) for the stream has no sorted
+            # heads, and a batch below one 1024-edge chunk is rolled into
+            # two sorted runs: the vertex side then takes the plain route
+            self._sweep_scatter = True
+            use_sweep = (self._get_sampler(
+                ("edge", True), lambda: DeviceEdgeSampler.build(
+                    self.graph, sort_stream=True, device=self.device)
+            ).sorted_stream and self._effective_batch()
+                % DeviceEdgeSampler.STREAM_CHUNK == 0)
+        self._sweep_scatter = use_sweep
+        self._sweep_context = use_sweep_ctx
+        self._sweep_gather = (
+            use_sweep
+            and os.environ.get("GRAPHVITE_SWEEP_GATHER", "1") != "0")
+        # batches of whole 1024-edge stream chunks on the sweep route
+        # (_batch_plan); pool groups scale with the micro-batch
+        pool_groups = _steps.graph_pool_groups(self._batch_plan()[1])
+        step_fn = _steps.make_graph_pool_step(
+            self.optimizer, self.num_negative, float(negative_weight),
+            pool_size=int(os.environ.get("GRAPHVITE_POOL_SIZE", 128)),
+            pool_groups=pool_groups, trust=trust,
+            sweep_vertex=use_sweep, sweep_context=use_sweep_ctx,
+            sweep_gather=self._sweep_gather)
+        sampler = self._get_sampler(
+            ("edge", use_sweep), lambda: DeviceEdgeSampler.build(
+                self.graph, sort_stream=True if use_sweep else None,
+                device=self.device))
+        self._train_loop_device(step_fn, sampler, neg_state, num_epoch,
+                                positive_reuse, log_frequency)
 
     def predict(self, heads, tails=None):
         """Score (head, tail) pairs; accepts an (n, 2) array or two arrays.

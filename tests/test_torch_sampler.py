@@ -14,6 +14,17 @@ from graphvite_tpu.graph import Graph as RefGraph
 from graphvite_tpu_torch.graph import Graph
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the cores: with torch's default of one thread
+    per core, each of the many tiny ops these tests run waits on the other
+    workers' threads (minutes instead of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("aug", [1, 3])
 @pytest.mark.parametrize("bidir", [False, True])
 def test_walk_offsets_and_banded_emission_match(aug, bidir):

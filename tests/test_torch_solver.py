@@ -15,6 +15,17 @@ from graphvite_tpu_torch.solver import GraphSolver
 from test_solver import two_blocks
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the cores: with torch's default of one thread
+    per core, each of the many tiny ops these tests run waits on the other
+    workers' threads (minutes instead of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_graph(ref_graph):
     """The same input edge list through the port's Graph."""
     n = ref_graph.num_edge
@@ -69,6 +80,36 @@ def test_bridged_reference_weights_score_identically(float_type):
     back = state_to_numpy(port.state)
     for a, b in zip(back["tables"], state_np["tables"]):
         np.testing.assert_array_equal(a, b.view(a.dtype))
+
+
+@pytest.mark.parametrize("float_type", ["float32", "bfloat16"])
+def test_bridged_reference_moments_roundtrip(float_type):
+    """A moment optimizer's state (Adam: two moment tables on each side,
+    float32 whatever the tables' type) crosses from the reference into
+    the port and back unchanged, so parity runs can start both from it."""
+    import jax
+
+    g = two_blocks(40)
+    ref = ref_solver.GraphSolver(dim=8, float_type=float_type)
+    ref.build(g, optimizer={"type": "Adam", "lr": 1e-3}, num_negative=1,
+              batch_size=512, episode_size=2)
+    ref.train(model="LINE", num_epoch=20, augmentation_step=1,
+              log_frequency=10**9)
+    state_np = jax.tree_util.tree_map(np.asarray, ref.state)
+    state = state_from_numpy(state_np, "cpu", float_type)
+    assert [t.dtype for t in state["tables"]] == [getattr(torch,
+                                                          float_type)] * 2
+    assert [len(group) for group in state["moments"]] == [2, 2]
+    for group, ref_group in zip(state["moments"], state_np["moments"]):
+        for m, r in zip(group, ref_group):
+            assert m.dtype == torch.float32 and bool((m != 0).any())
+            np.testing.assert_array_equal(m.numpy(), r)
+    back = state_to_numpy(state)
+    for a, b in zip(back["tables"], state_np["tables"]):
+        np.testing.assert_array_equal(a, b.view(a.dtype))
+    for group, ref_group in zip(back["moments"], state_np["moments"]):
+        for a, b in zip(group, ref_group):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("model", ["DeepWalk", "LINE"])
@@ -203,16 +244,16 @@ def test_linear_classification_matches_reference():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(augmentation_step=1), "item 10"),
+    (dict(augmentation_step=1, num_partition=2), "item 17"),
     (dict(model="node2vec"), "item 11"),
 ])
 def test_unported_training_paths_raise(kwargs, match):
     g = _port_graph(two_blocks(40))
     s = GraphSolver(dim=8, device="cpu")
-    s.build(g, batch_size=512)
     kw = dict(model="DeepWalk", num_epoch=1, augmentation_step=2,
-              random_walk_length=6)
+              random_walk_length=6, num_partition=0)
     kw.update(kwargs)
+    s.build(g, batch_size=512, num_partition=kw.pop("num_partition"))
     with pytest.raises(NotImplementedError, match=match):
         s.train(**kw)
 

@@ -28,6 +28,17 @@ TABLE_TOL = dict(rtol=3e-4, atol=3e-6)
 V, D, W, L, AUG, K, M, G, NW = 70, 8, 8, 9, 2, 3, 4, 2, 5.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the cores: with torch's default of one thread
+    per core, each of the many tiny ops these tests run waits on the other
+    workers' threads (minutes instead of seconds)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _walks(seed, bidir):
     rng = np.random.default_rng(seed)
     chain = rng.integers(0, V, (L + 1, W)).astype(np.int32)
