@@ -1,8 +1,8 @@
 // Helpers shared by the port's kernels (csrc/*.cu): row access in 4-column
-// vectors or single columns for float32 and bfloat16 rows, the warp scan
-// to the end of a run of equal sorted ids, and the error string of the
-// plain C interface. Each kernel source is built into a library of its
-// own (graphvite_tpu_torch/ops/kernels.py), so each defines this once.
+// vectors or single columns for float32 and bfloat16 rows, and the error
+// string of the plain C interface. Each kernel source is built into a
+// library of its own (graphvite_tpu_torch/ops/kernels.py), so each defines
+// this once. segmented.cuh builds the two scatter kernels' tiles on it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,23 +53,6 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
 __device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// End of the run of ids equal to ids[j] == id, which starts at j: the ids
-// are ascending, so the equal ids form a prefix of each 32-wide window and
-// the first lane that differs ends the run. Warp-collective: every lane
-// of the warp must call it with the same j.
-__device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ ids,
-                                           int64_t j, int64_t n, int32_t id,
-                                           int lane) {
-  int64_t end = j + 1;
-  while (true) {
-    const int64_t p = end + lane;
-    const bool same = p < n && ids[p] == id;
-    const unsigned ballot = __ballot_sync(0xffffffffu, same);
-    if (ballot != 0xffffffffu) return end + __ffs(~ballot) - 1;
-    end += kWarp;
-  }
 }
 
 }  // namespace gv

@@ -5,11 +5,10 @@ unsorted front end.
 Kernel 1, scatter-add (`sweep_scatter_add` and `sweep_scatter_add_unsorted`):
 table[ids[j]] += upd[j], duplicates summed.
 
-* `scatter_add_sorted_(table, sorted_ids, upd)`: ids already ascending, so
-  no sort and no permute (the sorted heads of the edge route).
-* `scatter_add_(table, ids, upd)`: any order; a stable sort of the ids and
-  a permute of the update rows, then the same kernel. Every other SGD
-  table update of the port goes through it.
+* `scatter_add_sorted_(table, sorted_ids, upd)`: ids already ascending (the
+  sorted heads of the edge route).
+* `scatter_add_(table, ids, upd)`: any order. Every other SGD table update
+  of the port goes through it.
 
 Kernel 2, moment update (`sweep_scatter_update` and
 `sweep_scatter_update_unsorted`): per unique row, gsum / gsq / touch count
@@ -18,22 +17,43 @@ update of the row and its moment rows; rows whose counts sum to 0 pass
 through untouched. SGD hands off to kernel 1.
 
 * `scatter_update_sorted_(...)`: ids ascending.
-* `scatter_update_(...)`: any order; a stable sort, then permutes of the
-  grads, squares and counts.
+* `scatter_update_(...)`: any order.
 
 Shared contract (plus the XLA `mode="drop"` rule the callers rely on): ids
 outside [0, V) are dropped; tables are float32 or bfloat16, contiguous,
-updated in place; sums are taken in float32 and each row is written once.
+updated in place; sums are taken in float32 in stable-sorted order; each
+touched row is written once, by one writer, without float atomics, so the
+result is a pure function of the inputs.
 
-On a CUDA tensor each wrapper launches its hand-written kernel
-(graphvite_tpu_torch/csrc/scatter_add.cu, scatter_update.cu; built with
-nvcc for sm_90a at first use, bound with ctypes) or raises; on a CPU tensor
-it runs the plain version below. The front ends' sorts and permutes run as
-torch ops, as the TPU front ends ran as XLA ops. The sorted entries do not
-check the order on the card (that would cost a host sync): ids that are
-not ascending lose updates there. Their CPU path checks it and raises.
-What bounds each kernel and what its design does about it: see the note
-at the top of its CUDA source.
+On a CUDA tensor each wrapper launches its hand-written kernels
+(graphvite_tpu_torch/csrc/scatter_add.cu, scatter_update.cu, sharing
+segmented.cuh; built with nvcc for sm_90a at first use, bound with ctypes)
+or raises; on a CPU tensor it runs the plain version below. One call of a
+wrapper is one call of the kernel's C function and one count of
+`launches`, whatever number of CUDA launches stands behind it.
+
+The design, for both kernels and all four entries (the notes at the top of
+the CUDA sources say what bounds each kernel):
+
+* A balanced segmented reduction. The N sorted positions are cut into
+  tiles of `tile_rows(n, w)` rows; one warp streams each tile and
+  128-column pass and closes its running sum when the id changes. A run
+  inside a tile is written at once. A run that crosses a tile edge leaves
+  partial sums in scratch, and a second small kernel, one warp per such
+  run, adds them in tile order and writes the row. Every warp has the same
+  work however long a hub id's run is, and the order of every sum depends
+  only on the shape.
+* No permuted copies. The unsorted entries sort (id, position) pairs (CUB's
+  radix sort over the bits V needs, called by the C function on scratch
+  this module allocates; stable, dropped ids keyed V so they sort to the
+  end) and the kernels read entry rows through the positions: row r of the
+  sorted order is upd[order[r]]. As on the TPU, where the front ends sort
+  in XLA outside the Pallas kernel, the sort is a library's; everything
+  after it is the hand-written kernel. int64 ids are read as they are.
+
+The sorted entries do not check the order on the card (that would cost a
+host sync): ids that are not ascending lose updates there. Their CPU path
+checks it and raises.
 """
 from __future__ import annotations
 
@@ -51,18 +71,58 @@ _MOMENT_CODES = {"Momentum": 1, "AdaGrad": 2, "RMSprop": 3, "Adam": 4}
 
 @functools.lru_cache(maxsize=None)
 def _library(name):
-    """The kernel's library with its launch function typed."""
+    """The kernel's library with its functions typed."""
     lib = kernels.library(name)
     vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                     ctypes.c_float)
     if name == "scatter_add":
-        lib.gv_scatter_add.argtypes = [vp, i, vp, vp, ll, ll, ll, i, vp]
+        lib.gv_scatter_add.argtypes = [vp, i, vp, i, i, vp, vp, ll, ll, ll,
+                                       i, i, vp, ll, vp]
         lib.gv_scatter_add.restype = i
     else:
-        lib.gv_scatter_update.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, ll,
-                                          ll, ll, i, f, f, f, f, f, i, vp]
+        lib.gv_scatter_update.argtypes = [vp, i, vp, vp, vp, i, i, vp, vp,
+                                          vp, vp, ll, ll, ll, i, i, f, f, f,
+                                          f, f, i, vp, ll, vp]
         lib.gv_scatter_update.restype = i
+    scratch = getattr(lib, "gv_%s_scratch" % name)
+    scratch.argtypes = [ll, ll, ll, i, i]
+    scratch.restype = ll
     return lib
+
+
+# warps the first kernel should have for each of the H100's 132 SMs
+_WARPS_WANTED = 132 * 16
+
+
+def tile_rows(n, w):
+    """Rows of a tile of the segmented reduction for N entries of width W:
+    the largest of 32, 16, 8 that still gives `_WARPS_WANTED` warps (one
+    per tile and 128-column pass), else 8. It depends on the shape alone,
+    so the order of every sum is fixed: 32 at the edge route's 99,328 x
+    128, 8 at DeepWalk's 11,968 x 256."""
+    passes = -(-w // 128)
+    for r in (32, 16):
+        if -(-n // r) * passes >= _WARPS_WANTED:
+            return r
+    return 8
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(name, n, v, w, r, sort):
+    """Bytes of scratch the kernel's C function asks for at this shape."""
+    lib = _library(name)
+    nbytes = getattr(lib, "gv_%s_scratch" % name)(n, v, w, r, sort)
+    if nbytes < 0:
+        kernels.check_launch(lib, -1 - nbytes, name + " scratch")
+    return nbytes
+
+
+def _scratch(name, table, n, r, sort):
+    """Uninitialized scratch for one call: the tiles' partial sums and,
+    with `sort`, the radix sort's buffers."""
+    v, w = table.shape
+    return torch.empty(_scratch_bytes(name, n, v, w, r, int(sort)),
+                       dtype=torch.uint8, device=table.device)
 
 
 def _check(table, ids, upd):
@@ -103,12 +163,28 @@ def _on_card(table, name):
     return True
 
 
-def _int32_ids(ids, v):
-    """int32 ids for the kernel: int64 ids are clamped to [-1, V] first,
-    which keeps every dropped id dropped and ascending ids ascending."""
-    if ids.dtype == torch.int64:
-        ids = ids.clamp(-1, v).to(torch.int32)
-    return ids.contiguous()
+def _stream(table):
+    """The raw current stream of the table's device (torch.cuda's
+    current_stream builds a Stream object first, at several times the
+    cost)."""
+    return torch._C._cuda_getCurrentRawStream(table.device.index)
+
+
+def _ids_arg(ids):
+    """(pointer source, 1 for int64) of the ids as the kernels read them."""
+    ids = ids.contiguous()
+    return ids, int(ids.dtype == torch.int64)
+
+
+def _order_ptr(order, n):
+    """Pointer to a permutation the kernels read as [N] 32-bit positions,
+    or None."""
+    if order is None:
+        return None
+    if (order.dtype != torch.int32 or order.shape != (n,)
+            or not order.is_contiguous()):
+        raise TypeError("order must be a contiguous int32 tensor of [%d]" % n)
+    return order.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -132,19 +208,26 @@ def scatter_add_plain(table, ids, upd):
     return table
 
 
-def _launch_add(table, sid, supd):
-    """Kernel 1 on int32 ascending ids and float32 rows in their order."""
+def _launch_add(table, ids, upd, sort, order=None):
+    """Kernel 1: `ids` ascending (with `order` their int32 permutation of
+    the rows of `upd`, or None for rows in place), or in any order with
+    `sort`."""
     v, w = table.shape
-    n = sid.shape[0]
+    n = ids.shape[0]
     if n == 0 or w == 0:
         return
-    vec = int(w % 4 == 0 and kernels.aligned(table, supd))
+    ids, wide = _ids_arg(ids)
+    upd = upd.float().contiguous()
+    vec = int(w % 4 == 0 and kernels.aligned(table, upd))
+    r = tile_rows(n, w)
     lib = _library("scatter_add")
     with torch.cuda.device(table.device):
+        scratch = _scratch("scatter_add", table, n, r, sort)
         rc = lib.gv_scatter_add(
-            table.data_ptr(), _DTYPE_CODES[table.dtype], sid.data_ptr(),
-            supd.data_ptr(), n, v, w, vec,
-            torch.cuda.current_stream().cuda_stream)
+            table.data_ptr(), _DTYPE_CODES[table.dtype], ids.data_ptr(),
+            wide, int(sort), _order_ptr(order, n),
+            upd.data_ptr(), n, v, w, r, vec, scratch.data_ptr(),
+            scratch.numel(), _stream(table))
     kernels.check_launch(lib, rc, "scatter_add")
 
 
@@ -157,8 +240,7 @@ def scatter_add_sorted_(table, sorted_ids, upd):
     if not _on_card(table, "scatter_add_sorted_"):
         _check_sorted(sorted_ids)
         return scatter_add_plain(table, sorted_ids, upd)
-    _launch_add(table, _int32_ids(sorted_ids, table.shape[0]),
-                upd.float().contiguous())
+    _launch_add(table, sorted_ids, upd, sort=False)
     scatter_add_sorted_.launches += 1
     return table
 
@@ -167,16 +249,13 @@ def scatter_add_(table, ids, upd):
     """In place: table[ids[j]] += upd[j] for every j in any order,
     duplicates summed, ids outside [0, V) dropped. Returns `table`.
 
-    The kernel takes int32 ids: int64 ids are clamped to [-1, V] (which
-    keeps every dropped id dropped) and converted once. `upd` is float32
+    The ids (int32 or int64) are sorted with their positions and the rows
+    of `upd` are read through the positions, in place. `upd` is float32
     (other float types are converted)."""
     _check(table, ids, upd)
     if not _on_card(table, "scatter_add_"):
         return scatter_add_plain(table, ids, upd)
-    with torch.cuda.device(table.device):
-        sid, order = torch.sort(_int32_ids(ids, table.shape[0]), stable=True)
-        supd = upd.float().index_select(0, order)
-    _launch_add(table, sid, supd)
+    _launch_add(table, ids, upd, sort=True)
     scatter_add_.launches += 1
     return table
 
@@ -240,40 +319,44 @@ def scatter_update_plain(table, moments, ids, grads, opt, lr,
     return table, moments
 
 
-def _launch_update(table, moments, sid, grads, opt, lr, counts, sqs,
-                   lr_scale):
-    """Kernel 2 on int32 ascending ids and float32 entries in their
-    order (counts and sqs may be None)."""
+def _launch_update(table, moments, ids, grads, opt, lr, counts, sqs,
+                   lr_scale, sort, order=None):
+    """Kernel 2: `ids` ascending (with `order` their int32 permutation of
+    the entries, or None for entries in place), or in any order with
+    `sort`; counts and sqs may be None."""
     v, d = table.shape
-    n = sid.shape[0]
+    n = ids.shape[0]
     if n == 0 or d == 0:
         return
+    if not all(m.is_contiguous() for m in moments):
+        raise ValueError("the moment kernel needs contiguous moment tables")
+    ids, wide = _ids_arg(ids)
+    grads, counts, sqs = _f32(grads), _f32(counts), _f32(sqs)
     m1 = moments[0]
     m2 = moments[1] if len(moments) > 1 else None
     rows = [t for t in (table, m1, m2, grads, sqs) if t is not None]
     vec = int(d % 4 == 0 and kernels.aligned(*rows))
     beta1 = {"Momentum": opt.momentum, "RMSprop": opt.alpha,
              "Adam": opt.beta1}.get(opt.type, 1.0)
+    r = tile_rows(n, d)
     lib = _library("scatter_update")
     with torch.cuda.device(table.device):
+        scratch = _scratch("scatter_update", table, n, r, sort)
         rc = lib.gv_scatter_update(
             table.data_ptr(), _DTYPE_CODES[table.dtype], m1.data_ptr(),
-            None if m2 is None else m2.data_ptr(), sid.data_ptr(),
+            None if m2 is None else m2.data_ptr(), ids.data_ptr(), wide,
+            int(sort), _order_ptr(order, n),
             grads.data_ptr(), None if counts is None else counts.data_ptr(),
-            None if sqs is None else sqs.data_ptr(), n, v, d,
+            None if sqs is None else sqs.data_ptr(), n, v, d, r,
             _MOMENT_CODES[opt.type], float(lr), float(lr_scale),
             math.log(beta1), math.log(opt.beta2), float(opt.epsilon), vec,
-            torch.cuda.current_stream().cuda_stream)
+            scratch.data_ptr(), scratch.numel(),
+            _stream(table))
     kernels.check_launch(lib, rc, "scatter_update")
 
 
 def _f32(x):
     return None if x is None else x.float().contiguous()
-
-
-def _check_moment_tables(moments):
-    if not all(m.is_contiguous() for m in moments):
-        raise ValueError("the moment kernel needs contiguous moment tables")
 
 
 def scatter_update_sorted_(table, moments, sorted_ids, grads, opt, lr, *,
@@ -295,10 +378,8 @@ def scatter_update_sorted_(table, moments, sorted_ids, grads, opt, lr, *,
         _check_sorted(sorted_ids)
         return scatter_update_plain(table, moments, sorted_ids, grads, opt,
                                     lr, entry_counts, entry_sqs, lr_scale)
-    _check_moment_tables(moments)
-    _launch_update(table, moments, _int32_ids(sorted_ids, table.shape[0]),
-                   _f32(grads), opt, lr, _f32(entry_counts), _f32(entry_sqs),
-                   lr_scale)
+    _launch_update(table, moments, sorted_ids, grads, opt, lr, entry_counts,
+                   entry_sqs, lr_scale, sort=False)
     scatter_update_sorted_.launches += 1
     return table, moments
 
@@ -306,9 +387,10 @@ def scatter_update_sorted_(table, moments, sorted_ids, grads, opt, lr, *,
 def scatter_update_(table, moments, ids, grads, opt, lr, *,
                     entry_counts=None, entry_sqs=None, lr_scale=1.0):
     """scatter_update_sorted_ for ids in any order (the TPU front end
-    `sweep_scatter_update_unsorted`): a stable sort of the ids, then
-    permutes of the grads, counts and squares, as torch ops. SGD hands off
-    to scatter_add_. Returns (table, moments)."""
+    `sweep_scatter_update_unsorted`): the ids are sorted with their
+    positions, and the grads, counts and squares are read through the
+    positions, in place. SGD hands off to scatter_add_. Returns (table,
+    moments)."""
     if opt.num_moment == 0:
         return (scatter_add_(table, ids, grads.float() * -(lr * lr_scale)),
                 moments)
@@ -316,15 +398,8 @@ def scatter_update_(table, moments, ids, grads, opt, lr, *,
     if not _on_card(table, "scatter_update_"):
         return scatter_update_plain(table, moments, ids, grads, opt, lr,
                                     entry_counts, entry_sqs, lr_scale)
-    _check_moment_tables(moments)
-    with torch.cuda.device(table.device):
-        sid, order = torch.sort(_int32_ids(ids, table.shape[0]), stable=True)
-
-        def permute(x):
-            return None if x is None else x.float().index_select(0, order)
-
-        _launch_update(table, moments, sid, permute(grads), opt, lr,
-                       permute(entry_counts), permute(entry_sqs), lr_scale)
+    _launch_update(table, moments, ids, grads, opt, lr, entry_counts,
+                   entry_sqs, lr_scale, sort=True)
     scatter_update_.launches += 1
     return table, moments
 

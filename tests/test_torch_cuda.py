@@ -1,16 +1,24 @@
 """Tests of the port that need an NVIDIA GPU (marked `cuda`; each skips
-where torch sees no card). This file imports neither JAX nor the JAX
-package, so it also runs on a host without them:
+where torch sees no card), and two CPU tests of what they rest on: the
+tile size rule, and the plain scatter-add on the run layouts the kernels
+are held to it on. This file imports neither JAX nor the JAX package, so
+it also runs on a host without them:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Tolerances: scatter-add float32 results within rtol 1e-6 of the magnitude
-of the terms summed (orders differ); bfloat16 within 1 bf16 ulp (both
-versions round one float32 sum once). The gather is exact. The moment
+of the terms summed (orders differ; the plain version's index_add_ uses
+atomics, so its own order changes from launch to launch); bfloat16 within
+that plus 1 bf16 ulp (both versions round one float32 sum once, but where
+a row's terms nearly cancel, the two float32 sums lie many bf16 ulps of the
+small result apart). The gather is exact. The moment
 update within rtol 2e-5, atol 2e-5 (the CPU tests' tolerance against the
 reference), plus 1 bf16 ulp for bfloat16 tables. The steps as the CPU
 tests hold the port to the reference (loss rtol 2e-5; tables and moments
-rtol 3e-4, atol 3e-6)."""
+rtol 3e-4, atol 3e-6). The run layouts chosen against the tiles of the
+segmented reduction (test_segmented_*) use values on a grid of 1/64, so
+every order of a float32 sum gives the same bits: there the scatter-add
+must equal its plain version exactly, in float32 and in bfloat16."""
 import numpy as np
 import pytest
 import torch
@@ -23,6 +31,11 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
 
 
 def _bf16_ulp(x):
@@ -51,11 +64,11 @@ def test_kernel_matches_plain_version(dtype, w):
     torch.cuda.synchronize()
     assert scatter.scatter_add_.launches == before + 1
     err = (got.float() - want).abs()
+    mag = scatter.scatter_add_plain(table.float().abs(), ids, upd.abs())
     if dtype == torch.float32:
-        mag = scatter.scatter_add_plain(table.abs(), ids, upd.abs())
         assert bool((err <= 1e-6 * mag).all())
     else:
-        assert bool((err <= _bf16_ulp(want)).all())
+        assert bool((err <= _bf16_ulp(want) + 1e-6 * mag).all())
 
 
 @pytest.mark.cuda
@@ -224,3 +237,192 @@ def test_pool_step_on_card_matches_cpu(rule):
     np.testing.assert_allclose(gl, cl, rtol=2e-5)
     for a, b in zip(gpu, cpu):
         np.testing.assert_allclose(a, b, rtol=3e-4, atol=3e-6)
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 2 on run layouts chosen against the tiles of the segmented
+# reduction (csrc/segmented.cuh)
+# ---------------------------------------------------------------------------
+
+R = 8   # scatter.tile_rows at these small sizes
+LAYOUTS = ("distinct", "all_equal", "tile_edges", "long_runs",
+           "dropped_ends", "one_tile_runs")
+
+
+def _layout_ids(layout, v):
+    """Ascending ids (dropped ones where they sort to) for one layout."""
+    if layout == "distinct":
+        return np.arange(1000) * 3
+    if layout == "all_equal":
+        return np.full(50000, 7)
+    runs = {
+        # runs that end on, one before and one after a tile's edge, from
+        # starts on, one after and one before an edge
+        "tile_edges": [R, R - 1, R + 1, 1, R - 1, R, 2, R + 1, R - 2, R,
+                       2 * R, 1, 2 * R - 1, 2 * R + 1],
+        # runs over three and more tiles, whole tiles in their middle
+        "long_runs": [3 * R, 1, 3 * R, R - 1, 4 * R + 2, 5 * R, 3, 7 * R + 1],
+        "dropped_ends": [5, R, 3, 2 * R + 3, 1, 1, R],
+        # every tile is one run, and neighbours differ
+        "one_tile_runs": [R] * 9,
+    }[layout]
+    ids = np.repeat(np.arange(len(runs)) * 5 + 2, runs)
+    if layout == "dropped_ends":
+        ids = np.concatenate([np.full(R + 3, -1), [-9], ids,
+                              np.full(2 * R + 1, v), [v + 5]])
+        ids.sort()
+    return ids
+
+
+def _grid(rng, shape, lo, hi):
+    """float32 multiples of 1/64 in [lo, hi): sums of them are exact."""
+    return (rng.integers(lo * 64, hi * 64, shape) / 64.0).astype(np.float32)
+
+
+def _segmented_case(dev, layout, w, sorted_entry, n=None):
+    rng = np.random.default_rng(11)
+    v = 4000
+    if n is None:
+        ids = _layout_ids(layout, v)
+    else:               # hub runs over exactly n entries
+        ids = np.sort((rng.random(n) ** 3 * 6).astype(np.int64))
+    if not sorted_entry:
+        ids = ids[rng.permutation(ids.size)]
+    n = ids.size
+    return (v, torch.as_tensor(ids.astype(np.int64), device=dev),
+            torch.as_tensor(_grid(rng, (n, w), -2, 2), device=dev),
+            torch.as_tensor(_grid(rng, (v, w), -4, 4), device=dev), rng)
+
+
+def _check_segmented_add(dev, layout, w, dtype, sorted_entry, n=None):
+    v, ids, upd, table, _ = _segmented_case(dev, layout, w, sorted_entry, n)
+    table = table.to(dtype)
+    if ids.numel() < 40000:
+        assert scatter.tile_rows(ids.numel(), w) == R
+    fn = scatter.scatter_add_sorted_ if sorted_entry else scatter.scatter_add_
+    want = scatter.scatter_add_plain(table.clone(), ids, upd)
+    for i in (ids, ids.to(torch.int32)):
+        got = fn(table.clone(), i, upd)
+        again = fn(table.clone(), i, upd)
+        _sync(dev)
+        assert torch.equal(got, want), float((got.float() - want.float())
+                                             .abs().max())
+        assert torch.equal(got, again)
+
+
+def _check_segmented_update(dev, layout, w, dtype, sorted_entry, n=None):
+    v, ids, grads, table, rng = _segmented_case(dev, layout, w, sorted_entry, n)
+    table = table.to(dtype)
+    n = ids.numel()
+    opt = Optimizer(type="Adam", lr=1e-3)
+    sqs = torch.as_tensor(_grid(rng, (n, w), 0, 1), device=dev)
+    counts = torch.as_tensor(rng.integers(0, 3, n).astype(np.float32),
+                             device=dev)
+    # whole runs of count 0 (the front ends' pads): ids 2 mod 10
+    counts[(ids % 10 == 2) & (ids < v)] = 0.0
+    moms = tuple(torch.as_tensor(_grid(rng, (v, w), 0, 1), device=dev) * 1e-2
+                 for _ in range(2))
+    fn = (scatter.scatter_update_sorted_ if sorted_entry
+          else scatter.scatter_update_)
+    for c, q in ((counts, sqs), (None, None)):
+        want_t, want_m = scatter.scatter_update_plain(
+            table.clone(), tuple(m.clone() for m in moms), ids, grads, opt,
+            1e-3, c, q)
+        got = [fn(table.clone(), tuple(m.clone() for m in moms), ids, grads,
+                  opt, 1e-3, entry_counts=c, entry_sqs=q) for _ in range(2)]
+        _sync(dev)
+        (got_t, got_m), (again_t, again_m) = got
+        assert torch.equal(got_t, again_t)
+        assert all(torch.equal(a, b) for a, b in zip(got_m, again_m))
+        err = (got_t.float() - want_t.float()).abs()
+        tol = 2e-5 + 2e-5 * want_t.float().abs()
+        if dtype == torch.bfloat16:
+            tol = tol + _bf16_ulp(want_t.float())
+        assert bool((err <= tol).all()), float(err.max())
+        for a, b in zip(got_m, want_m):
+            assert bool(((a - b).abs() <= 2e-5 + 2e-5 * b.abs()).all())
+        if c is not None:
+            # rows of zero-count runs keep their value and moments
+            idle = torch.unique(ids[(ids % 10 == 2) & (ids < v)])
+            assert torch.equal(got_t[idle], table[idle])
+            assert all(torch.equal(a[idle], m[idle])
+                       for a, m in zip(got_m, moms))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+@pytest.mark.parametrize("w", [256, 128, 10])
+def test_segmented_add_on_run_layouts(layout, dtype, sorted_entry, w):
+    _check_segmented_add(_cuda(), layout, w, dtype, sorted_entry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+@pytest.mark.parametrize("w", [256, 128, 10])
+def test_segmented_update_on_run_layouts(layout, dtype, sorted_entry, w):
+    _check_segmented_update(_cuda(), layout, w, dtype, sorted_entry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, R - 1, R, R + 1])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+@pytest.mark.parametrize("w", [256, 10])
+def test_segmented_sizes_around_one_tile(n, sorted_entry, w):
+    dev = _cuda()
+    _check_segmented_add(dev, None, w, torch.float32, sorted_entry, n=n)
+    _check_segmented_update(dev, None, w, torch.float32, sorted_entry, n=n)
+
+
+@pytest.mark.cuda
+def test_tiles_of_16_and_32_rows():
+    """Shapes large enough for the wider tiles: runs of every length up to
+    four tiles, exact against the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    for n, w, r in ((70000, 128, 32), (40000, 128, 16), (34000, 256, 32)):
+        assert scatter.tile_rows(n, w) == r
+        lengths = rng.integers(1, 4 * r + 2, n)
+        ids = np.repeat(np.arange(n) * 2, lengths)[:n]
+        v = int(ids.max()) + 1
+        ids = torch.as_tensor(ids, device=dev)
+        upd = torch.as_tensor(_grid(rng, (n, w), -2, 2), device=dev)
+        table = torch.as_tensor(_grid(rng, (v, w), -4, 4), device=dev)
+        want = scatter.scatter_add_plain(table.clone(), ids, upd)
+        got = scatter.scatter_add_sorted_(table.clone(), ids, upd)
+        perm = torch.randperm(n, device=dev)
+        got_u = scatter.scatter_add_(table.clone(), ids[perm], upd[perm])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_u, want)
+
+
+@pytest.mark.parametrize("n,w,r", [
+    (99328, 128, 32),     # the edge route's heads
+    (107520, 128, 32),    # its context side
+    (11968, 256, 8),      # DeepWalk, batch 100000
+    (27712, 256, 16),     # DeepWalk, batch 250000
+    (50000, 10, 16), (1, 128, 8), (0, 128, 8)])
+def test_tile_rows_follow_the_shape(n, w, r):
+    assert scatter.tile_rows(n, w) == r
+    passes = -(-w // 128)
+    # the largest tile that still gives the warps wanted, or the smallest
+    assert r == 8 or -(-n // r) * passes >= scatter._WARPS_WANTED
+    assert r == 32 or -(-n // (2 * r)) * passes < scatter._WARPS_WANTED
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("sorted_entry", [True, False])
+def test_plain_scatter_add_on_run_layouts(layout, sorted_entry):
+    """The plain version (what the card tests hold the kernel to) against
+    a numpy loop on the same layouts; exact, the values being on a grid."""
+    dev = torch.device("cpu")
+    v, ids, upd, table, _ = _segmented_case(dev, layout, 10, sorted_entry)
+    want = table.numpy().astype(np.float64)
+    keep = ((ids >= 0) & (ids < v)).numpy()
+    np.add.at(want, ids.numpy()[keep], upd.numpy()[keep].astype(np.float64))
+    fn = scatter.scatter_add_sorted_ if sorted_entry else scatter.scatter_add_
+    got = fn(table.clone(), ids, upd)
+    np.testing.assert_array_equal(got.numpy().astype(np.float64), want)
