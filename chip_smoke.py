@@ -1,6 +1,7 @@
 """Smoke run of graphvite_tpu_torch on one NVIDIA GPU (an H100 is the target).
 
     python3 chip_smoke.py [--seed N] [--main-batches N] [--edge-batches N]
+                          [--kg-batches N] [--kg-big-batches N]
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
@@ -36,7 +37,37 @@ Phases, in order (any failure exits non-zero and prints no result line):
             replayed through the pool step on the card and on the CPU from
             the same tables and moments; its heads must ascend and, in
             float32, every head's vertex row must move.
-5. kernel   each kernel against its plain torch version on the card, on the
+5. kg       RotatE through KnowledgeGraphApplication.load/build/train/
+            evaluate at the config/knowledge_graph/rotate_fb15k.yaml
+            hyperparameters (dim 2048, Adam lr 2e-4, K 64, batch 100000,
+            margin 24, adversarial temperature 2, episode 1) on a graph of
+            FB15k's published size made from --seed (14,951 entities,
+            1,345 relations, 483,142 / 50,000 / 59,071 triplets;
+            deterministic maps mod the prime 14,951). The pooled step,
+            batch 14,848 as 2 micro-steps of 7,424, 16 groups of 464
+            sharing 128 candidates, the RotatE isometry body, the dense
+            moment route (so no kernel of the port is on this path, and
+            the run checks that none launched). Falling loss, finite
+            tables, moving moments; a torch.profiler trace of 10 batches;
+            one captured micro-step replayed on the card against the CPU
+            from the same state and candidate ids; filtered ranking of
+            the first 2,000 test triplets, both sides, on the card, and
+            filtered_rankings on the card against the CPU on 64 of them.
+6. kg_big   RotatE at the config/knowledge_graph/rotate_wikidata5m.yaml
+            hyperparameters (dim 512, SGD lr 0.01, K 64, batch 100000,
+            margin 6, adversarial temperature 0.2, episode 200) on a
+            graph of Wikidata5m's published size made from --seed
+            (4,594,485 power-law entities, 822 relations, 20,614,279
+            triplets). The pooled step, batch 60,928, 128 groups of 476.
+            float32 and bfloat16 SGD: every batch ends in scatter_add_ on
+            the entity table (138,240 unsorted ids x 512) and on the
+            relation table (60,928 ids over 822 rows); then a float32
+            Adam run (not the config's optimizer: kernel 2's path), whose
+            every batch ends in scatter_update_ on the entity table. From
+            each run one batch is captured and replayed on the card
+            against the CPU, which holds a renumbered copy of the touched
+            rows.
+7. kernel   each kernel against its plain torch version on the card, on the
             ids the main paths drew: scatter_add on the DeepWalk update ids
             (batch 100000 and 250000, with dropped ids added, float32 and
             bfloat16 tables) and on the edge route's sorted heads;
@@ -53,11 +84,21 @@ Phases, in order (any failure exits non-zero and prints no result line):
             time of the sort and of the kernel (torch.profiler) and host
             time per call, for scatter_add_ at 11,968 x 256, both sorted
             entries at 99,328 x 128 and scatter_update_ at 107,520 x 128.
-6. quality  GraphApplication on a small two-block graph on the card:
+            Then the KG paths' ids at 512 and 2048 columns, float32 and
+            bfloat16 tables: scatter_add_ on the 138,240 entity ids and
+            the 60,928 relation ids of the Wikidata5m-shaped batch and on
+            the 16,896 x 2048 ids of the FB15k-shaped micro-step;
+            scatter_update_ (Adam, the pooled step's touch counts) on the
+            entity and the relation ids. The plain version runs on a
+            renumbered copy of the touched rows.
+8. quality  GraphApplication on a small two-block graph on the card:
             DeepWalk (the unfused trust-clip route) and LINE on the edge
             route (the small-table route, the trust clip on the
-            scatter-add): link-prediction AUC > 0.9.
-7. summary  the card line, the kernels line, and the result line.
+            scatter-add): link-prediction AUC > 0.9. The offline math
+            fixture (1,000 entities, 20,000 triplets) through
+            KnowledgeGraphApplication at config/demo/math.yaml cut to dim
+            128 and 500 epochs: filtered tail MRR >= 0.60.
+9. summary  the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -525,7 +566,506 @@ def replay_edge_batch(solver, seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: each kernel against its plain version
+# phases 5 and 6: knowledge graphs
+# ---------------------------------------------------------------------------
+
+FB15K_ENT = 14951            # prime: multiplicative maps are bijections
+FB15K_SPLITS = (483_142, 50_000, 59_071)
+WIKIDATA5M_ENT = 4_594_485
+WIKIDATA5M_REL = 822
+WIKIDATA5M_TRAIN = 20_614_279
+KG_DIM, KG_BIG_DIM = 2048, 512
+
+# config/knowledge_graph/rotate_fb15k.yaml
+ADAM_FB15K = {"type": "Adam", "lr": 2.0e-4, "weight_decay": 0}
+BUILD_FB15K = dict(num_negative=64, batch_size=100000, episode_size=1)
+ROTATE_FB15K = dict(model="RotatE", margin=24, adversarial_temperature=2,
+                    log_frequency=10**9)
+# config/knowledge_graph/rotate_wikidata5m.yaml
+SGD_WIKIDATA5M = {"type": "SGD", "lr": 0.01, "weight_decay": 0}
+BUILD_WIKIDATA5M = dict(num_negative=64, batch_size=100000, episode_size=200)
+ROTATE_WIKIDATA5M = dict(model="RotatE", margin=6,
+                         adversarial_temperature=0.2,
+                         relation_lr_multiplier=1.0, log_frequency=10**9)
+# not the config's optimizer: kernel 2's path on the same graph. The
+# closed-form c-touch update moves a hub row by ~6 lr c per batch (c = 33
+# touches per positive, hundreds of positives per hub), so lr stays small.
+ADAM_WIKIDATA5M = {"type": "Adam", "lr": 1e-6, "weight_decay": 0}
+# config/demo/math.yaml, cut to dim 128 and 500 epochs
+ADAM_MATH = {"type": "Adam", "lr": 5.0e-3, "weight_decay": 0}
+BUILD_MATH = dict(num_negative=8, batch_size=100000, episode_size=100)
+ROTATE_MATH = dict(model="RotatE", margin=9, adversarial_temperature=2,
+                   log_frequency=10**9)
+
+
+def fb15k_clone(seed):
+    """A graph of FB15k's published size (14,951 entities, 1,345 relations,
+    483,142 / 50,000 / 59,071 train / valid / test triplets): this
+    script's copy of the generator of tools/fb15k_clone.py. Relations are
+    deterministic maps mod the prime 14,951 ("+c"/"-c" inverse pairs and
+    odd multipliers), so every (h, r) has one true tail; entities and
+    relations are drawn with Zipf-skewed propensities, deduplicated.
+    Returns {split: [(head, relation, tail) names]}."""
+    rng = np.random.default_rng(seed)
+    names, adds, muls = [], [], []
+    for c in range(1, 501):
+        names.append("+%d" % c), adds.append(c), muls.append(0)
+    for c in range(1, 501):
+        names.append("-%d" % c), adds.append(-c), muls.append(0)
+    a = 3
+    while len(names) < 1345:
+        names.append("*%d" % a), adds.append(0), muls.append(a)
+        a += 2
+    adds, muls = np.array(adds, np.int64), np.array(muls, np.int64)
+    ent_p = (rng.permutation(FB15K_ENT) + 10.0) ** -0.8
+    ent_p /= ent_p.sum()
+    rel_p = (rng.permutation(len(names)) + 3.0) ** -0.9
+    rel_p /= rel_p.sum()
+    need = sum(FB15K_SPLITS)
+    draw = int(need * 2.2)
+    h = rng.choice(FB15K_ENT, draw, p=ent_p)
+    r = rng.choice(len(names), draw, p=rel_p)
+    _, first = np.unique(h * np.int64(len(names)) + r, return_index=True)
+    first = rng.permutation(first)
+    if first.size < need:
+        raise AssertionError("only %d distinct (h, r) pairs" % first.size)
+    h, r = h[first[:need]], r[first[:need]]
+    t = np.where(muls[r] > 0, (h * muls[r]) % FB15K_ENT,
+                 (h + adds[r]) % FB15K_ENT)
+    out, lo = {}, 0
+    for split, n in zip(("train", "valid", "test"), FB15K_SPLITS):
+        sl = slice(lo, lo + n)
+        out[split] = [(str(a), names[b], str(c))
+                      for a, b, c in zip(h[sl].tolist(), r[sl].tolist(),
+                                         t[sl].tolist())]
+        lo += n
+    return out
+
+
+MATH_OPERATORS = [
+    ("+", lambda x, y: (x + y) % 1000),
+    ("-", lambda x, y: (x - y) % 1000),
+    ("*", lambda x, y: (x * y) % 1000),
+    ("/", lambda x, y: x // y),
+    ("%", lambda x, y: x % y),
+]
+
+
+def math_triplets(num_triplet, seed):
+    """The offline math fixture (1,000 entities, 30 relation operands):
+    triplets (x, op c, y) with y = x op c; this script's copy of the
+    generator of graphvite_tpu/dataset.py (train 20,000 from seed 1023,
+    valid 1,000 from 1024, test 1,000 from 1025)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(num_triplet):
+        op, fn = MATH_OPERATORS[int(rng.rand() * len(MATH_OPERATORS))]
+        x = int(rng.rand() * 1000)
+        y = int(rng.rand() * 30) + 1
+        out.append((str(x), "%s%d" % (op, y), str(fn(x, y))))
+    return out
+
+
+def fill_power_law_kg(kg, num_entity, num_relation, num_triplet, seed):
+    """Fill a KnowledgeGraph with `num_triplet` anonymous triplets over
+    power-law entities (the skew of power_law_graph) and Zipf-skewed
+    relations, straight into its arrays: 41M names would take minutes to
+    factorize, and the solver reads only the arrays."""
+    rng = np.random.default_rng(seed)
+    kg.clear()
+    kg.num_vertex, kg.num_relation = num_entity, num_relation
+    kg.num_edge = num_triplet
+    kg.id2entity = kg.entity2id = kg.id2relation = kg.relation2id = None
+    kg.edge_heads = (rng.random(num_triplet) ** 2.5
+                     * num_entity).astype(np.int64)
+    kg.edge_tails = (rng.random(num_triplet) ** 2.5
+                     * num_entity).astype(np.int64)
+    rel_p = (np.arange(num_relation) + 3.0) ** -0.9
+    kg.edge_relations = rng.choice(num_relation, num_triplet,
+                                   p=rel_p / rel_p.sum()).astype(np.int64)
+    kg.edge_weights = np.ones(num_triplet, dtype=np.float32)
+    return kg
+
+
+def train_kg_path(app, train_kw, batches, per_batch, want_plan, falling):
+    """Two warm-up batches (sampler build, first launches), then the
+    measured call of KnowledgeGraphSolver.train with the launch counts set
+    to 0 just before it and read just after. `want_plan` = (effective
+    batch, micro batch, micro steps, G, M). Returns the record and a list
+    of problems."""
+    import torch
+
+    solver, graph = app.solver, app.graph
+    t0 = time.perf_counter()
+    app.train(num_epoch=2 * solver.batch_size / graph.num_edge, **train_kw)
+    warm_s = time.perf_counter() - t0
+    eff = solver.effective_batch
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    app.train(num_epoch=batches * eff / graph.num_edge + 1e-9, **train_kw)
+    elapsed = time.perf_counter() - t0      # train() ends synchronized
+    counts = read_launches()
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+    run = solver.batch_id
+    losses = solver.batch_losses.double()
+    k = max(run // 10, 5)
+    # min and max say whether a table is finite (NaN propagates) without a
+    # float32 copy of a table that may be a tenth of the card's memory
+    extremes = [float(x) for t in solver.state["tables"]
+                for x in t.aminmax()]
+    tables_finite = all(np.isfinite(x) for x in extremes)
+    moment_rows = [int((m != 0).any(dim=1).sum())
+                   for group in solver.state["moments"] for m in group]
+    step = solver._active_step_fn
+    base = getattr(step, "base", step)
+    plan = solver._batch_plan() + tuple(base.pool_shape)
+    rec = {"float_type": str(solver.float_type).replace("torch.", ""),
+           "optimizer": solver.optimizer.type, "batches": run,
+           "plan": list(plan), "pooled": solver._pooled_step,
+           "fast_body": base.fast_rotate, "warmup_s": warm_s,
+           "elapsed_s": elapsed, "ms_per_batch": elapsed / run * 1e3,
+           "triplets_per_s": run * eff / elapsed, "launches": counts,
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": tables_finite,
+           "max_abs_table": max(abs(x) for x in extremes),
+           "nonzero_moment_rows": moment_rows, "peak_mem_gb": peak_mem_gb}
+    problems = []
+    if plan != tuple(want_plan) or not rec["pooled"] or not rec["fast_body"]:
+        problems.append("plan %r pooled %r fast %r (want %r, pooled, the "
+                        "RotatE body)" % (plan, rec["pooled"],
+                                          rec["fast_body"], want_plan))
+    want = {name: per_batch.get(name, 0) * run for name in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if not rec["losses_finite"] or not tables_finite:
+        problems.append("losses or tables not finite")
+    if falling and not rec["loss_last"] < rec["loss_first"]:
+        problems.append("losses not falling")
+    if solver.optimizer.num_moment and not all(moment_rows):
+        problems.append("a moment table did not move: %r" % moment_rows)
+    return rec, problems
+
+
+def replay_kg_batch(solver, seed, compact):
+    """Capture one micro-batch as the solver's runner makes it (its own
+    triplet sampler; candidate ids of the shape its step takes) and run it
+    through the solver's step on the card (on the solver's state, whose
+    run is over) and on the CPU from a copy of the same rows, with the
+    same candidate ids. `compact`: the CPU copy holds only the entity rows
+    the batch touches, renumbered (the step reads and writes no other
+    row); else the whole tables. Tolerances: those of replay_batch
+    (float32 rtol 3e-4, atol 3e-6; bfloat16 tables that plus 1 bf16 ulp;
+    loss rtol 2e-5); moments are float32. Returns the record, the batch's
+    ids and a list of problems."""
+    import torch
+
+    dev = solver.device
+    step = solver._active_step_fn
+    step = getattr(step, "base", step)
+    micro = solver._batch_plan()[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    heads, tails, rels, mask = solver._active_sample_fn(
+        *solver._active_sampler.arrays(), generator=gen)
+    heads, tails, rels, mask = (x[:micro] for x in (heads, tails, rels, mask))
+    G, M = step.pool_shape
+    state = solver.state
+    entity, relation = state["tables"]
+    cand = torch.randint(0, entity.shape[0], (G, M), generator=gen,
+                         device=dev)
+    lr = solver.optimizer.schedule_lr(0, solver.num_batch)
+    ent_ids = torch.cat([heads.long(), tails.long(), cand.reshape(-1)])
+    if compact:
+        rows, inv = torch.unique(ent_ids, return_inverse=True)
+        b = heads.numel()
+        c_heads, c_tails, c_cand = (inv[:b].cpu(), inv[b:2 * b].cpu(),
+                                    inv[2 * b:].reshape(G, M).cpu())
+    else:
+        rows = torch.arange(entity.shape[0], device=dev)
+        c_heads, c_tails, c_cand = heads.cpu(), tails.cpu(), cand.cpu()
+    cpu_state = {
+        "tables": (entity[rows].cpu(), relation.to("cpu", copy=True)),
+        "moments": (tuple(m[rows].cpu() for m in state["moments"][0]),
+                    tuple(m.to("cpu", copy=True)
+                          for m in state["moments"][1]))}
+    before = entity[rows].clone()
+    with torch.no_grad():
+        new, loss = step(state, heads, tails, rels, lr, mask=mask,
+                         negatives=cand)
+        cpu_new, cpu_loss = step(cpu_state, c_heads, c_tails, rels.cpu(), lr,
+                                 mask=mask.cpu(), negatives=c_cand)
+    solver.state = new
+    got_all = [new["tables"][0][rows], new["tables"][1]]
+    got_all += [m[rows] for m in new["moments"][0]]
+    got_all += list(new["moments"][1])
+    want_all = list(cpu_new["tables"]) + [m for g in cpu_new["moments"]
+                                          for m in g]
+    ok, max_diff = True, 0.0
+    for got, want in zip(got_all, want_all):
+        bf16 = got.dtype == torch.bfloat16
+        got, want = got.cpu().float(), want.float()
+        diff = (got - want).abs()
+        tol = 3e-6 + 3e-4 * want.abs()
+        if bf16:
+            tol = tol + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+        ok = ok and bool((diff <= tol).all())
+        max_diff = max(max_diff, float(diff.max()))
+        del got, want, diff, tol
+    moved = int((new["tables"][0][rows] != before).any(dim=1).sum())
+    loss, cpu_loss = float(loss), float(cpu_loss)
+    rec = {"float_type": str(entity.dtype).replace("torch.", ""),
+           "optimizer": solver.optimizer.type, "batch": int(heads.numel()),
+           "pool_shape": [G, M], "entity_ids": int(ent_ids.numel()),
+           "entity_rows": int(torch.unique(ent_ids).numel()),
+           "compact_cpu_copy": compact, "loss": loss, "cpu_loss": cpu_loss,
+           "max_abs_diff": max_diff,
+           "tolerance": "rtol 3e-4, atol 3e-6 (+ 1 bf16 ulp on bf16 tables)",
+           "entity_rows_moved": moved}
+    del cpu_state, cpu_new, before, got_all, want_all
+    problems = []
+    if not ok:
+        problems.append("card and CPU disagree on a batch: %r" % rec)
+    if abs(loss - cpu_loss) > 2e-5 * abs(cpu_loss):
+        problems.append("card loss %r vs CPU loss %r" % (loss, cpu_loss))
+    if moved == 0:
+        problems.append("no entity row moved: %r" % rec)
+    return rec, {"entity": ent_ids, "relation": rels.long()}, problems
+
+
+def kg_ranking(app, data, triplets, cpu_check):
+    """Filtered ranking through the application on the card (the first
+    `triplets` test triplets, both sides, filtered by every split), and
+    ops-level: filtered_rankings on the card equal to the CPU's on the
+    first `cpu_check` of them."""
+    from graphvite_tpu_torch.application import evaluate as ev
+
+    test = data["test"][:triplets]
+    known = data["train"] + data["valid"] + data["test"]
+    fH, fR, fT = (list(x) for x in zip(*known))
+    H, R, T = (list(x) for x in zip(*test))
+    t0 = time.perf_counter()
+    metrics = app.evaluate("link prediction", H=H, R=R, T=T, filter_H=fH,
+                           filter_R=fR, filter_T=fT, target="both")
+    elapsed = time.perf_counter() - t0
+    g = app.graph
+    e2i, r2i = g.entity2id, g.relation2id
+    ex_h, ex_t = {}, {}
+    for h, r, t in known:
+        if h in e2i and t in e2i and r in r2i:
+            h, r, t = e2i[h], r2i[r], e2i[t]
+            ex_h.setdefault((t, r), set()).add(h)
+            ex_t.setdefault((h, r), set()).add(t)
+    sub = [(e2i[h], r2i[r], e2i[t]) for h, r, t in test
+           if h in e2i and t in e2i and r in r2i][:cpu_check]
+    h, r, t = (np.array(x) for x in zip(*sub))
+    s = app.solver
+    entity, relation = s.state["tables"]
+    hyper = app._margin_or_l3()
+    on_card = ev.filtered_rankings(s.model, entity, relation, h, r, t, ex_h,
+                                   ex_t, hyper)
+    on_cpu = ev.filtered_rankings(s.model, entity.cpu(), relation.cpu(), h,
+                                  r, t, ex_h, ex_t, hyper)
+    diff = np.abs(on_card - on_cpu)
+    rec = {"triplets": len(test), "sides": 2, "elapsed_s": elapsed,
+           "triplets_per_s": len(test) / elapsed, "metrics": metrics,
+           "cpu_check_triplets": len(sub),
+           "ranks_compared": int(diff.size),
+           "ranks_equal": int((diff == 0).sum()),
+           "max_rank_diff": float(diff.max())}
+    problems = []
+    # a rank counts `score >= truth` over 14,951 candidates whose float32
+    # scores (sums of 1,024 distances, ~1e3, spacing ~1e-4) the two devices
+    # add up in different orders: a candidate within an ulp of the truth
+    # flips. So: at most 2 apart, and 9 in 10 equal.
+    if rec["max_rank_diff"] > 2 or rec["ranks_equal"] < 0.9 * diff.size:
+        problems.append("filtered ranks differ between card and CPU: %r"
+                        % rec)
+    if not all(np.isfinite(v) for v in metrics.values()):
+        problems.append("ranking metrics not finite: %r" % metrics)
+    return rec, problems
+
+
+def _touched(ids, v):
+    """(unique in-range ids, each entry's index among them; dropped ids get
+    the out-of-range index len(unique))."""
+    import torch
+
+    ok = (ids >= 0) & (ids < v)
+    rows = torch.unique(ids[ok])
+    inv = torch.searchsorted(rows, ids.clamp(0, v - 1))
+    return rows, torch.where(ok, inv, torch.full_like(inv, rows.numel()))
+
+
+def check_add_rows(name, ids, v, w, dtype, gen):
+    """Kernel 1's unsorted entry on the ids a KG path drew, at its table's
+    shape [v, w]. The table may be most of the card's memory, so the plain
+    version runs on a copy of the touched rows, renumbered, and is held
+    against the same rows of the kernel's table; two launches on the same
+    inputs must give the same bits."""
+    import torch
+    from graphvite_tpu_torch.ops import scatter
+
+    dev = torch.device("cuda")
+    n = ids.numel()
+    upd = torch.randn((n, w), generator=gen, device=dev) * 1e-2
+    table = torch.empty((v, w), device=dev).normal_(
+        generator=gen).mul_(0.1).to(dtype)
+    rows, inv = _touched(ids, v)
+    before = table[rows].clone()
+    want = scatter.scatter_add_plain(before.clone(), inv, upd).float()
+    mag = scatter.scatter_add_plain(before.float().abs(), inv, upd.abs())
+    scatter.scatter_add_(table, ids, upd)
+    got = table[rows].float()
+    table[rows] = before
+    scatter.scatter_add_(table, ids, upd)
+    torch.cuda.synchronize()
+    if not torch.equal(got, table[rows].float()):
+        raise AssertionError("two launches of scatter_add_ on the same "
+                             "inputs differ (%s)" % name)
+    diff = (got - want).abs()
+    max_err = float(diff.max())
+    if dtype == torch.float32:
+        ok = bool((diff <= 1e-6 * mag).all())
+        tol = "|err| <= 1e-6 * (|table| + sum|upd|)"
+    else:
+        ok = bool((diff <= bf16_ulp(want) + 1e-6 * mag).all())
+        tol = "|err| <= 1 bf16 ulp + 1e-6 * (|table| + sum|upd|)"
+    if not ok:
+        raise AssertionError("scatter_add_ disagrees with its plain version "
+                             "at %s %s: max |err| %g" % (name, dtype, max_err))
+    del before, want, mag, got, diff
+    ms = cuda_ms(lambda: scatter.scatter_add_(table, ids, upd))
+    sid, order = torch.sort(ids.to(torch.int32), stable=True)
+    order = order.to(torch.int32)
+    kernel_only_ms = cuda_ms(lambda: scatter._launch_add(
+        table, sid, upd, sort=False, order=order))
+    plain_ms = cuda_ms(lambda: scatter.scatter_add_plain(table, ids, upd),
+                       reps=5, warmup=1)
+    upd_t = upd.to(dtype)
+    ids64 = ids.long()
+    library_ms = cuda_ms(lambda: table.index_add_(0, ids64, upd_t))
+    uniq = int(rows.numel())
+    bound_ms, bound_by = bytes_bound(
+        n * w * 4 + 2 * uniq * w * table.element_size() + 4 * n, n * w)
+    del table
+    return {"entry": "scatter_add_", "case": name, "n": n, "width": w,
+            "table_rows": v, "dtype": str(dtype).replace("torch.", ""),
+            "tile_rows": scatter.tile_rows(n, w), "unique_rows": uniq,
+            "max_abs_err": max_err, "tolerance": tol, "ms": ms,
+            "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def check_update_rows(name, ids, counts, v, d, dtype, gen):
+    """Kernel 2's unsorted entry (Adam) on the ids a KG path drew, with its
+    touch counts and random squares, at its table's shape [v, d] (the
+    table and two float32 moment tables). The plain version runs on a copy
+    of the touched rows, renumbered, as in check_add_rows."""
+    import torch
+    from graphvite_tpu_torch.ops import scatter
+    from graphvite_tpu_torch.optim import Optimizer
+
+    dev = torch.device("cuda")
+    n = ids.numel()
+    opt = Optimizer(type="Adam", lr=1e-3, weight_decay=0.0)
+    grads = torch.randn((n, d), generator=gen, device=dev) * 1e-2
+    sqs = grads * grads * (1.0 + torch.rand((n, d), generator=gen,
+                                            device=dev))
+    table = torch.empty((v, d), device=dev).normal_(
+        generator=gen).mul_(0.1).to(dtype)
+    moms = tuple(torch.empty((v, d), device=dev).uniform_(
+        generator=gen).mul_(1e-4) for _ in range(2))
+    rows, inv = _touched(ids, v)
+    before = [t[rows].clone() for t in (table,) + moms]
+    kw = dict(entry_counts=counts, entry_sqs=sqs)
+    want_t, want_m = scatter.scatter_update_plain(
+        before[0].clone(), tuple(m.clone() for m in before[1:]), inv, grads,
+        opt, 1e-3, counts, sqs)
+    scatter.scatter_update_(table, moms, ids, grads, opt, 1e-3, **kw)
+    got = [t[rows].clone() for t in (table,) + moms]
+    for t, b in zip((table,) + moms, before):
+        t[rows] = b
+    scatter.scatter_update_(table, moms, ids, grads, opt, 1e-3, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, t[rows]) for a, t in zip(got, (table,) + moms)):
+        raise AssertionError("two launches of scatter_update_ on the same "
+                             "inputs differ (%s)" % name)
+    max_err = 0.0
+    for i, (a, b) in enumerate(zip(got, (want_t,) + want_m)):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        tol = 2e-5 + 2e-5 * b.abs()
+        if dtype == torch.bfloat16 and i == 0:
+            # one ulp of the result and one of the row's old value: the
+            # plain version rounds the delta to bf16 before it subtracts,
+            # the kernel rounds the result once
+            tol = tol + bf16_ulp(b) + bf16_ulp(before[0].float())
+        max_err = max(max_err, float(diff.max()))
+        if not bool((diff <= tol).all()):
+            raise AssertionError("scatter_update_ disagrees with its plain "
+                                 "version at %s: max |err| %g"
+                                 % (name, float(diff.max())))
+    del before, want_t, want_m, got
+    ms = cuda_ms(lambda: scatter.scatter_update_(table, moms, ids, grads, opt,
+                                                 1e-3, **kw))
+    sid, order = torch.sort(ids.to(torch.int32), stable=True)
+    order = order.to(torch.int32)
+    kernel_only_ms = cuda_ms(lambda: scatter._launch_update(
+        table, moms, sid, grads, opt, 1e-3, counts, sqs, 1.0, sort=False,
+        order=order))
+    plain_ms = cuda_ms(lambda: scatter.scatter_update_plain(
+        table, moms, ids, grads, opt, 1e-3, counts, sqs), reps=3, warmup=1)
+    uniq = int(rows.numel())
+    s = table.element_size()
+    bound_ms, bound_by = bytes_bound(
+        n * d * 8 + 8 * n + 2 * uniq * d * (s + 8), n * d * 3 + uniq * d * 20)
+    del table, moms
+    return {"entry": "scatter_update_", "case": name, "n": n, "width": d,
+            "table_rows": v, "sorted": False,
+            "tile_rows": scatter.tile_rows(n, d), "optimizer": "Adam",
+            "dtype": str(dtype).replace("torch.", ""), "unique_rows": uniq,
+            "max_abs_err": max_err,
+            "tolerance": "|err| <= 2e-5 + 2e-5 |want| (+ 1 bf16 ulp of the "
+            "result and 1 of the old row)",
+            "ms": ms, "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def math_quality():
+    """The offline math fixture through KnowledgeGraphApplication at
+    config/demo/math.yaml cut to dim 128 and 500 epochs: filtered tail
+    ranking of the test split."""
+    from graphvite_tpu_torch import KnowledgeGraphApplication
+
+    train = math_triplets(20000, 1023)
+    valid = math_triplets(1000, 1024)
+    test = math_triplets(1000, 1025)
+    app = KnowledgeGraphApplication(dim=128)
+    app.load(triplet_list=train)
+    app.build(optimizer=ADAM_MATH, **BUILD_MATH)
+    t0 = time.perf_counter()
+    app.train(num_epoch=500, **ROTATE_MATH)
+    train_s = time.perf_counter() - t0
+    fH, fR, fT = (list(x) for x in zip(*(train + valid + test)))
+    H, R, T = (list(x) for x in zip(*test))
+    metrics = app.evaluate("link prediction", H=H, R=R, T=T, filter_H=fH,
+                           filter_R=fR, filter_T=fT, target="tail")
+    s = app.solver
+    losses = s.batch_losses.double()
+    k = max(s.batch_id // 10, 5)
+    return {"model": "RotatE", "dim": 128, "epochs": 500,
+            "plan": list(s._batch_plan()), "pooled": s._pooled_step,
+            "batches": s.batch_id, "train_s": train_s,
+            "loss_first": float(losses[:k].mean()),
+            "loss_last": float(losses[-k:].mean()), **metrics}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def check_kernel(ids, dtype, gen):
@@ -776,26 +1316,33 @@ def front_end_breakdown(name, call, calls=20):
         call()
     host_ms = (time.perf_counter() - t0) / calls * 1e3
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            call()
-        torch.cuda.synchronize()
-    launches, seen, sort_us, kernel_us, other = 0, 0, 0.0, 0.0, []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or not ev.self_device_time_total:
-            continue
-        launches += ev.count
-        if "scatter_add_" in ev.key or "scatter_update_" in ev.key:
-            kernel_us += ev.self_device_time_total
-            if "_tiles" in ev.key:
-                seen += ev.count     # one first-pass launch per call
-        elif "sort" in ev.key.lower() or "Memset" in ev.key:
-            # the key kernel, the radix sort's passes and its counters' fill
-            sort_us += ev.self_device_time_total
-        else:
-            other.append(ev.key[:60])
-    if not seen:
+    # a trace of a window this short (20 sorted calls are ~1 ms) may hold
+    # few of its calls, or none: trace longer windows until one holds some
+    for attempt in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            for _ in range(calls << (2 * attempt)):
+                call()
+            torch.cuda.synchronize()
+        launches, seen, sort_us, kernel_us, other = 0, 0, 0.0, 0.0, []
+        for ev in prof.key_averages():
+            if (ev.device_type != DeviceType.CUDA
+                    or not ev.self_device_time_total):
+                continue
+            launches += ev.count
+            if "scatter_add_" in ev.key or "scatter_update_" in ev.key:
+                kernel_us += ev.self_device_time_total
+                if "_tiles" in ev.key:
+                    seen += ev.count     # one first-pass launch per call
+            elif "sort" in ev.key.lower() or "Memset" in ev.key:
+                # the key kernel, the radix sort's passes, its counters' fill
+                sort_us += ev.self_device_time_total
+            else:
+                other.append(ev.key[:60])
+        if seen:
+            break
+    else:
         raise AssertionError("the profiler recorded no device time")
     if other:
         raise AssertionError("%s launched kernels that are neither the sort "
@@ -809,7 +1356,7 @@ def front_end_breakdown(name, call, calls=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: quality
+# phase 8: quality
 # ---------------------------------------------------------------------------
 
 def two_blocks(n=60, seed=0):
@@ -937,6 +1484,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--main-batches", type=int, default=1000)
     ap.add_argument("--edge-batches", type=int, default=1000)
+    ap.add_argument("--kg-batches", type=int, default=200)
+    ap.add_argument("--kg-big-batches", type=int, default=200)
     args = ap.parse_args()
 
     try:
@@ -1100,7 +1649,101 @@ def main():
         return out
     phase("edge", edge_path)
 
-    # 5. each kernel against its plain version, on the paths' own ids
+    # 5. knowledge graphs: RotatE at the rotate_fb15k.yaml shape
+    def kg_path():
+        from graphvite_tpu_torch import KnowledgeGraphApplication
+
+        t0 = time.perf_counter()
+        data = fb15k_clone(args.seed)
+        app = KnowledgeGraphApplication(dim=KG_DIM)
+        app.load(triplet_list=data["train"])
+        g = app.graph
+        log("graph: %d entities, %d relations, %d train triplets, built in "
+            "%.1f s" % (g.num_vertex, g.num_relation, g.num_edge,
+                        time.perf_counter() - t0))
+        app.build(optimizer=ADAM_FB15K, **BUILD_FB15K)
+        out, problems = {}, []
+        # the dense moment route (14,951 x 2048 < 2^26 elements): no
+        # kernel of the port is on this path
+        rec, bad = train_kg_path(app, ROTATE_FB15K, args.kg_batches, {},
+                                 (14848, 7424, 2, 16, 128), falling=True)
+        log("   float32 Adam:", json.dumps(rec))
+        out["float32"] = rec
+        problems += bad
+        out["trace"] = trace_episode(app.solver, rec["ms_per_batch"],
+                                     ROTATE_FB15K)
+        log("   trace:", json.dumps(out["trace"]))
+        rep, ids, bad = replay_kg_batch(app.solver, args.seed + 1,
+                                        compact=False)
+        log("   micro-step, card vs CPU:", json.dumps(rep))
+        out["replay"] = rep
+        out["ids"] = ids
+        problems += ["replay: " + p for p in bad]
+        rank, bad = kg_ranking(app, data, 2000, 64)
+        log("   filtered ranking:", json.dumps(rank))
+        out["ranking"] = rank
+        problems += bad
+        if problems:
+            raise AssertionError("; ".join(problems))
+        return out
+    phase("kg", kg_path)
+    torch.cuda.empty_cache()
+
+    # 6. knowledge graphs: RotatE at the rotate_wikidata5m.yaml shape
+    def kg_big_path():
+        from graphvite_tpu_torch import KnowledgeGraphApplication
+
+        out, problems = {}, []
+        n = args.kg_big_batches
+        plan = (60928, 60928, 1, 128, 128)
+        runs = (("float32", "float32", SGD_WIKIDATA5M, n,
+                 {"scatter_add_": 2}),
+                ("bfloat16", "bfloat16", SGD_WIKIDATA5M, max(n // 2, 10),
+                 {"scatter_add_": 2}),
+                # the relation table (822 x 512) takes the dense route
+                ("adam", "float32", ADAM_WIKIDATA5M, max(n // 4, 10),
+                 {"scatter_update_": 1}))
+        graph = None
+        for name, float_type, opt, batches, per_batch in runs:
+            app = KnowledgeGraphApplication(dim=KG_BIG_DIM,
+                                            float_type=float_type)
+            if graph is None:
+                t0 = time.perf_counter()
+                graph = fill_power_law_kg(app.graph, WIKIDATA5M_ENT,
+                                          WIKIDATA5M_REL, WIKIDATA5M_TRAIN,
+                                          args.seed)
+                log("graph: %d entities, %d relations, %d triplets, built "
+                    "in %.1f s" % (graph.num_vertex, graph.num_relation,
+                                   graph.num_edge, time.perf_counter() - t0))
+            app.graph = graph
+            app.build(optimizer=opt, **BUILD_WIKIDATA5M)
+            rec, bad = train_kg_path(app, ROTATE_WIKIDATA5M, batches,
+                                     per_batch, plan,
+                                     falling=(name == "float32"))
+            log("   %s:" % name, json.dumps(rec))
+            out[name] = rec
+            problems += ["%s: %s" % (name, p) for p in bad]
+            if name == "float32":
+                out["trace"] = trace_episode(app.solver, rec["ms_per_batch"],
+                                             ROTATE_WIKIDATA5M, batches=5)
+                log("   trace:", json.dumps(out["trace"]))
+            rep, ids, bad = replay_kg_batch(app.solver, args.seed + 1,
+                                            compact=True)
+            log("   %s batch, card vs CPU:" % name, json.dumps(rep))
+            out["replay_" + name] = rep
+            problems += ["%s replay: %s" % (name, p) for p in bad]
+            if name == "float32":
+                out["ids"] = ids
+                out["pool_shape"] = rep["pool_shape"]
+            del app
+            torch.cuda.empty_cache()
+        if problems:
+            raise AssertionError("; ".join(problems))
+        return out
+    phase("kg_big", kg_big_path)
+    torch.cuda.empty_cache()
+
+    # 7. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         cases = {"scatter_add": [], "gather_sorted": [],
@@ -1141,13 +1784,53 @@ def main():
         cases["scatter_update"].append(rec)
         cases["front_end"] = front_ends(results["main"]["batch_ids"][0],
                                         heads, v_counts, ctx, c_counts, gen)
+        del heads, ctx, equal, v_counts, c_counts
+        torch.cuda.empty_cache()
+        # the KG paths' ids, at widths 512 and 2048: the entity update of
+        # the Wikidata5m-shaped batch (138,240 unsorted ids), its relation
+        # update (60,928 ids over 822 rows: every row a hub), and the
+        # FB15k-shaped micro-step's ids (that shape's own route is the
+        # dense one)
+        big = results["kg_big"]["ids"]
+        small = results["kg"]["ids"]
+        adds = (("kg_big entity", big["entity"], WIKIDATA5M_ENT, KG_BIG_DIM),
+                ("kg_big relation", big["relation"], WIKIDATA5M_REL,
+                 KG_BIG_DIM),
+                ("kg entity", small["entity"], FB15K_ENT, KG_DIM))
+        for name, ids, v, w in adds:
+            for dtype in (torch.float32, torch.bfloat16):
+                rec = check_add_rows(name, ids, v, w, dtype, gen)
+                log("   scatter_add_ (%s)" % name, json.dumps(rec))
+                cases["scatter_add"].append(rec)
+                torch.cuda.empty_cache()
+        # Adam's touch counts of the pooled step: positives 1 + K/2, pool
+        # slots Bg K / M; relations K + 1
+        G, M = results["kg_big"]["pool_shape"]
+        b = big["relation"].numel()
+        e_counts = torch.cat([torch.full((2 * b,), 33.0, device="cuda"),
+                              torch.full((G * M,), b // G * 64 / M,
+                                         device="cuda")])
+        r_counts = torch.full((b,), 65.0, device="cuda")
+        updates = (("kg_big entity", big["entity"], e_counts,
+                    WIKIDATA5M_ENT, torch.float32),
+                   ("kg_big entity", big["entity"], e_counts,
+                    WIKIDATA5M_ENT, torch.bfloat16),
+                   ("kg_big relation", big["relation"], r_counts,
+                    WIKIDATA5M_REL, torch.float32))
+        for name, ids, counts, v, dtype in updates:
+            rec = check_update_rows(name, ids, counts, v, KG_BIG_DIM, dtype,
+                                    gen)
+            log("   scatter_update_ (%s)" % name, json.dumps(rec))
+            cases["scatter_update"].append(rec)
+            torch.cuda.empty_cache()
         return cases
-    if "main" in results and "edge" in results:
+    needed = ("main", "edge", "kg", "kg_big")
+    if all(name in results for name in needed):
         phase("kernel", kernel)
     else:
-        failures.append("kernel (needs the main paths' ids)")
+        failures.append("kernel (needs the paths' ids)")
 
-    # 6. quality
+    # 8. quality
     def quality_phase():
         out = {}
         for model in ("DeepWalk", "LINE"):
@@ -1163,6 +1846,12 @@ def main():
                                      "the scatter-add twice per batch: %r"
                                      % q)
             out[model] = q
+        q = math_quality()
+        log("   math fixture, RotatE on the card:", json.dumps(q))
+        if not q["MRR"] >= 0.60 or not q["loss_last"] < q["loss_first"]:
+            raise AssertionError("math fixture: filtered tail MRR %.4f < "
+                                 "0.60, or the loss did not fall" % q["MRR"])
+        out["math"] = q
         return out
     phase("quality", quality_phase)
 
@@ -1170,7 +1859,7 @@ def main():
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 7. summary: the card line, the kernels line, the result line
+    # 9. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
@@ -1178,8 +1867,12 @@ def main():
           "edge_float32": (edge["float32"]["launches"]["scatter_add_"]
                            + edge["float32"]["launches"]
                            ["scatter_add_sorted_"])}
+    kg_big = results["kg_big"]
+    for name in ("float32", "bfloat16"):
+        k1["kg_big_" + name] = kg_big[name]["launches"]["scatter_add_"]
     k2 = {"edge_adam": (edge["adam"]["launches"]["scatter_update_"]
-                        + edge["adam"]["launches"]["scatter_update_sorted_"])}
+                        + edge["adam"]["launches"]["scatter_update_sorted_"]),
+          "kg_big_adam": kg_big["adam"]["launches"]["scatter_update_"]}
     k3 = {"edge_float32": edge["float32"]["launches"]["gather_sorted"]}
     kernels_line = {"kernels": [
         # the DeepWalk batch-100000 update, float32 table

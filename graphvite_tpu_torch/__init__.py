@@ -3,10 +3,11 @@
 A second package beside the JAX one, which stays the reference. It imports
 torch and numpy, never jax or graphvite_tpu. So far it trains DeepWalk and
 LINE node embeddings through the banded walk route (augmentation_step >= 2)
-and the edge route (augmentation_step 1), with the table updates and the
-edge route's sorted gather on hand-written CUDA kernels
-(graphvite_tpu_torch/csrc/). Its solvers and applications run on CUDA
-unless the caller asks for the CPU (`device="cpu"`).
+and the edge route (augmentation_step 1), and knowledge-graph embeddings
+(six models, the classic and the pooled step, filtered ranking), with the
+table updates and the edge route's sorted gather on hand-written CUDA
+kernels (graphvite_tpu_torch/csrc/). Its solvers and applications run on
+CUDA unless the caller asks for the CPU (`device="cpu"`).
 """
 
 __version__ = "0.1.0"
@@ -14,11 +15,12 @@ __version__ = "0.1.0"
 import numpy as _np
 
 from graphvite_tpu_torch.utils.common import auto
-from graphvite_tpu_torch.graph import Graph
+from graphvite_tpu_torch.graph import Graph, KnowledgeGraph
 from graphvite_tpu_torch.optim import Optimizer, make_optimizer
-from graphvite_tpu_torch.solver import (GraphSolver, state_from_numpy,
-                                        state_to_numpy)
-from graphvite_tpu_torch.application import GraphApplication
+from graphvite_tpu_torch.solver import (GraphSolver, KnowledgeGraphSolver,
+                                        state_from_numpy, state_to_numpy)
+from graphvite_tpu_torch.application import (Application, GraphApplication,
+                                             KnowledgeGraphApplication)
 
 # dtype shorthands, mirroring the reference's graphvite.float32 / .uint32
 float32 = _np.float32
@@ -27,7 +29,8 @@ uint32 = _np.uint32
 uint64 = _np.uint64
 
 __all__ = [
-    "auto", "Graph", "Optimizer", "make_optimizer", "GraphSolver",
-    "GraphApplication", "state_from_numpy", "state_to_numpy",
+    "auto", "Graph", "KnowledgeGraph", "Optimizer", "make_optimizer",
+    "GraphSolver", "KnowledgeGraphSolver", "Application", "GraphApplication",
+    "KnowledgeGraphApplication", "state_from_numpy", "state_to_numpy",
     "float32", "float64", "uint32", "uint64",
 ]

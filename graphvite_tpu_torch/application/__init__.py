@@ -1,10 +1,12 @@
-"""Application pipeline for node embedding: load -> build -> train ->
-evaluate -> save (the port of ApplicationMixin and GraphApplication in
+"""Application pipelines: load -> build -> train -> evaluate -> save (the
+port of ApplicationMixin, GraphApplication and KnowledgeGraphApplication in
 graphvite_tpu/application/__init__.py). The solver runs on CUDA unless the
-caller passes `device="cpu"`."""
+caller passes `device="cpu"`; evaluation runs on the solver's device."""
 from __future__ import annotations
 
+import os
 import pickle
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -13,7 +15,8 @@ from graphvite_tpu_torch import base
 from graphvite_tpu_torch import graph as graph_mod
 from graphvite_tpu_torch import solver as solver_mod
 from graphvite_tpu_torch.application import evaluate as ev
-from graphvite_tpu_torch.utils.common import Monitor, auto, logger
+from graphvite_tpu_torch.models import KG_MODELS
+from graphvite_tpu_torch.utils.common import Monitor, assert_in, auto, logger
 
 
 class ApplicationMixin:
@@ -249,3 +252,176 @@ class GraphApplication(ApplicationMixin):
                                    up(state["context_embeddings"])),
                         "moments": solver.state["moments"]}
 
+
+
+class KnowledgeGraphApplication(ApplicationMixin):
+    """KG embedding application (ref application.py:576-1067)."""
+
+    def get_graph(self, **kwargs):
+        return graph_mod.KnowledgeGraph()
+
+    def get_solver(self, **kwargs):
+        return solver_mod.KnowledgeGraphSolver(
+            self.dim, self.float_type, self.index_type,
+            gpu_memory_limit=self.gpu_memory_limit,
+            num_worker=max(len(self.gpus), 1), device=self.device)
+
+    def _load_dispatch(self, triplet_list=None, **kwargs):
+        if triplet_list is None:
+            raise ValueError("provide file_name or triplet_list")
+        self.graph.load_triplet_list(triplet_list, **kwargs)
+
+    def _read_triplet_file(self, file_name):
+        H, R, T = [], [], []
+        with open(file_name) as f:
+            for i, line in enumerate(f, 1):
+                tokens = self.tokenize(line)
+                if not tokens:
+                    continue
+                if not 3 <= len(tokens) <= 4:
+                    raise ValueError("Invalid line %d in %s" % (i, file_name))
+                h, r, t = tokens[:3]
+                H.append(h)
+                R.append(r)
+                T.append(t)
+        return H, R, T
+
+    def _margin_or_l3(self):
+        mdl = KG_MODELS[self.solver.model]
+        return (self.solver.margin if mdl.uses_margin
+                else self.solver.l3_regularization)
+
+    def entity_prediction(self, H=None, R=None, T=None, file_name=None,
+                          save_file=None, target="tail", k=10):
+        """Top-k entity recalls per (h, r, ?) or (?, r, t) query
+        (ref application.py:650-785), streamed: host memory is O(n * k)
+        at any entity count."""
+        assert_in("target", target, {"head", "tail"})
+        if file_name:
+            H, R, T = self._read_triplet_file(file_name)
+        e2i, r2i = self.graph.entity2id, self.graph.relation2id
+        if target == "head":
+            R_, T_ = self.name_map((r2i, e2i), (R, T))
+            H_ = [0] * len(R_)
+        else:
+            H_, R_ = self.name_map((e2i, r2i), (H, R))
+            T_ = [0] * len(R_)
+        H_, R_, T_ = (np.asarray(x, dtype=np.int64) for x in (H_, R_, T_))
+        entity, relation = self.solver.state["tables"]
+        vals, ids = ev.kg_topk(self.solver.model, entity, relation, H_, R_,
+                               T_, target, self._margin_or_l3(), k=k)
+        id2e = self.graph.id2entity
+        recalls = [[(id2e[int(e)], float(v)) for e, v in zip(irow, vrow)]
+                   for irow, vrow in zip(ids, vals)]
+        if save_file:
+            ext = os.path.splitext(save_file)[1]
+            if ext == ".txt":
+                with open(save_file, "w") as f:
+                    for recall in recalls:
+                        f.write("\t".join("%s: %g" % x for x in recall)
+                                + "\n")
+            elif ext == ".pkl":
+                with open(save_file, "wb") as f:
+                    pickle.dump(recalls, f, protocol=pickle.HIGHEST_PROTOCOL)
+            else:
+                raise ValueError("Unknown extension `%s`" % ext)
+            return None
+        return recalls
+
+    def link_prediction(self, H=None, R=None, T=None, file_name=None,
+                        filter_H=None, filter_R=None, filter_T=None,
+                        filter_files=None, target="both", fast_mode=None,
+                        backend=None, seed=None):
+        """Filtered MR/MRR/HITS@k (ref application.py:787-946).
+        `fast_mode`: evaluate that many triplets drawn with `seed`;
+        `backend` is accepted for parity."""
+        assert_in("target", target, {"head", "tail", "both"})
+        if file_name:
+            H, R, T = self._read_triplet_file(file_name)
+        if filter_files:
+            filter_H, filter_R, filter_T = [], [], []
+            for ff in filter_files:
+                fh, fr, ft = self._read_triplet_file(ff)
+                filter_H += fh
+                filter_R += fr
+                filter_T += ft
+        filter_H = filter_H or []
+        filter_R = filter_R or []
+        filter_T = filter_T or []
+
+        e2i, r2i = self.graph.entity2id, self.graph.relation2id
+        nH, nR, nT = self.name_map((e2i, r2i, e2i), (H, R, T))
+        logger.info("effective triplets: %d / %d", len(nH), len(H))
+        H = np.asarray(nH, dtype=np.int64)
+        R = np.asarray(nR, dtype=np.int64)
+        T = np.asarray(nT, dtype=np.int64)
+        fH, fR, fT = self.name_map((e2i, r2i, e2i),
+                                   (filter_H, filter_R, filter_T))
+        exclude_H = defaultdict(set)
+        exclude_T = defaultdict(set)
+        for h, r, t in zip(fH, fR, fT):
+            exclude_H[(t, r)].add(h)
+            exclude_T[(h, r)].add(t)
+
+        if fast_mode:
+            rng = np.random.default_rng(seed)
+            idx = rng.permutation(len(H))[:fast_mode]
+            H, R, T = H[idx], R[idx], T[idx]
+
+        entity, relation = self.solver.state["tables"]
+        rankings = ev.filtered_rankings(
+            self.solver.model, entity, relation, H, R, T, exclude_H,
+            exclude_T, self._margin_or_l3(), target)
+        return ev.ranking_metrics(rankings)
+
+    def model_state(self):
+        return {
+            "kind": "knowledge_graph",
+            "entity2id": self.graph.entity2id,
+            "relation2id": self.graph.relation2id,
+            "entity_embeddings": self.solver.entity_embeddings,
+            "relation_embeddings": self.solver.relation_embeddings,
+            "model": self.solver.model,
+            "margin": getattr(self.solver, "margin", 12.0),
+            "l3_regularization": getattr(self.solver, "l3_regularization",
+                                         2e-3),
+        }
+
+    def set_model_state(self, state):
+        emap = self.get_mapping(self.graph.id2entity, state["entity2id"])
+        rmap = self.get_mapping(self.graph.id2relation, state["relation2id"])
+        solver = self.solver
+
+        def up(a, mapping):
+            return torch.as_tensor(np.ascontiguousarray(a[mapping]),
+                                   device=solver.device).to(solver.float_type)
+
+        solver.model = state.get("model", "RotatE")
+        solver.margin = state.get("margin", 12.0)
+        solver.l3_regularization = state.get("l3_regularization", 2e-3)
+        if solver.state is None:
+            solver._allocate()
+        solver.state = {"tables": (up(state["entity_embeddings"], emap),
+                                   up(state["relation_embeddings"], rmap)),
+                        "moments": solver.state["moments"]}
+
+
+APPLICATIONS = {
+    "graph": GraphApplication,
+    "knowledge graph": KnowledgeGraphApplication,
+    "knowledge_graph": KnowledgeGraphApplication,
+}
+# the reference's other application types, by the ROADMAP item that ports
+# them
+_NOT_PORTED = {"word graph": 14, "word_graph": 14, "visualization": 13}
+
+
+def Application(type, *args, **kwargs):
+    """Factory mirroring graphvite.application.Application
+    (ref application.py:1371-1392)."""
+    if type in _NOT_PORTED:
+        raise NotImplementedError(
+            "the `%s` application is not ported yet (ROADMAP queue 1, item "
+            "%d)" % (type, _NOT_PORTED[type]))
+    assert_in("application type", type, set(APPLICATIONS))
+    return APPLICATIONS[type](*args, **kwargs)

@@ -1,5 +1,6 @@
-"""Host-side graph container: CSR over numpy arrays (the port's numpy-only
-copy of graphvite_tpu/graph.py `Graph`).
+"""Host-side graph containers over numpy arrays (the port's numpy-only
+copy of graphvite_tpu/graph.py: `Graph`, a CSR, and `KnowledgeGraph`, a
+triplet list).
 
 Semantics kept from the reference:
 * first-seen order assigns node ids (name maps);
@@ -154,3 +155,107 @@ class Graph:
 
     def __repr__(self):
         return "Graph<%d vertices, %d edges>" % (self.num_vertex, self.num_edge)
+
+
+class KnowledgeGraph:
+    """Triplet graph (ref include/instance/knowledge_graph.cuh:67-284)."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self):
+        self.num_vertex = 0
+        self.num_relation = 0
+        self.num_edge = 0
+        self.entity2id = {}
+        self.relation2id = {}
+        self.id2entity = []
+        self.id2relation = []
+        self.normalization = False
+        self.edge_heads = np.zeros(0, dtype=np.int64)
+        self.edge_tails = np.zeros(0, dtype=np.int64)
+        self.edge_relations = np.zeros(0, dtype=np.int64)
+        self.edge_weights = np.zeros(0, dtype=np.float32)
+
+    def load_file(self, file_name, normalization=False, delimiters=None,
+                  comment="#"):
+        logger.info("loading knowledge graph from %s", file_name)
+        (hs, rs, ts), w = _parse_edge_file(file_name, 3, delimiters, comment)
+        self._build(hs, rs, ts, w, normalization)
+        return self
+
+    def load_triplet_list(self, triplet_list, normalization=False):
+        hs = [str(e[0]) for e in triplet_list]
+        rs = [str(e[1]) for e in triplet_list]
+        ts = [str(e[2]) for e in triplet_list]
+        w = np.array([float(e[3]) if len(e) > 3 else 1.0
+                      for e in triplet_list], dtype=np.float32)
+        self._build(hs, rs, ts, w, normalization)
+        return self
+
+    load_weighted_triplet_list = load_triplet_list
+
+    def _build(self, hs, rs, ts, w, normalization):
+        self.clear()
+        self.normalization = normalization
+        n = len(hs)
+        # entity ids in first-seen order across an interleaved (h, t)
+        # stream, the reference's add_edge visit order
+        inter = np.empty(2 * n, dtype=object)
+        inter[0::2] = hs
+        inter[1::2] = ts
+        codes, uniques = _factorize(inter)
+        self.id2entity = [str(x) for x in uniques]
+        self.entity2id = {e: i for i, e in enumerate(self.id2entity)}
+        self.num_vertex = len(uniques)
+        h = codes[0::2]
+        t = codes[1::2]
+        rcodes, runiques = _factorize(np.asarray(rs, dtype=object))
+        self.id2relation = [str(x) for x in runiques]
+        self.relation2id = {r: i for i, r in enumerate(self.id2relation)}
+        self.num_relation = len(runiques)
+        self.num_edge = n
+        w = np.asarray(w, dtype=np.float32)
+        if normalization:
+            # w /= sqrt(head_weight[(h, r)] * tail_weight[(t, r)])
+            hr = h * self.num_relation + rcodes
+            tr = t * self.num_relation + rcodes
+            hw = np.zeros(self.num_vertex * self.num_relation)
+            tw = np.zeros(self.num_vertex * self.num_relation)
+            np.add.at(hw, hr, w)
+            np.add.at(tw, tr, w)
+            w = (w / np.sqrt(hw[hr] * tw[tr])).astype(np.float32)
+        self.edge_heads = h.astype(np.int64)
+        self.edge_tails = t.astype(np.int64)
+        self.edge_relations = rcodes.astype(np.int64)
+        self.edge_weights = w
+
+    @property
+    def num_entity(self):
+        return self.num_vertex
+
+    @property
+    def degrees(self):
+        """Entity occurrence counts (head + tail roles)."""
+        return (np.bincount(self.edge_heads, minlength=self.num_vertex)
+                + np.bincount(self.edge_tails, minlength=self.num_vertex))
+
+    def info(self):
+        return ("#entity: %d, #relation: %d\n#triplet: %d, normalization: %s"
+                % (self.num_vertex, self.num_relation, self.num_edge,
+                   "yes" if self.normalization else "no"))
+
+    def save(self, file_name, anonymous=False):
+        with open(file_name, "w") as f:
+            for h, t, r in zip(self.edge_heads, self.edge_tails,
+                               self.edge_relations):
+                if anonymous:
+                    f.write("%d\t%d\t%d\n" % (h, t, r))
+                else:
+                    f.write("%s\t%s\t%s\n" % (self.id2entity[h],
+                                              self.id2entity[t],
+                                              self.id2relation[r]))
+
+    def __repr__(self):
+        return ("KnowledgeGraph<%d entities, %d relations, %d triplets>"
+                % (self.num_vertex, self.num_relation, self.num_edge))

@@ -33,7 +33,8 @@ class DeviceEdgeSampler:
     """Positive edges on the device, in one of four modes:
 
     * streamed (unweighted graphs with at least MIN_STREAM_BLOCKS chunks of
-      edges): the packed [E, 2] (head, tail) array is shuffled on the host
+      edges): the packed [E, 2] (head, tail) array ([E, 3] with the
+      relation, for knowledge graphs) is shuffled on the host
       once, padded with re-drawn edges to whole STREAM_CHUNK blocks, and
       each batch gathers ceil(B / 1024) random whole blocks;
     * sorted stream (`sort_stream`, or GRAPHVITE_SORTED_STREAM=1): the
@@ -52,20 +53,25 @@ class DeviceEdgeSampler:
     STREAM_CHUNK = 1024
     MIN_STREAM_BLOCKS = 64   # enough blocks for batch diversity
 
-    edges: torch.Tensor      # [E, 2] int32, or [nblocks, C, 2] streamed
+    edges: torch.Tensor      # [E, 2|3] int32, or [nblocks, C, 2|3] streamed
     alias_arrays: tuple      # () uniform | (packed,) | (prob, alias)
     num_edge: int
     uniform: bool
+    with_rel: bool = False
     streamed: bool = False
     sorted_stream: bool = False
 
     @classmethod
-    def build(cls, graph, sort_stream=None, device="cpu"):
+    def build(cls, graph, with_relation=False, sort_stream=None,
+              device="cpu"):
         w = np.asarray(graph.edge_weights)
         uniform = bool(w.size == 0 or np.all(w == w[0]))
         alias_arrays = () if uniform else device_alias_arrays(AliasTable(w))
-        packed = np.stack([np.asarray(graph.edge_heads, np.int32),
-                           np.asarray(graph.edge_tails, np.int32)], axis=1)
+        cols = [np.asarray(graph.edge_heads, np.int32),
+                np.asarray(graph.edge_tails, np.int32)]
+        if with_relation:
+            cols.append(np.asarray(graph.edge_relations, np.int32))
+        packed = np.stack(cols, axis=1)
         n_edge = int(packed.shape[0])
         C = cls.STREAM_CHUNK
         streamed = uniform and n_edge >= C * cls.MIN_STREAM_BLOCKS
@@ -84,27 +90,29 @@ class DeviceEdgeSampler:
             if sorted_stream:
                 # stable: within a head, the shuffled order stays
                 packed = packed[np.argsort(packed[:, 0], kind="stable")]
-            packed = packed.reshape(-1, C, 2)
+            packed = packed.reshape(-1, C, packed.shape[1])
         return cls(
             edges=torch.as_tensor(packed, device=device),
             alias_arrays=tuple(torch.as_tensor(a, device=device)
                                for a in alias_arrays),
-            num_edge=n_edge, uniform=uniform, streamed=streamed,
-            sorted_stream=sorted_stream)
+            num_edge=n_edge, uniform=uniform, with_rel=bool(with_relation),
+            streamed=streamed, sorted_stream=sorted_stream)
 
     def arrays(self):
         return (self.edges,) + self.alias_arrays
 
     def make_sample_fn(self, batch_size: int):
         """fn(edges, *alias_arrays, generator=None, draws=None) -> (heads
-        [B] int32, tails [B] int32, mask [B] float32 ones). `draws`
-        replaces the generator's numbers: (block ids [ceil(B/1024)], roll
-        shift or None) when streamed, edge ids [B] when uniform, (u1, u2)
-        [B] when weighted."""
+        [B] int32, tails [B] int32, mask [B] float32 ones), with the
+        relations [B] int32 before the mask when built `with_relation`.
+        `draws` replaces the generator's numbers: (block ids
+        [ceil(B/1024)], roll shift or None) when streamed, edge ids [B]
+        when uniform, (u1, u2) [B] when weighted."""
         B = int(batch_size)
         C = self.STREAM_CHUNK
         streamed, sorted_stream = self.streamed, self.sorted_stream
         uniform, n_edge = self.uniform, self.num_edge
+        with_rel = self.with_rel
 
         def sample(edges, *alias_arrays, generator=None, draws=None):
             dev = edges.device
@@ -122,7 +130,7 @@ class DeviceEdgeSampler:
                     # blocks are disjoint slices of a head-sorted array:
                     # block-id order is head order
                     bid = torch.sort(bid).values
-                row = edges[bid].reshape(nb * C, 2)
+                row = edges[bid].reshape(nb * C, -1)
                 if sorted_stream:
                     row = _interleave_repeats(row, bid, C)
                 if roll:
@@ -138,9 +146,11 @@ class DeviceEdgeSampler:
                     draws = (torch.rand(B, generator=generator, device=dev),
                              torch.rand(B, generator=generator, device=dev))
                 row = edges[device_sample(*alias_arrays, *draws)]
-            heads, tails = row.t().contiguous()
+            cols = row.t().contiguous()
             mask = torch.ones(B, dtype=torch.float32, device=dev)
-            return heads, tails, mask
+            if with_rel:
+                return cols[0], cols[1], cols[2], mask
+            return cols[0], cols[1], mask
 
         return sample
 

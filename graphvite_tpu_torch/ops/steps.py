@@ -1,5 +1,6 @@
-"""Node-embedding training steps and the episode runner (the port of the
-shared-negative-pool parts of graphvite_tpu/ops/steps.py).
+"""Training steps and the episode runner (the port of the node-embedding
+shared-negative-pool steps and the knowledge-graph steps of
+graphvite_tpu/ops/steps.py).
 
 Each step takes a state dict {"tables": (...), "moments": (...)} and one
 batch, samples a shared negative pool per sample group, computes
@@ -11,12 +12,22 @@ through the hand-written CUDA kernels on the card (ops/scatter.py,
 ops/gather.py). Tables are updated in place where the update is a
 scatter-add, and by the moment kernel.
 
+Knowledge-graph steps take (heads, tails, rels) triplets over a tied entity
+table and a relation table: the classic per-draw step
+(`make_kg_train_step`) and the shared-candidate-pool step
+(`make_kg_pool_step`, with a generic body for every model and the RotatE
+isometry body).
+
 Random draws: the pool draws (u1, u2) [G, M] are optional inputs
-(`draws`); otherwise they come from the `generator` on the tables' device.
+(`draws`; the knowledge-graph steps take their candidate ids as
+`negatives`); otherwise they come from the `generator` on the tables'
+device.
 
 Loss conventions match the reference's gpu/graph.cuh:73-92.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -462,28 +473,513 @@ def make_graph_banded_walk_step(opt: Optimizer, num_negative: int,
     return step
 
 
-def make_micro_step(step_fn, num_micro: int):
+# ---------------------------------------------------------------------------
+# knowledge graph (tied entity table + global relation table)
+# ---------------------------------------------------------------------------
+
+def _adversarial_weights(logits, temperature, uniform):
+    """Self-adversarial softmax over a sample's negatives (the reference's
+    stale-normalizer clip min(., 1) kept for parity), or uniform mass."""
+    if temperature > EPSILON:
+        return torch.clamp(torch.softmax(logits / temperature, dim=-1),
+                           max=1.0)
+    return torch.full_like(logits, uniform)
+
+
+def _mean_sample_loss(sample_loss, mask):
+    if mask is None:
+        return sample_loss.mean()
+    return sample_loss.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def make_kg_train_step(model, opt: Optimizer, num_negative: int,
+                       margin_or_l3: float, adversarial_temperature: float,
+                       relation_lr_multiplier: float, external_pool=False):
+    """The classic per-draw step. state tables: (entity, relation).
+    Negatives are uniform over 2 * num_entity ids: id < V corrupts the
+    head, else the tail (the split-id trick of the reference's
+    gpu/knowledge_graph.cuh:65-69 over the whole entity table).
+
+    step(state, heads [B], tails [B], rels [B], lr, mask=None,
+    negatives=None, generator=None) -> (state, loss); `negatives` =
+    (cand_ids [B, K], corrupt_head [B, K] bool) replaces the draw."""
+    if external_pool:
+        raise NotImplementedError(
+            "external_pool=True (candidate rows from the sharded trainer's "
+            "global pool) is not ported yet (ROADMAP queue 1, item 16)")
+    k = num_negative
+
+    def step(state, heads, tails, rels, lr, mask=None, negatives=None,
+             generator=None):
+        entity, relation = state["tables"]
+        e_moms, r_moms = state["moments"]
+        b = heads.shape[0]
+        num_entity = entity.shape[0]
+        if negatives is None:
+            neg_ids = torch.randint(0, 2 * num_entity, (b, k),
+                                    generator=generator,
+                                    device=entity.device)
+            corrupt_head = neg_ids < num_entity
+            cand_ids = torch.where(corrupt_head, neg_ids,
+                                   neg_ids - num_entity)
+        else:
+            cand_ids, corrupt_head = negatives
+
+        # gather only the K+2 distinct rows per sample (positive head,
+        # positive tail, K candidates): the corrupted side takes the
+        # candidate row, the other side the positive row
+        h_pos = entity[heads][:, None, :].float()            # [B, 1, D]
+        t_pos = entity[tails][:, None, :].float()
+        cand = entity[cand_ids].float()                      # [B, K, D]
+        ch = corrupt_head[..., None]
+        h = torch.cat([torch.where(ch, cand, h_pos), h_pos], dim=1)
+        t = torch.cat([torch.where(ch, t_pos, cand), t_pos], dim=1)
+        r = relation[rels][:, None, :].float()               # [B, 1, D]
+        logits = model.score(h, t, r, margin_or_l3)          # [B, K+1]
+
+        prob = torch.sigmoid(logits)
+        pos_loss = F.softplus(-logits[:, -1])
+        neg_logits = logits[:, :k]
+        neg_w = _adversarial_weights(neg_logits, adversarial_temperature,
+                                     1.0 / k)
+        neg_loss = (neg_w * F.softplus(neg_logits)).sum(dim=-1)
+        sample_loss = (pos_loss + neg_loss) / 2.0
+
+        label = torch.zeros_like(logits)
+        label[:, k] = 1.0
+        gradient = prob - label
+        weight = torch.cat([neg_w, torch.ones_like(logits[:, :1])], dim=1)
+        if mask is not None:
+            gradient = gradient * mask[:, None]
+            weight = weight * mask[:, None]
+            sample_loss = sample_loss * mask
+
+        gh, gt, gr = model.backward(h, t, r, gradient, margin_or_l3)
+        w = weight[..., None]
+        wd = opt.weight_decay
+        reg_h = w * (gh + wd * h)                            # [B, K+1, D]
+        reg_t = w * (gt + wd * t)
+        # relation row: one touch per subsample s = 0..K
+        per_touch_r = w * (gr + wd * r)
+        reg_r = per_touch_r.sum(dim=1)                       # [B, D]
+
+        # scatter K+2 rows per sample: candidate rows get the corrupted
+        # side's gradient; the positive rows their positive-pair gradient
+        # plus every negative subsample where they stayed in place, with
+        # true touch counts and per-touch squares for the moment rules
+        cand_grad = torch.where(ch, reg_h[:, :k], reg_t[:, :k])
+        chf = ch.to(reg_h.dtype)
+        head_touch = reg_h[:, :k] * (1 - chf)                # [B, K, D]
+        tail_touch = reg_t[:, :k] * chf
+        head_grad = reg_h[:, k] + head_touch.sum(dim=1)
+        tail_grad = reg_t[:, k] + tail_touch.sum(dim=1)
+        ent_ids = torch.cat([
+            _mask_ids(heads, mask, num_entity).long(),
+            _mask_ids(tails, mask, num_entity).long(),
+            _mask_ids(cand_ids, mask, num_entity).reshape(-1).long()])
+        ent_grads = torch.cat([head_grad, tail_grad,
+                               cand_grad.reshape(b * k, -1)])
+        ent_counts = ent_sqs = r_counts = r_sqs = None
+        if opt.num_moment > 0:
+            chn = corrupt_head.float()                       # [B, K]
+            ent_counts = torch.cat([
+                1 + (1 - chn).sum(dim=1), 1 + chn.sum(dim=1),
+                torch.ones(b * k, device=entity.device)])
+            ent_sqs = torch.cat([
+                reg_h[:, k] ** 2 + (head_touch * head_touch).sum(dim=1),
+                reg_t[:, k] ** 2 + (tail_touch * tail_touch).sum(dim=1),
+                (cand_grad * cand_grad).reshape(b * k, -1)])
+            r_counts = torch.full((b,), k + 1.0, device=entity.device)
+            r_sqs = (per_touch_r * per_touch_r).sum(dim=1)
+        new_entity, new_e_moms = apply_row_updates(
+            entity, e_moms, ent_ids, ent_grads, opt, lr,
+            entry_counts=ent_counts, entry_sqs=ent_sqs)
+        new_relation, new_r_moms = apply_row_updates(
+            relation, r_moms, _mask_ids(rels, mask, relation.shape[0]),
+            reg_r, opt, lr, lr_scale=relation_lr_multiplier,
+            entry_counts=r_counts, entry_sqs=r_sqs)
+        new_state = {"tables": (new_entity, new_relation),
+                     "moments": (new_e_moms, new_r_moms)}
+        return new_state, _mean_sample_loss(sample_loss, mask)
+
+    return step
+
+
+def kg_pool_groups(batch_size: int, target_group: int = 512,
+                   lo: int = 2, hi: int = 1024):
+    """Group count for the pooled KG step: bounds the per-group sample
+    count Bg so a shared candidate row's emulated touch count (Bg * K / M)
+    stays near the staleness bound. Always even (half the pool corrupts
+    heads, half tails)."""
+    g = lo
+    while g < hi and batch_size // g > target_group:
+        g *= 2
+    while (batch_size % g or g % 2) and g > 2:
+        g //= 2
+    return max(g, 2)
+
+
+# the pooled step scores several groups in one pass while one
+# [g, Bg, M/2, D/2] intermediate stays under this many elements (128 MiB
+# in float32): one group per pass at the rotate_fb15k.yaml shape (464 x 64
+# x 1024), four at rotate_wikidata5m.yaml's (476 x 64 x 256)
+GROUP_PASS_ELEMS = 1 << 25
+
+
+def _halves(x):
+    """Interleaved (re, im) -> contiguous (re, im) halves."""
+    re, im = x.reshape(x.shape[:-1] + (x.shape[-1] // 2, 2)).unbind(-1)
+    return re.contiguous(), im.contiguous()
+
+
+def _interleave(re, im):
+    out = torch.stack([re, im], dim=-1)
+    return out.reshape(out.shape[:-2] + (-1,))
+
+
+def make_kg_pool_step(model, opt: Optimizer, num_negative: int,
+                      margin_or_l3: float, adversarial_temperature: float,
+                      relation_lr_multiplier: float, pool_size: int = 0,
+                      pool_groups: int = 8, trust: float = 0.25):
+    """Shared-candidate-pool KG step with mixed-side pools.
+
+    Each group of Bg samples shares ONE pool of M candidate rows; the
+    first M/2 slots score as head corruptions and the rest as tail
+    corruptions, so negative scoring is two broadcasts, score(cand, t) and
+    score(h, cand), while each sample's self-adversarial softmax still
+    normalizes over a mixed candidate set, as the reference's
+    uniform-over-2V draw does. Candidate gather and scatter drop from B*K
+    rows to G*M. Moment rules get emulated K-draw touch counts (a pool
+    slot stands for K/M draws per active sample; positive rows 1 + K/2)
+    and M/K-rescaled squared-gradient sums. The accumulated candidate-row
+    displacement is clipped to `trust` x (its norm + 1e-2).
+
+    Bodies: the generic one calls the model's score and backward on
+    [g, Bg, M/2, D] broadcasts. For RotatE with weight_decay 0 (unless
+    GRAPHVITE_KG_FAST=0) the isometry body: |c e^{i phi} - t| = |c - t
+    e^{-i phi}|, so the negative chains are ONE complex difference d = c -
+    u per pair with u rotated once per sample, and every gradient and
+    square factors through sums of z = gn/rho * d over the samples or the
+    candidates, on half-width [g, Bg, M/2, D/2] tensors. The generic body
+    adds EPSILON to the distance (the model's backward), the isometry
+    body clamps the squared distance at EPSILON^2 under an rsqrt, as the
+    reference's bodies do.
+
+    Where the reference scans the G groups one at a time, this step takes
+    several per pass: as many as keep one intermediate under
+    GROUP_PASS_ELEMS elements (a divisor of G). The sums are per group
+    either way.
+
+    step(state, heads [B], tails [B], rels [B], lr, mask=None,
+    negatives=None, generator=None) -> (state, loss); B % pool_groups ==
+    0; `negatives` = candidate ids [G, M] (`step.pool_shape`)."""
+    k = num_negative
+    # default pool: every group gets at least 64 distinct candidates and
+    # never fewer than 2K (the reference's quality finding on its math
+    # fixture)
+    M = int(pool_size) if pool_size else max(2 * int(num_negative), 64)
+    M += M % 2
+    G = int(pool_groups)
+    M2 = M // 2
+    uses_margin = bool(getattr(model, "uses_margin", False))
+    bw_hyper = margin_or_l3 if uses_margin else 0.0
+    l3 = 0.0 if uses_margin else margin_or_l3
+    sq_scale = M / max(k, 1)
+    need_sq = opt.num_moment > 0
+    fast_rotate = (getattr(model, "name", "") == "RotatE"
+                   and opt.weight_decay == 0.0
+                   and os.environ.get("GRAPHVITE_KG_FAST", "1") != "0")
+    wd = opt.weight_decay
+
+    def _reg(p):
+        r = wd * p
+        if not uses_margin and l3:
+            r = r + (3.0 * l3) * p.abs() * p
+        return r
+
+    def negative_outs(logits, m_g):
+        """Shared tail of both bodies: weights, loss and the per-pair
+        gradient scale gn [g, Bg, M] from the logits."""
+        w = _adversarial_weights(logits, adversarial_temperature, 1.0 / M)
+        if m_g is not None:
+            w = w * m_g[..., None]
+        loss_neg = (w * F.softplus(logits)).sum(dim=-1)
+        return w, loss_neg, torch.sigmoid(logits) * w
+
+    def fast_rotate_body(h, t, r, cand, m_g):
+        """RotatE negatives of g groups: h, t, r [g, Bg, D], cand
+        [g, M, D], m_g [g, Bg] or None."""
+        Dh = h.shape[-1] // 2
+        h_re, h_im = _halves(h)                              # [g, Bg, Dh]
+        t_re, t_im = _halves(t)
+        phase = r[..., :Dh]
+        cosp, sinp = torch.cos(phase), torch.sin(phase)      # per SAMPLE
+        # u = t * e^{-i phi} (head-corrupt frame), w = h * e^{i phi}
+        u_re = t_re * cosp + t_im * sinp
+        u_im = t_im * cosp - t_re * sinp
+        w_re = h_re * cosp - h_im * sinp
+        w_im = h_re * sinp + h_im * cosp
+        c_re, c_im = _halves(cand)                           # [g, M, Dh]
+
+        def side(fixed_re, fixed_im, cs_re, cs_im, head_side):
+            """One corruption side: d = c - u (head) or w - c (tail) per
+            (sample, candidate, dim); logits and what the gradients need."""
+            if head_side:
+                d_re = cs_re[:, None] - fixed_re[:, :, None]
+                d_im = cs_im[:, None] - fixed_im[:, :, None]
+            else:
+                d_re = fixed_re[:, :, None] - cs_re[:, None]
+                d_im = fixed_im[:, :, None] - cs_im[:, None]
+            sq = d_re * d_re + d_im * d_im                   # [g, Bg, M2, Dh]
+            rinv = torch.rsqrt(torch.clamp(sq, min=EPSILON * EPSILON))
+            logits = margin_or_l3 - (sq * rinv).sum(dim=-1)
+            return d_re, d_im, rinv, logits
+
+        dh_re, dh_im, rinv_h, lg_h = side(u_re, u_im, c_re[:, :M2],
+                                          c_im[:, :M2], True)
+        dt_re, dt_im, rinv_t, lg_t = side(w_re, w_im, c_re[:, M2:],
+                                          c_im[:, M2:], False)
+        logits = torch.cat([lg_h, lg_t], dim=-1)             # [g, Bg, M]
+        _, loss_neg, gn = negative_outs(logits, m_g)
+
+        def side_grads(gn_s, d_re, d_im, rinv):
+            """z = (gn / rho) * d; sums of z over the samples (candidate
+            side, B_*) and over the candidates (sample side, E_*), and of
+            its squares for the moment rules."""
+            alpha = gn_s[..., None] * rinv                   # [g, Bg, M2, Dh]
+            z_re = alpha * d_re
+            z_im = alpha * d_im
+            out = {"B_re": z_re.sum(dim=1), "B_im": z_im.sum(dim=1),
+                   "E_re": z_re.sum(dim=2), "E_im": z_im.sum(dim=2)}
+            if need_sq:
+                zr2 = z_re * z_re
+                zi2 = z_im * z_im
+                out.update(B_rr=zr2.sum(dim=1), B_ii=zi2.sum(dim=1),
+                           S_rr=zr2.sum(dim=2), S_ii=zi2.sum(dim=2),
+                           S_ri=(z_re * z_im).sum(dim=2))
+            return out
+
+        sh = side_grads(gn[..., :M2], dh_re, dh_im, rinv_h)
+        del dh_re, dh_im, rinv_h
+        st = side_grads(gn[..., M2:], dt_re, dt_im, rinv_t)
+        del dt_re, dt_im, rinv_t
+
+        # head-corrupt: d = c - u, dL/dc = -z, dL/dt = +R^{+phi}(z);
+        # tail-corrupt: d = w - c, dL/dc = +z, dL/dh = -R^{-phi}(z)
+        tail_g = _interleave(sh["E_re"] * cosp - sh["E_im"] * sinp,
+                             sh["E_re"] * sinp + sh["E_im"] * cosp)
+        head_g = -_interleave(st["E_re"] * cosp + st["E_im"] * sinp,
+                              st["E_im"] * cosp - st["E_re"] * sinp)
+        # phase gradient per pair: z_re * f_im - z_im * f_re, f the frame
+        gphase = ((sh["E_re"] * u_im - sh["E_im"] * u_re)
+                  + (st["E_re"] * w_im - st["E_im"] * w_re))
+        outs = {
+            "cand": torch.cat([_interleave(-sh["B_re"], -sh["B_im"]),
+                               _interleave(st["B_re"], st["B_im"])], dim=1),
+            "head": head_g, "tail": tail_g,
+            "rel": torch.cat([gphase, torch.zeros_like(gphase)], dim=-1),
+            "loss": loss_neg,
+        }
+        if need_sq:
+            outs["cand_sqs"] = sq_scale * torch.cat(
+                [_interleave(sh["B_rr"], sh["B_ii"]),
+                 _interleave(st["B_rr"], st["B_ii"])], dim=1)
+            # staying-side squares: the per-pair gradient is a rotation of
+            # z, which mixes re and im BEFORE the square
+            c2, s2, cs = cosp * cosp, sinp * sinp, cosp * sinp
+            outs["tail_sqs"] = sq_scale * _interleave(
+                c2 * sh["S_rr"] - 2.0 * cs * sh["S_ri"] + s2 * sh["S_ii"],
+                s2 * sh["S_rr"] + 2.0 * cs * sh["S_ri"] + c2 * sh["S_ii"])
+            outs["head_sqs"] = sq_scale * _interleave(
+                c2 * st["S_rr"] + 2.0 * cs * st["S_ri"] + s2 * st["S_ii"],
+                s2 * st["S_rr"] - 2.0 * cs * st["S_ri"] + c2 * st["S_ii"])
+            ph_h = (u_im * u_im * sh["S_rr"] - 2.0 * u_re * u_im * sh["S_ri"]
+                    + u_re * u_re * sh["S_ii"])
+            ph_t = (w_im * w_im * st["S_rr"] - 2.0 * w_re * w_im * st["S_ri"]
+                    + w_re * w_re * st["S_ii"])
+            outs["rel_sqs"] = sq_scale * torch.cat(
+                [ph_h + ph_t, torch.zeros_like(ph_h)], dim=-1)
+        return outs
+
+    def body(h, t, r, cand, m_g):
+        """Negatives of g groups through the model's own score and
+        backward; same contract as fast_rotate_body."""
+        ch = cand[:, None, :M2]                              # [g, 1, M2, D]
+        ct = cand[:, None, M2:]
+        h4, t4, r4 = h[:, :, None], t[:, :, None], r[:, :, None]
+        lg_h = model.score(ch, t4, r4, margin_or_l3)         # [g, Bg, M2]
+        lg_t = model.score(h4, ct, r4, margin_or_l3)
+        logits = torch.cat([lg_h, lg_t], dim=-1)             # [g, Bg, M]
+        w, loss_neg, gn = negative_outs(logits, m_g)
+        gc_h, gs_h, gr_h = model.backward(ch, t4, r4, gn[..., :M2], bw_hyper)
+        gs_t, gc_t, gr_t = model.backward(h4, ct, r4, gn[..., M2:], bw_hyper)
+        # per-entry regularized gradients [g, Bg, M2, D]; the weights are
+        # in gn already, the reg terms scale by w per touch
+        w_h = w[..., :M2, None]
+        w_t = w[..., M2:, None]
+        reg_ch = gc_h + w_h * _reg(ch)
+        reg_ct = gc_t + w_t * _reg(ct)
+        reg_sh = gs_h + w_h * _reg(t4)                       # tail stays
+        reg_st = gs_t + w_t * _reg(h4)                       # head stays
+        rel_h = gr_h + w_h * _reg(r4)
+        rel_t = gr_t + w_t * _reg(r4)
+        outs = {
+            "cand": torch.cat([reg_ch.sum(dim=1), reg_ct.sum(dim=1)], dim=1),
+            "head": reg_st.sum(dim=2),                       # [g, Bg, D]
+            "tail": reg_sh.sum(dim=2),
+            "rel": rel_h.sum(dim=2) + rel_t.sum(dim=2),
+            "loss": loss_neg,
+        }
+        if need_sq:
+            outs["cand_sqs"] = sq_scale * torch.cat(
+                [(reg_ch * reg_ch).sum(dim=1), (reg_ct * reg_ct).sum(dim=1)],
+                dim=1)
+            outs["head_sqs"] = sq_scale * (reg_st * reg_st).sum(dim=2)
+            outs["tail_sqs"] = sq_scale * (reg_sh * reg_sh).sum(dim=2)
+            outs["rel_sqs"] = sq_scale * ((rel_h * rel_h).sum(dim=2)
+                                          + (rel_t * rel_t).sum(dim=2))
+        return outs
+
+    def step(state, heads, tails, rels, lr, mask=None, negatives=None,
+             generator=None):
+        entity, relation = state["tables"]
+        e_moms, r_moms = state["moments"]
+        b = heads.shape[0]
+        num_entity, dim = entity.shape
+        if b % G:
+            raise ValueError("batch %d must divide into %d pool groups"
+                             % (b, G))
+        bg = b // G
+        dev = entity.device
+        maskf = None if mask is None else mask.float()
+        if negatives is not None:
+            cand_ids = negatives
+        else:
+            cand_ids = torch.randint(0, num_entity, (G, M),
+                                     generator=generator, device=dev)
+
+        # ---- positive pairs: one [B, D]-wide pass, no K dimension ------
+        h_pos = entity[heads].float()
+        t_pos = entity[tails].float()
+        r_pos = relation[rels].float()
+        cand = entity[cand_ids].float()                      # [G, M, D]
+        pos_logit = model.score(h_pos, t_pos, r_pos, margin_or_l3)
+        g_pos = torch.sigmoid(pos_logit) - 1.0
+        pos_loss = F.softplus(-pos_logit)
+        if maskf is not None:
+            g_pos = g_pos * maskf
+            pos_loss = pos_loss * maskf
+        # backward(margin_or_l3) already includes the l3 term; add only wd
+        ghp, gtp, grp = model.backward(h_pos, t_pos, r_pos, g_pos,
+                                       margin_or_l3)
+        wp = 1.0 if maskf is None else maskf[:, None]
+        reg_hp = ghp + wp * (wd * h_pos)
+        reg_tp = gtp + wp * (wd * t_pos)
+        reg_rp = grp + wp * (wd * r_pos)
+
+        # ---- negatives, `gp` groups per pass ---------------------------
+        width = dim // 2 if fast_rotate else dim
+        gp = min(max(GROUP_PASS_ELEMS // max(bg * M2 * width, 1), 1), G)
+        while G % gp:
+            gp -= 1
+        h3 = h_pos.reshape(G, bg, dim)
+        t3 = t_pos.reshape(G, bg, dim)
+        r3 = r_pos.reshape(G, bg, dim)
+        m3 = None if maskf is None else maskf.reshape(G, bg)
+        run = fast_rotate_body if fast_rotate else body
+        parts = []
+        for g0 in range(0, G, gp):
+            sl = slice(g0, g0 + gp)
+            parts.append(run(h3[sl], t3[sl], r3[sl], cand[sl],
+                             None if m3 is None else m3[sl]))
+        outs = {key: torch.cat([p[key] for p in parts])
+                for key in parts[0]}
+        # active samples per group (touch counts are NOT weight-scaled:
+        # each draw is one optimizer touch however small its weight)
+        msum = (torch.full((G,), float(bg), device=dev) if m3 is None
+                else m3.sum(dim=1))
+
+        # ---- assemble entity updates -----------------------------------
+        head_grad = reg_hp + outs["head"].reshape(b, -1)
+        tail_grad = reg_tp + outs["tail"].reshape(b, -1)
+        cand_grad = outs["cand"].reshape(G * M, -1)
+        if trust is not None:
+            # a shared candidate row accumulates Bg coherent sample
+            # gradients at one stale point
+            dnorm = torch.linalg.vector_norm(cand_grad, dim=-1, keepdim=True)
+            limit = (trust * (torch.linalg.vector_norm(
+                cand.reshape(G * M, -1), dim=-1, keepdim=True) + 1e-2)
+                / max(lr, EPSILON))
+            cand_grad = cand_grad * torch.clamp(
+                limit / torch.clamp(dnorm, min=EPSILON), max=1.0)
+        ent_ids = torch.cat([
+            _mask_ids(heads, mask, num_entity).long(),
+            _mask_ids(tails, mask, num_entity).long(),
+            cand_ids.reshape(-1).long()])
+        ent_grads = torch.cat([head_grad, tail_grad, cand_grad])
+        rel_grad = reg_rp + outs["rel"].reshape(b, -1)
+
+        ent_counts = ent_sqs = r_counts = r_sqs = None
+        if need_sq:
+            kf = float(k)
+            # positives: 1 own touch + K/2 expected stay-side touches;
+            # each pool slot stands for msum * K / M emulated draws
+            ent_counts = torch.cat([
+                torch.full((2 * b,), 1.0 + kf / 2.0, device=dev),
+                (msum * (kf / M)).repeat_interleave(M)])
+            ent_sqs = torch.cat([
+                reg_hp * reg_hp + outs["head_sqs"].reshape(b, -1),
+                reg_tp * reg_tp + outs["tail_sqs"].reshape(b, -1),
+                outs["cand_sqs"].reshape(G * M, -1)])
+            r_counts = torch.full((b,), kf + 1.0, device=dev)
+            r_sqs = reg_rp * reg_rp + outs["rel_sqs"].reshape(b, -1)
+
+        new_entity, new_e_moms = apply_row_updates(
+            entity, e_moms, ent_ids, ent_grads, opt, lr,
+            entry_counts=ent_counts, entry_sqs=ent_sqs)
+        new_relation, new_r_moms = apply_row_updates(
+            relation, r_moms, _mask_ids(rels, mask, relation.shape[0]),
+            rel_grad, opt, lr, lr_scale=relation_lr_multiplier,
+            entry_counts=r_counts, entry_sqs=r_sqs)
+        new_state = {"tables": (new_entity, new_relation),
+                     "moments": (new_e_moms, new_r_moms)}
+        sample_loss = (pos_loss + outs["loss"].reshape(b)) / 2.0
+        return new_state, _mean_sample_loss(sample_loss, mask)
+
+    step.pool_shape = (G, M)   # the shape of `negatives`
+    step.fast_rotate = fast_rotate
+    return step
+
+
+def kg_predict(model, entity, relation, heads, tails, rels, margin_or_l3):
+    return model.score(entity[heads], entity[tails], relation[rels],
+                       margin_or_l3)
+
+
+def make_micro_step(step_fn, num_micro: int, has_relation: bool = False):
     """Split each batch into `num_micro` sequential micro-steps: chunk i's
     row updates are applied before chunk i+1 is scored (bounds the touches
     per row per application; the batch size stays the configured one for
-    the LR schedule and accounting)."""
+    the LR schedule and accounting). `has_relation`: the knowledge-graph
+    signature step(state, heads, tails, rels, lr, mask=, generator=)."""
     R = int(num_micro)
     if R <= 1:
         return step_fn
 
-    def step(state, heads, tails, lr, *neg_state, mask=None,
-             generator=None):
+    def step(state, heads, tails, *rest, mask=None, generator=None):
+        # rest = (rels, lr) with relations, else (lr, *neg_state)
         bm = heads.shape[0] // R
         losses = []
         for r in range(R):
             sl = slice(r * bm, (r + 1) * bm)
-            state, loss = step_fn(state, heads[sl], tails[sl], lr,
-                                  *neg_state,
+            args = ((rest[0][sl],) + rest[1:]) if has_relation else rest
+            state, loss = step_fn(state, heads[sl], tails[sl], *args,
                                   mask=None if mask is None else mask[sl],
                                   generator=generator)
             losses.append(loss)
         return state, torch.stack(losses).mean()
 
+    step.base = step_fn        # the step of one chunk, for replays
     return step
 
 
@@ -491,8 +987,11 @@ def make_fused_runner(step_fn, sample_fn, opt: Optimizer, ep_groups: int,
                       positive_reuse: int = 1, state_pack=None,
                       state_unpack=None):
     """Episode runner: trains `ep_groups * positive_reuse` batches per call,
-    generating each group's walks on the device with `sample_fn` and
-    reusing them `positive_reuse` times with fresh negatives.
+    generating each group's positives on the device with `sample_fn` and
+    reusing them `positive_reuse` times with fresh negatives. The sample
+    is (heads, tails, mask), or (heads, tails, rels, mask) for the
+    knowledge-graph steps: its ids go to the step as they come, where the
+    reference's runner branches on `has_relation`.
 
     run(state, batch_id0, num_batch_total, generator, sampler_arrays,
     neg_state) -> (state, losses [ep_groups * positive_reuse]). Losses stay
@@ -506,14 +1005,12 @@ def make_fused_runner(step_fn, sample_fn, opt: Optimizer, ep_groups: int,
                 state = state_pack(state)
             losses = []
             for g in range(ep_groups):
-                heads, tails, mask = sample_fn(*sampler_arrays,
-                                               generator=generator)
+                *ids, mask = sample_fn(*sampler_arrays, generator=generator)
                 for r in range(R):
                     lr = opt.schedule_lr(batch_id0 + g * R + r,
                                          num_batch_total)
-                    state, loss = step_fn(state, heads, tails, lr,
-                                          *neg_state, mask=mask,
-                                          generator=generator)
+                    state, loss = step_fn(state, *ids, lr, *neg_state,
+                                          mask=mask, generator=generator)
                     losses.append(loss)
             if state_unpack is not None:
                 state = state_unpack(state)

@@ -10,9 +10,12 @@ and applies them row-wise:
   (ops.scatter.scatter_add_, the port of the Pallas sweep scatter-add);
 * 1/2-moment (Momentum/AdaGrad/RMSprop/Adam): duplicate touches are summed
   per unique row, then ONE closed-form c-touch moment update is applied per
-  touched row. These routes stay plain torch, as the reference runs them
-  in XLA, not Pallas; the edge route's sweep runs the same update on the
-  moment kernel instead (ops/scatter.py: scatter_update_).
+  touched row. Tables up to DENSE_UPDATE_ELEMS take a dense accumulate in
+  plain torch, as the reference runs it in XLA; larger tables take the
+  moment kernel (ops.scatter.scatter_update_, the port of the Pallas sweep
+  scatter-update, whose contract the reference's sort-based route states:
+  entry counts, entry squares, lr_scale, out-of-range ids dropped), in
+  place.
 
 Update rules mirror the reference exactly, including GraphVite's Adam
 defaults (beta1=0.999, beta2=0.99999, no bias correction).
@@ -26,7 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from graphvite_tpu_torch.ops.scatter import scatter_add_
+from graphvite_tpu_torch.ops.scatter import scatter_add_, scatter_update_
 from graphvite_tpu_torch.utils.common import auto
 
 OPTIMIZER_MOMENTS = {
@@ -225,7 +228,7 @@ def dedup_rows(ids, grads, entry_counts=None, entry_sqs=None):
 
 # tables up to this many elements use the dense accumulate path for moment
 # optimizers (one [V, 2D+1] accumulate + a dense moment pass); beyond it
-# the sort-based dedup path
+# the moment kernel
 DENSE_UPDATE_ELEMS = 1 << 26
 
 
@@ -270,8 +273,10 @@ def apply_row_updates(table, moments, ids, reg_grads, opt: Optimizer, lr,
                       trust=None):
     """Apply optimizer updates for per-touch regularized gradients.
 
-    table:      [V, D] parameter table (the SGD routes update it in place)
-    moments:    tuple of [V, D] moment tables (len == opt.num_moment)
+    table:      [V, D] parameter table (the SGD routes and the big-table
+                moment route update it in place)
+    moments:    tuple of [V, D] moment tables (len == opt.num_moment; the
+                big-table route updates them in place)
     ids:        [N] row ids (duplicates allowed; out-of-range ids are
                 dropped — steps route masked slots to a sentinel)
     reg_grads:  [N, D] per-touch regularized gradients
@@ -305,18 +310,8 @@ def apply_row_updates(table, moments, ids, reg_grads, opt: Optimizer, lr,
                                         lr, lr_scale, entry_counts,
                                         entry_sqs)
 
-    uids, gsum, counts, gsq = dedup_rows(ids, reg_grads, entry_counts,
-                                         entry_sqs)
-    v = table.shape[0]
-    cuids = torch.clamp(uids, max=v - 1).long()  # safe gather; writes drop
-    mrows = tuple(m[cuids] for m in moments)
-    delta, new_mrows = moment_delta(opt, lr, gsum, mrows, counts[:, None],
-                                    gsq)
-    # the in-range uids are unique, so each owns one row
-    keep = (uids >= 0) & (uids < v)
-    rows = uids[keep].long()
-    new_table = table.index_add(
-        0, rows, (-(lr_scale * delta[keep])).to(table.dtype))
-    new_moments = tuple(m.index_copy(0, rows, nm[keep].to(m.dtype))
-                        for m, nm in zip(moments, new_mrows))
-    return new_table, new_moments
+    # big tables: the moment kernel (the plain version on CPU tensors), in
+    # place on the table and its moments
+    return scatter_update_(table, moments, ids, reg_grads, opt, lr,
+                           entry_counts=entry_counts, entry_sqs=entry_sqs,
+                           lr_scale=lr_scale)

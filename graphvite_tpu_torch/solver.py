@@ -1,5 +1,5 @@
-"""Training solver (the port of graphvite_tpu/solver.py's SolverBase and
-GraphSolver).
+"""Training solvers (the port of graphvite_tpu/solver.py's SolverBase,
+GraphSolver and KnowledgeGraphSolver).
 
 Embedding tables live on the device for the whole run; an "episode" is one
 runner call that samples and trains a run of batches on the device, with
@@ -10,10 +10,13 @@ Ported here, both with a shared negative pool: the edge route
 (augmentation_step 1: edge sampler, pool step, and on the card the sorted
 stream with the sweep kernels) and the banded walk route (above 1: fused
 (vertex|context) SGD arena, or the unfused step for moment optimizers and
-the trust clip on small tables). What later slices port raises
-NotImplementedError naming its ROADMAP item: the edge route's blocked and
-overflow episodes, node2vec, the host sampler backend and the
-multi-device engines (num_worker > 1).
+the trust clip on small tables). Knowledge graphs: the classic per-draw
+step and the shared-candidate-pool step over a tied entity table and a
+relation table, positives from the relation-carrying edge sampler. What
+later slices port raises NotImplementedError naming its ROADMAP item: the
+edge route's blocked and overflow episodes, node2vec, the host sampler
+backend, host-resident tables and the multi-device engines (num_worker >
+1).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from graphvite_tpu_torch import base
 from graphvite_tpu_torch import optim as _optim
-from graphvite_tpu_torch.models import GRAPH_MODELS
+from graphvite_tpu_torch.models import GRAPH_MODELS, KG_MODELS
 from graphvite_tpu_torch.ops import steps as _steps
 from graphvite_tpu_torch.ops.alias import AliasTable, device_alias_arrays
 from graphvite_tpu_torch.ops.device_sampler import (DeviceEdgeSampler,
@@ -65,7 +68,8 @@ def _tensor_from_numpy(arr, device, dtype):
 
 def state_from_numpy(state_np, device, float_type=torch.float32):
     """The reference's numpy state {"tables": (vertex, context), "moments":
-    ((v_moms...), (c_moms...))} -> the port's state on `device`. Tables
+    ((v_moms...), (c_moms...))} (knowledge graphs: entity and relation
+    tables, moments per table) -> the port's state on `device`. Tables
     take `float_type`; bf16 arrays (dtype name "bfloat16", or uint16 bits
     as state_to_numpy writes them) go through a uint16 view; moments are
     float32."""
@@ -201,8 +205,10 @@ class SolverBase:
     def _batch_plan(self):
         """(effective_batch, micro_batch, num_micro).
 
-        Memory: the batch is capped by GRAPHVITE_STEP_BYTES (2 GB default)
-        of live step intermediates. Staleness: a batched step applies all
+        Memory: the batch is capped by GRAPHVITE_STEP_BYTES of live step
+        intermediates. Its default of 2 GB is the reference's, tuned on a
+        TPU v5e and untuned for this card: it is kept so that both
+        packages plan the same batches. Staleness: a batched step applies all
         its row updates at one stale parameter point, so the batch is split
         into `num_micro` sequential micro-steps, each under
         GRAPHVITE_MAX_TOUCH (default 64) touches per row. Sweep-route edge
@@ -242,9 +248,10 @@ class SolverBase:
 
     def _train_loop_device(self, step_fn, sampler, neg_state, num_epoch,
                            positive_reuse, log_frequency, state_pack=None,
-                           state_unpack=None):
-        """Episodes of walk generation + training on the device; the host
-        reads the losses only at log time."""
+                           state_unpack=None, has_relation=False):
+        """Episodes of sampling + training on the device; the host reads
+        the losses only at log time. `has_relation`: triplet samples and
+        the knowledge-graph step signature."""
         num_edge = self.graph.num_edge
         batch_size, micro_batch, num_micro = self._batch_plan()
         self.effective_batch = batch_size  # what sample accounting must use
@@ -255,7 +262,8 @@ class SolverBase:
             logger.info("batch of %d applied as %d sequential micro-steps "
                         "of %d (staleness bound)", batch_size, num_micro,
                         micro_batch)
-            step_fn = _steps.make_micro_step(step_fn, num_micro)
+            step_fn = _steps.make_micro_step(step_fn, num_micro,
+                                             has_relation)
         self.num_batch = max(int(num_epoch * num_edge // batch_size), 1)
         R = max(int(positive_reuse), 1)
         # clamp so short runs don't overshoot by a whole episode
@@ -592,3 +600,157 @@ class GraphSolver(SolverBase):
             f.write(b"".join(
                 name + row.tobytes() + b"\n"
                 for name, row in zip(names, rows)))
+
+
+class KnowledgeGraphSolver(SolverBase):
+    """KG-embedding solver (ref knowledge_graph.cuh:511-678). The entity
+    table is shared between head and tail roles (tied weights); relations
+    are a separate table."""
+
+    def get_default_optimizer(self):
+        # ref knowledge_graph.cuh:556-558
+        return Optimizer(type="Adam", lr=5e-5, weight_decay=0.0,
+                         schedule="linear")
+
+    def get_available_models(self):
+        return set(KG_MODELS)
+
+    def _table_shapes(self):
+        return ((self.graph.num_vertex, self.dim),
+                (self.graph.num_relation, self.dim))
+
+    @property
+    def entity_embeddings(self):
+        return self.table(0)
+
+    @property
+    def relation_embeddings(self):
+        return self.table(1)
+
+    def init_embeddings(self, margin=12.0):
+        """Per-model init schemes (knowledge_graph.cuh:567-621), drawn on
+        the device from a generator seeded by the solver's rng, so a
+        multi-GB entity table is never uploaded. The previous state is
+        dropped first, so the device never holds two."""
+        self.state = None
+        ne, nr, d = self.graph.num_vertex, self.graph.num_relation, self.dim
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(self._rng.integers(2**31)))
+
+        def U(shape, lo, hi):
+            # in place: the entity table may be most of the device's memory
+            u = torch.rand(shape, generator=gen, device=self.device)
+            return u.mul_(hi - lo).add_(lo)
+
+        if self.model == "TransE":
+            ent = U((ne, d), -margin / d, margin / d)
+            rel = U((nr, d), -margin / d, margin / d)
+        elif self.model in ("DistMult", "ComplEx", "SimplE"):
+            ent = U((ne, d), -0.5, 0.5)
+            rel = U((nr, d), -0.5, 0.5)
+        elif self.model == "RotatE":
+            ent = U((ne, d), -margin * 2 / d, margin * 2 / d)
+            rel = torch.zeros((nr, d), device=self.device)
+            rel[:, : d // 2] = U((nr, d // 2), -math.pi, math.pi)
+        elif self.model == "QuatE":
+            def quat_init(n):
+                m = U((n, d // 4), -1 / math.sqrt(d / 2),
+                      1 / math.sqrt(d / 2))
+                phase = U((n, d // 4), -math.pi, math.pi)
+                v = U((n, d // 4, 3), 0.0, 1.0)
+                v = v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+                         + 1e-15)
+                sin = torch.sin(phase)
+                out = torch.stack(
+                    [m * torch.cos(phase), m * v[..., 0] * sin,
+                     m * v[..., 1] * sin, m * v[..., 2] * sin], dim=-1)
+                return out.reshape(n, d)
+            ent = quat_init(ne)
+            rel = quat_init(nr)
+        else:
+            raise ValueError(self.model)
+        tables = (ent.to(self.float_type), rel.to(self.float_type))
+        moments = (self.optimizer.init_moments((ne, d), self.device),
+                   self.optimizer.init_moments((nr, d), self.device))
+        self.state = {"tables": tables, "moments": moments}
+
+    def train(self, model="RotatE", num_epoch=2000, resume=False,
+              relation_lr_multiplier=1.0, margin=12.0,
+              l3_regularization=2e-3, sample_batch_size=2000,
+              positive_reuse=1, adversarial_temperature=2.0,
+              negative_sharing=auto, log_frequency=100):
+        """Train on the device. `negative_sharing`: the pooled step
+        (shared candidate pools) or the classic per-draw step; auto picks
+        the pooled step where the classic step's [B, K+1, D] intermediates
+        would cap its batch below 4096 samples (GRAPHVITE_KG_NEG_SHARING
+        overrides). `sample_batch_size` serves the host sampler only and
+        is accepted for parity."""
+        if model not in self.get_available_models():
+            raise ValueError("unknown model `%s`" % model)
+        self.model = model
+        self.margin = float(margin)
+        self.l3_regularization = float(l3_regularization)
+        self.adversarial_temperature = float(adversarial_temperature)
+        if not resume or self.state is None or self.batch_id == 0:
+            self.init_embeddings(margin=margin)
+            self.batch_id = 0
+
+        mdl = KG_MODELS[model]
+        margin_or_l3 = (self.margin if mdl.uses_margin
+                        else self.l3_regularization)
+        if negative_sharing in (auto, None):
+            env = os.environ.get("GRAPHVITE_KG_NEG_SHARING")
+            if env is not None:
+                negative_sharing = env != "0"
+            else:
+                budget = float(os.environ.get("GRAPHVITE_STEP_BYTES", 2e9))
+                classic_cap = budget / ((self.num_negative + 2)
+                                        * self.dim * 32)
+                negative_sharing = classic_cap < 4096
+        self._pooled_step = bool(negative_sharing)
+        if negative_sharing:
+            trust = float(os.environ.get("GRAPHVITE_TRUST", 0.25)) or None
+            pool_groups = _steps.kg_pool_groups(
+                self._batch_plan()[1], target_group=int(os.environ.get(
+                    "GRAPHVITE_KG_POOL_TARGET", 512)))
+            step_fn = _steps.make_kg_pool_step(
+                mdl, self.optimizer, self.num_negative, margin_or_l3,
+                self.adversarial_temperature, float(relation_lr_multiplier),
+                pool_size=int(os.environ.get("GRAPHVITE_KG_POOL_SIZE", 0)),
+                pool_groups=pool_groups, trust=trust)
+        else:
+            step_fn = _steps.make_kg_train_step(
+                mdl, self.optimizer, self.num_negative, margin_or_l3,
+                self.adversarial_temperature, float(relation_lr_multiplier))
+        sampler = self._get_sampler(
+            ("kg_edge", str(self.device)),
+            lambda: DeviceEdgeSampler.build(self.graph, with_relation=True,
+                                            device=self.device))
+        self._train_loop_device(step_fn, sampler, (), num_epoch,
+                                positive_reuse, log_frequency,
+                                has_relation=True)
+
+    def predict(self, samples):
+        """samples: (n, 3) array of (head, tail, relation) ids -> logits, a
+        float32 numpy array; scored in chunks of 2^20."""
+        arr = np.asarray(samples)
+        mdl = KG_MODELS[self.model]
+        margin_or_l3 = (self.margin if mdl.uses_margin
+                        else self.l3_regularization)
+        entity, relation = self.state["tables"]
+        if not torch.is_tensor(entity):
+            raise NotImplementedError(
+                "host-resident (overflow) entity tables are not ported yet "
+                "(ROADMAP queue 1, item 15)")
+        out = []
+        chunk = 1 << 20
+        with torch.no_grad():
+            for i in range(0, arr.shape[0], chunk):
+                h, t, r = (torch.as_tensor(
+                    np.ascontiguousarray(arr[i:i + chunk, c]),
+                    dtype=torch.long, device=self.device) for c in range(3))
+                out.append(_steps.kg_predict(
+                    mdl, entity, relation, h, t, r,
+                    margin_or_l3).float().cpu().numpy())
+        return (np.concatenate(out) if out
+                else np.zeros(0, dtype=np.float32))

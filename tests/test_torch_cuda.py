@@ -23,6 +23,8 @@ import numpy as np
 import pytest
 import torch
 
+import graphvite_tpu_torch.optim as optim_mod
+from graphvite_tpu_torch.models import KG_MODELS
 from graphvite_tpu_torch.ops import gather, scatter, steps
 from graphvite_tpu_torch.optim import Optimizer
 
@@ -310,7 +312,13 @@ def _check_segmented_add(dev, layout, w, dtype, sorted_entry, n=None):
         assert torch.equal(got, again)
 
 
-def _check_segmented_update(dev, layout, w, dtype, sorted_entry, n=None):
+def _check_segmented_update(dev, layout, w, dtype, sorted_entry, n=None,
+                            delta_ulp=False):
+    """`delta_ulp`: bfloat16 tables get one more bf16 ulp, of the row's old
+    value: the plain version rounds the delta to bf16 before it subtracts
+    (as the reference's route does), the kernel rounds the result once, so
+    where an update nearly cancels its row the two lie an ulp of the
+    larger operand apart."""
     v, ids, grads, table, rng = _segmented_case(dev, layout, w, sorted_entry, n)
     table = table.to(dtype)
     n = ids.numel()
@@ -338,6 +346,8 @@ def _check_segmented_update(dev, layout, w, dtype, sorted_entry, n=None):
         tol = 2e-5 + 2e-5 * want_t.float().abs()
         if dtype == torch.bfloat16:
             tol = tol + _bf16_ulp(want_t.float())
+            if delta_ulp:
+                tol = tol + _bf16_ulp(table.float())
         assert bool((err <= tol).all()), float(err.max())
         for a, b in zip(got_m, want_m):
             assert bool(((a - b).abs() <= 2e-5 + 2e-5 * b.abs()).all())
@@ -399,7 +409,202 @@ def test_tiles_of_16_and_32_rows():
         assert torch.equal(got, want) and torch.equal(got_u, want)
 
 
+# ---------------------------------------------------------------------------
+# the knowledge-graph paths' widths: 4, 8 and 16 passes of 128 columns per
+# tile, a table whose every row is a hub, and the KG steps card against CPU
+# ---------------------------------------------------------------------------
+
+WIDE = [512, 1024, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+@pytest.mark.parametrize("w", WIDE)
+def test_segmented_add_on_run_layouts_wide(layout, dtype, sorted_entry, w):
+    _check_segmented_add(_cuda(), layout, w, dtype, sorted_entry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+@pytest.mark.parametrize("w", WIDE)
+def test_segmented_update_on_run_layouts_wide(layout, dtype, sorted_entry, w):
+    _check_segmented_update(_cuda(), layout, w, dtype, sorted_entry,
+                            delta_ulp=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,w,r", [(20000, 512, 32), (9000, 512, 16),
+                                   (5000, 2048, 32), (2500, 2048, 16),
+                                   (3000, 1024, 8)])
+def test_wide_tiles_of_8_16_and_32_rows(n, w, r):
+    """Runs of every length up to four tiles at the tile sizes the wide
+    shapes take, exact against the plain version on the 1/64 grid."""
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    assert scatter.tile_rows(n, w) == r
+    lengths = rng.integers(1, 4 * r + 2, n)
+    ids = np.repeat(np.arange(n) * 2, lengths)[:n]
+    v = int(ids.max()) + 1
+    ids = torch.as_tensor(ids, device=dev)
+    upd = torch.as_tensor(_grid(rng, (n, w), -2, 2), device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.as_tensor(_grid(rng, (v, w), -4, 4),
+                                device=dev).to(dtype)
+        want = scatter.scatter_add_plain(table.clone(), ids, upd)
+        got = scatter.scatter_add_sorted_(table.clone(), ids, upd)
+        perm = torch.randperm(n, device=dev)
+        got_u = scatter.scatter_add_(table.clone(), ids[perm], upd[perm])
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_u, want)
+
+
+def _hub_ids(rng, n, v):
+    """Every row of a v-row table a hub: Zipf-skewed ids, any order."""
+    p = (np.arange(v) + 3.0) ** -0.9
+    return rng.choice(v, n, p=p / p.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+def test_all_hub_table_add(dtype, sorted_entry):
+    """The relation update's shape: 60,928 ids over 822 rows of 512 columns
+    (runs of ~74 rows, each over 2-3 tiles of 32): exact on the grid."""
+    dev = _cuda()
+    rng = np.random.default_rng(14)
+    n, v, w = 60928, 822, 512
+    assert scatter.tile_rows(n, w) == 32
+    ids = _hub_ids(rng, n, v)
+    if sorted_entry:
+        ids.sort()
+    ids = torch.as_tensor(ids, device=dev)
+    upd = torch.as_tensor(_grid(rng, (n, w), -2, 2), device=dev)
+    table = torch.as_tensor(_grid(rng, (v, w), -4, 4), device=dev).to(dtype)
+    fn = scatter.scatter_add_sorted_ if sorted_entry else scatter.scatter_add_
+    want = scatter.scatter_add_plain(table.clone(), ids, upd)
+    got = fn(table.clone(), ids, upd)
+    again = fn(table.clone(), ids, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+def test_all_hub_table_update(dtype, sorted_entry):
+    """Kernel 2 (Adam) on the same all-hub shape, with the pooled step's
+    K + 1 = 65 touches per entry."""
+    dev = _cuda()
+    rng = np.random.default_rng(15)
+    n, v, w = 60928, 822, 512
+    ids = _hub_ids(rng, n, v)
+    if sorted_entry:
+        ids.sort()
+    ids = torch.as_tensor(ids, device=dev)
+    grads = torch.as_tensor(_grid(rng, (n, w), -2, 2), device=dev) * 1e-2
+    sqs = grads * grads * 1.5
+    counts = torch.full((n,), 65.0, device=dev)
+    table = torch.as_tensor(_grid(rng, (v, w), -4, 4), device=dev).to(dtype)
+    moms = tuple(torch.as_tensor(_grid(rng, (v, w), 0, 1), device=dev) * 1e-2
+                 for _ in range(2))
+    opt = Optimizer(type="Adam", lr=1e-3)
+    fn = (scatter.scatter_update_sorted_ if sorted_entry
+          else scatter.scatter_update_)
+    want_t, want_m = scatter.scatter_update_plain(
+        table.clone(), tuple(m.clone() for m in moms), ids, grads, opt, 1e-3,
+        counts, sqs, 0.5)
+    got = [fn(table.clone(), tuple(m.clone() for m in moms), ids, grads, opt,
+              1e-3, entry_counts=counts, entry_sqs=sqs, lr_scale=0.5)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    (got_t, got_m), (again_t, again_m) = got
+    assert torch.equal(got_t, again_t)
+    assert all(torch.equal(a, b) for a, b in zip(got_m, again_m))
+    err = (got_t.float() - want_t.float()).abs()
+    tol = 2e-5 + 2e-5 * want_t.float().abs()
+    if dtype == torch.bfloat16:
+        # one ulp of the result and one of the row's old value (the plain
+        # version rounds the delta to bf16 before it subtracts)
+        tol = tol + _bf16_ulp(want_t.float()) + _bf16_ulp(table.float())
+    assert bool((err <= tol).all()), float(err.max())
+    for a, b in zip(got_m, want_m):
+        assert bool(((a - b).abs() <= 2e-5 + 2e-5 * b.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["SGD", "Adam"])
+@pytest.mark.parametrize("step_kind", ["classic", "pool_generic", "pool_fast"])
+@pytest.mark.parametrize("big_table", [False, True])
+def test_kg_step_on_card_matches_cpu(rule, step_kind, big_table, monkeypatch):
+    """The KG steps on the card against the CPU from the same state,
+    triplets and candidate ids, at width 512; `big_table` shrinks the
+    dense-update size so that Adam's entity update takes kernel 2 (SGD
+    takes kernel 1 either way). Tolerances of the CPU tests."""
+    dev = _cuda()
+    monkeypatch.setenv("GRAPHVITE_KG_FAST",
+                       "1" if step_kind == "pool_fast" else "0")
+    if big_table:
+        monkeypatch.setattr(optim_mod, "DENSE_UPDATE_ELEMS", 1000)
+    rng = np.random.default_rng(16)
+    v, r, d, b, k, G, M = 3000, 40, 512, 256, 8, 4, 16
+    opt = Optimizer(type=rule, lr=0.05 if rule == "SGD" else 1e-3,
+                    weight_decay=0.0)
+    model = KG_MODELS["RotatE"]
+    if step_kind == "classic":
+        step = steps.make_kg_train_step(model, opt, k, 6.0, 2.0, 0.5)
+        negatives = (rng.integers(0, v, (b, k)), rng.random((b, k)) < 0.5)
+    else:
+        step = steps.make_kg_pool_step(model, opt, k, 6.0, 2.0, 0.5,
+                                       pool_size=M, pool_groups=G)
+        assert step.fast_rotate == (step_kind == "pool_fast")
+        negatives = rng.integers(0, v, (G, M))
+    heads, tails = rng.integers(0, v, b), rng.integers(0, v, b)
+    heads[: b // 4] = 3                      # a hub
+    rels = rng.integers(0, r, b)
+    mask = (rng.random(b) > 0.2).astype(np.float32)
+    ent = (rng.normal(size=(v, d)) * 0.3).astype(np.float32)
+    rel = (rng.normal(size=(r, d)) * 0.3).astype(np.float32)
+    moms = [[(np.abs(rng.normal(size=shape)) * 1e-2 + 1e-3)
+             .astype(np.float32) for _ in range(opt.num_moment)]
+            for shape in ((v, d), (r, d))]
+    out = []
+    for device in (dev, torch.device("cpu")):
+        t = lambda x: torch.as_tensor(x, device=device)
+        state = {"tables": (t(ent.copy()), t(rel.copy())),
+                 "moments": tuple(tuple(t(m.copy()) for m in g)
+                                  for g in moms)}
+        neg = (tuple(t(x) for x in negatives) if step_kind == "classic"
+               else t(negatives))
+        before = (scatter.scatter_add_.launches
+                  + scatter.scatter_update_.launches)
+        with torch.no_grad():
+            new, loss = step(state, t(heads), t(tails), t(rels), opt.lr,
+                             mask=t(mask), negatives=neg)
+        _sync(device)
+        after = (scatter.scatter_add_.launches
+                 + scatter.scatter_update_.launches)
+        if device.type == "cuda":
+            # SGD: both tables on kernel 1; Adam: kernel 2 where the table
+            # is above the dense-update size
+            want = 2 if rule == "SGD" else (2 if big_table else 0)
+            assert after - before == want
+        out.append(([x.cpu().numpy() for x in new["tables"]]
+                    + [m.cpu().numpy() for g in new["moments"] for m in g],
+                    float(loss)))
+    (gpu, gl), (cpu, cl) = out
+    np.testing.assert_allclose(gl, cl, rtol=2e-5)
+    for a, b_ in zip(gpu, cpu):
+        np.testing.assert_allclose(a, b_, rtol=3e-4, atol=3e-6)
+
+
 @pytest.mark.parametrize("n,w,r", [
+    (138240, 512, 32),    # the Wikidata5m-shaped entity update
+    (60928, 512, 32),     # its relation update
+    (16896, 2048, 32),    # the FB15k-shaped micro-step's ids
     (99328, 128, 32),     # the edge route's heads
     (107520, 128, 32),    # its context side
     (11968, 256, 8),      # DeepWalk, batch 100000

@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import graphvite_tpu_torch
-from graphvite_tpu_torch import GraphApplication, GraphSolver
+from graphvite_tpu_torch import (GraphApplication, GraphSolver,
+                                 KnowledgeGraphApplication,
+                                 KnowledgeGraphSolver)
 
 PACKAGE_DIR = os.path.dirname(graphvite_tpu_torch.__file__)
 REPO = os.path.dirname(PACKAGE_DIR)
@@ -74,11 +76,14 @@ def test_sources_import_nothing_forbidden():
 def test_entry_points_default_to_cuda():
     """With no `device`, the solver and the application ask for CUDA, and
     raise where there is none (here, a CPU-only torch)."""
+    entries = (GraphSolver, GraphApplication, KnowledgeGraphSolver,
+               KnowledgeGraphApplication)
     if torch.cuda.is_available():
         assert GraphSolver(dim=4).device.type == "cuda"
+        assert KnowledgeGraphSolver(dim=4).device.type == "cuda"
         return
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        GraphSolver(dim=4)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        GraphApplication(dim=4)
+    for entry in entries:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(dim=4)
     assert GraphSolver(dim=4, device="cpu").device.type == "cpu"
+    assert KnowledgeGraphSolver(dim=4, device="cpu").device.type == "cpu"
