@@ -67,7 +67,33 @@ Phases, in order (any failure exits non-zero and prints no result line):
             each run one batch is captured and replayed on the card
             against the CPU, which holds a renumbered copy of the touched
             rows.
-7. kernel   each kernel against its plain torch version on the card, on the
+7. vis      LargeVis through VisualizationApplication.load/build/train at
+            the config/visualization/largevis_mnist_2d.yaml
+            hyperparameters (dim 2 padded to 8 columns, num_neighbor 200,
+            perplexity 20, Adam lr 0.5 wd 1e-5, K 5, negative_weight 3,
+            batch 100000, episode 200) on the MNIST clone of
+            tools/largevis_mnist.py (70,000 x 784, 10 classes) made from
+            --seed: the exact KNN graph on the card (14,000,000 edges;
+            seconds of products and top-k, perplexity, reciprocal), all
+            50 epochs (7,011 batches of 99,840, 64 pools of 256; the dense
+            moment route, so no kernel launches), the tools' 10-NN label
+            agreement probe (>= 0.95), a torch.profiler trace of 20
+            batches; a float32 SGD run of 500 batches (one scatter_add_
+            launch per batch: the trust clip's accumulate at 8 columns)
+            and a bfloat16 Adam run of 200; one batch of the Adam and of
+            the SGD run replayed on the card against the CPU over the
+            whole 70,000 x 8 table.
+8. vis_big  LargeVis at config/visualization/largevis_imagenet.yaml
+            (perplexity 50) on a clone of tools/largevis_imagenet.py's
+            statistics drawn on the card (1,331,167 x 2048, 1000
+            classes): KNNGraph's auto route is the
+            IVF search (bfloat16 rows, 2,307 lists, nprobe 16, 266M
+            edges), with seconds of k-means, assignment, queries,
+            perplexity, reciprocal and the host alias build; recall@200 on
+            512 queries (>= 0.75, on the raw vectors as the tool scores
+            it, and on the normalized ones the search used); 200 Adam
+            batches with a trace of 10.
+9. kernel   each kernel against its plain torch version on the card, on the
             ids the main paths drew: scatter_add on the DeepWalk update ids
             (batch 100000 and 250000, with dropped ids added, float32 and
             bfloat16 tables) and on the edge route's sorted heads;
@@ -90,15 +116,18 @@ Phases, in order (any failure exits non-zero and prints no result line):
             the 16,896 x 2048 ids of the FB15k-shaped micro-step;
             scatter_update_ (Adam, the pooled step's touch counts) on the
             entity and the relation ids. The plain version runs on a
-            renumbered copy of the touched rows.
-8. quality  GraphApplication on a small two-block graph on the card:
+            renumbered copy of the touched rows. Then 8 columns:
+            scatter_add_ on the vis SGD batch's 216,064 update ids and
+            scatter_update_ (Adam, the pooled step's touch counts) on
+            the same ids, float32 and bfloat16 tables.
+10. quality  GraphApplication on a small two-block graph on the card:
             DeepWalk (the unfused trust-clip route) and LINE on the edge
             route (the small-table route, the trust clip on the
             scatter-add): link-prediction AUC > 0.9. The offline math
             fixture (1,000 entities, 20,000 triplets) through
             KnowledgeGraphApplication at config/demo/math.yaml cut to dim
             128 and 500 epochs: filtered tail MRR >= 0.60.
-9. summary  the card line, the kernels line, and the result line.
+11. summary the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -422,17 +451,21 @@ EDGE_ADAM_LAUNCHES = {"gather_sorted": 1, "scatter_update_sorted_": 1,
 
 
 def train_edge_path(graph, float_type, optimizer, batches, per_batch,
-                    falling):
+                    falling, sampler_cache=None):
     """LINE at the line_flickr.yaml shape: 5 warm-up batches (sampler
     build, first launches), then the measured call with the launch counts
-    set to 0 just before it and read just after. Returns the solver, the
-    record and a list of problems."""
+    set to 0 just before it and read just after. `sampler_cache`: an
+    earlier run's samplers on the same graph (the sorted stream's host
+    build is most of a warm-up). Returns the solver, the record and a
+    list of problems."""
     import torch
     from graphvite_tpu_torch.solver import GraphSolver
 
     solver = GraphSolver(dim=DIM, float_type=float_type)
     solver.build(graph, optimizer=optimizer, num_negative=1,
                  batch_size=100000, episode_size=1000)
+    if sampler_cache is not None:
+        solver._sampler_cache = sampler_cache
     t0 = time.perf_counter()
     solver.train(num_epoch=5 * 100000 / graph.num_edge, **LINE_FLICKR)
     warm_s = time.perf_counter() - t0
@@ -1359,6 +1392,354 @@ def front_end_breakdown(name, call, calls=20):
 # phase 8: quality
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phases vis and vis_big: LargeVis
+# ---------------------------------------------------------------------------
+
+MNIST_N, MNIST_DIMS, MNIST_CLASSES = 70_000, 784, 10
+IMAGENET_N, IMAGENET_DIMS, IMAGENET_CLASSES = 1_331_167, 2048, 1000
+# config/visualization/largevis_mnist_2d.yaml and largevis_imagenet.yaml
+ADAM_VIS = {"type": "Adam", "lr": 0.5, "weight_decay": 1e-5}
+BUILD_VIS = dict(num_negative=5, batch_size=100000, episode_size=200)
+LARGEVIS = dict(model="LargeVis", negative_weight=3, log_frequency=10**9)
+# not the configs' optimizer: kernel 1's path (the trust clip's
+# accumulate at 8 columns); the clip bounds a row's step, so the
+# config's lr is stable
+SGD_VIS = {"type": "SGD", "lr": 0.5, "weight_decay": 1e-5}
+VIS_PLAN = (99840, 64, 256)           # batch, pool groups, pool size
+VIS_BIG_BATCHES = 200
+
+
+def mnist_clone(seed):
+    """The statistics-matched MNIST clone of tools/largevis_mnist.py: 70,000
+    x 784, 10 Gaussian classes in a 40-dim latent subspace projected up,
+    plus pixel-scale noise."""
+    rng = np.random.default_rng(seed)
+    latent = 40
+    means = rng.normal(size=(MNIST_CLASSES, latent)) * 4.0
+    proj = rng.normal(size=(latent, MNIST_DIMS)) / np.sqrt(latent)
+    labels = rng.integers(0, MNIST_CLASSES, MNIST_N)
+    z = means[labels] + rng.normal(size=(MNIST_N, latent))
+    x = z @ proj + rng.normal(size=(MNIST_N, MNIST_DIMS)) * 0.3
+    return x.astype(np.float32), labels
+
+
+def imagenet_clone(n, seed, device="cuda"):
+    """The statistics of tools/largevis_imagenet.py's clone, drawn on the
+    card from a seeded generator: 1000 Gaussian classes in a 256-dim
+    latent subspace projected to 2048, feature-scale noise, ReLU'd like
+    penultimate ResNet activations. Returns (x [n, 2048] float32 on the
+    card, labels [n] on the host)."""
+    import torch
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    latent = 256
+    means = torch.randn((IMAGENET_CLASSES, latent), generator=gen,
+                        device=dev) * 3.0
+    proj = torch.randn((latent, IMAGENET_DIMS), generator=gen,
+                       device=dev) / latent ** 0.5
+    labels = torch.randint(0, IMAGENET_CLASSES, (n,), generator=gen,
+                           device=dev)
+    x = torch.empty((n, IMAGENET_DIMS), device=dev)
+    chunk = 65536
+    for lo in range(0, n, chunk):
+        hi = min(lo + chunk, n)
+        z = means[labels[lo:hi]] + torch.randn((hi - lo, latent),
+                                               generator=gen, device=dev)
+        f = z @ proj
+        f += torch.randn(f.shape, generator=gen, device=dev) * 0.3
+        x[lo:hi] = f.clamp_(min=0.0)
+    return x, labels.cpu().numpy()
+
+
+def layout_agreement(coords, labels, seed=1, sample=4000):
+    """The tools' quality probe: 10-NN label agreement of the 2-D layout on
+    a 4,000-point subsample."""
+    sub = np.random.default_rng(seed).choice(len(coords), sample,
+                                             replace=False)
+    c = np.asarray(coords, np.float64)[sub]
+    d2 = ((c[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    nn = np.argsort(d2, axis=1)[:, :10]
+    return float((labels[sub][nn] == labels[sub][:, None]).mean())
+
+
+def build_knn(app, vectors, **kw):
+    """KNNGraph through the application's load; checks the graph. Returns
+    (record, problems)."""
+    import torch
+
+    t0 = time.perf_counter()
+    app.load(vectors=vectors, **kw)
+    secs = time.perf_counter() - t0
+    g = app.graph
+    n, k = g.num_vertex, g.num_neighbor
+    rec = {"vertices": n, "neighbors": k, "edges": g.num_edge,
+           "build_s": secs, "stages_s": dict(g.build_seconds),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    problems = []
+    if g.num_edge != n * k:
+        problems.append("%d edges, want %d" % (g.num_edge, n * k))
+    if not bool((g.edge_heads != g.edge_tails).all()):
+        problems.append("self edges in the KNN graph")
+    w = g.edge_weights
+    if not bool(torch.isfinite(w).all()) or not bool((w >= 0).all()):
+        problems.append("KNN weights not finite and nonnegative")
+    if not g.edge_heads.is_cuda:
+        problems.append("the KNN graph's edges left the card")
+    return rec, problems
+
+
+def train_vis(graph, optimizer, float_type, batches, labels=None,
+              falling=True, launches_per_batch=None):
+    """A LargeVis run through VisualizationApplication.build/train on a
+    built KNN graph: the alias-weighted edge sampler is built first (its
+    seconds stand alone), then the measured call, with the kernels'
+    launch counts set to 0 just before it and read just after (`batches`
+    None: the config's 50 epochs). Returns the application, the record and
+    a list of problems."""
+    import torch
+    from graphvite_tpu_torch import VisualizationApplication
+    from graphvite_tpu_torch.ops.device_sampler import DeviceEdgeSampler
+
+    app = VisualizationApplication(dim=2, float_type=float_type)
+    app.graph = graph
+    app.build(optimizer=optimizer, **BUILD_VIS)
+    solver = app.solver
+    t0 = time.perf_counter()
+    solver._get_sampler(("edge", str(solver.device)),
+                        lambda: DeviceEdgeSampler.build(graph,
+                                                        device=solver.device))
+    torch.cuda.synchronize()
+    sampler_s = time.perf_counter() - t0
+    epochs = 50 if batches is None else (batches * VIS_PLAN[0]
+                                         / graph.num_edge + 1e-9)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    app.train(num_epoch=epochs, **LARGEVIS)
+    elapsed = time.perf_counter() - t0         # train() ends synchronized
+    counts = read_launches()
+    run = solver.batch_id
+    eff = solver.effective_batch
+    losses = solver.batch_losses.double()
+    k = max(run // 10, 5)
+    table = solver.state["tables"][0]
+    rec = {"optimizer": optimizer["type"], "float_type": float_type,
+           "batches": run, "effective_batch": eff,
+           "pool_shape": list(solver._active_step_fn.pool_shape),
+           "sampler_build_s": sampler_s, "elapsed_s": elapsed,
+           "ms_per_batch": elapsed / run * 1e3,
+           "samples_per_s": run * eff / elapsed, "launches": counts,
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "pad_columns_zero": bool((table[:, 2:] == 0).all()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if labels is not None:
+        rec["agreement_10nn"] = layout_agreement(solver.coordinates, labels)
+    problems = []
+    if [eff] + rec["pool_shape"] != list(VIS_PLAN):
+        problems.append("batch plan %d, pool %r (want %r)"
+                        % (eff, rec["pool_shape"], VIS_PLAN))
+    want = {name: (launches_per_batch or {}).get(name, 0) * run
+            for name in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if not rec["losses_finite"] or not bool(torch.isfinite(
+            table.float()).all()):
+        problems.append("losses or coordinates not finite")
+    if falling and not rec["loss_last"] < rec["loss_first"]:
+        problems.append("losses not falling")
+    if not rec["pad_columns_zero"]:
+        problems.append("the pad columns moved")
+    return app, rec, problems
+
+
+def replay_vis_batch(solver, seed):
+    """Capture one batch as the solver's runner makes it (its alias-weighted
+    edge sampler, pool draws of its step's shape, its negative sampler)
+    and run it through the pool step on the card (in place on the
+    solver's state) and on the CPU from a copy of the whole table and
+    moments.
+
+    Tolerance: |err| <= 1e-7 + 1e-5 x the row's largest magnitude (+ 1
+    bf16 ulp on bf16 tables); moments the same. (The step's cancelling
+    products run in float64, so the order of the sums does not move the
+    result.) Returns the record, the batch's update ids and counts, and a
+    list of problems."""
+    import torch
+    from graphvite_tpu_torch.ops.alias import device_sample
+
+    dev = solver.device
+    step, neg = solver._active_step_fn, solver._active_neg_state
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    heads, tails, mask = solver._active_sample_fn(
+        *solver._active_sampler.arrays(), generator=gen)
+    G, M = step.pool_shape
+    draws = tuple(torch.rand((G, M), generator=gen, device=dev)
+                  for _ in range(2))
+    lr = solver.optimizer.schedule_lr(0, solver.num_batch)
+    state = solver.state
+    old = state["tables"][0].to("cpu", torch.float32, copy=True)
+
+    cpu_state = {"tables": (state["tables"][0].to("cpu", copy=True),),
+                 "moments": (tuple(m.to("cpu", copy=True)
+                                   for m in state["moments"][0]),)}
+    with torch.no_grad():
+        cpu_new, cpu_loss = step(cpu_state, heads.cpu(), tails.cpu(), lr,
+                                 *(t.cpu() for t in neg), mask=mask.cpu(),
+                                 draws=tuple(d.cpu() for d in draws))
+        new, loss = step(state, heads, tails, lr, *neg, mask=mask,
+                         draws=draws)
+    solver.state = new
+
+    got = new["tables"][0].float().cpu()
+    want = cpu_new["tables"][0].float()
+    scale = torch.maximum(want.abs(), old.abs()).amax(dim=1, keepdim=True)
+    diff = (got - want).abs()
+    tol = 1e-7 + 1e-5 * scale
+    if new["tables"][0].dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(want)
+    ok = bool((diff <= tol).all())
+    mom_diff = 0.0
+    for a, b in zip(new["moments"][0], cpu_new["moments"][0]):
+        d = (a.cpu() - b).abs()
+        ok = ok and bool((d <= 1e-7 + 1e-5 * b.abs().amax(
+            dim=1, keepdim=True)).all())
+        mom_diff = max(mom_diff, float(d.max()))
+    moved = int((got != old).any(dim=1).sum())
+    loss, cpu_loss = float(loss), float(cpu_loss)
+    rec = {"optimizer": solver.optimizer.type,
+           "float_type": str(new["tables"][0].dtype).replace("torch.", ""),
+           "table": list(got.shape), "loss": loss, "cpu_loss": cpu_loss,
+           "max_abs_diff": float(diff.max()),
+           "max_rel_diff": float((diff / scale.clamp(min=1e-30)).max()),
+           "max_abs_table": float(scale.max()),
+           "max_moment_diff": mom_diff, "rows_moved": moved,
+           "tolerance": "1e-7 + 1e-5 x the row's largest magnitude (+ 1 "
+                        "bf16 ulp on bf16 tables); moments the same"}
+    problems = []
+    if not ok:
+        problems.append("card and CPU disagree on a batch: %r" % rec)
+    if abs(loss - cpu_loss) > 1e-5 * abs(cpu_loss):
+        problems.append("card loss %r vs CPU loss %r" % (loss, cpu_loss))
+    if moved == 0:
+        problems.append("no row moved")
+    pool = device_sample(*neg, *draws).reshape(-1)
+    b, k = heads.numel(), solver.num_negative
+    ids = torch.cat([heads.long(), tails.long(), pool])
+    counts = torch.cat([torch.full((b,), k + 1.0, device=dev),
+                        torch.ones(b, device=dev),
+                        torch.full((G * M,), b // G * k / M, device=dev)])
+    return rec, {"ids": ids, "counts": counts}, problems
+
+
+def vis_phase(seed):
+    """LargeVis at the largevis_mnist_2d.yaml shape, full depth."""
+    import torch
+    from graphvite_tpu_torch import VisualizationApplication
+
+    out, problems = {}, []
+    t0 = time.perf_counter()
+    x, labels = mnist_clone(seed)
+    log("   MNIST clone %r made in %.1f s" % (x.shape,
+                                              time.perf_counter() - t0))
+    app = VisualizationApplication(dim=2)
+    torch.cuda.reset_peak_memory_stats()
+    rec, bad = build_knn(app, x, num_neighbor=200, perplexity=20)
+    log("   KNN graph (exact):", json.dumps(rec))
+    out["knn"] = rec
+    problems += ["knn: " + p for p in bad]
+    if rec["edges"] != 14_000_000:
+        problems.append("knn: %d edges, want 14,000,000" % rec["edges"])
+    runs = (("adam", ADAM_VIS, "float32", None, {}),
+            ("sgd", SGD_VIS, "float32", 500, {"scatter_add_": 1}),
+            ("adam_bf16", ADAM_VIS, "bfloat16", 200, {}))
+    graph = app.graph
+    del app
+    for name, opt, ft, batches, per_batch in runs:
+        app, rec, bad = train_vis(graph, opt, ft, batches,
+                                  labels=labels if name == "adam" else None,
+                                  launches_per_batch=per_batch)
+        log("   %s:" % name, json.dumps(rec))
+        out[name] = rec
+        problems += ["%s: %s" % (name, p) for p in bad]
+        if name == "adam" and not rec["agreement_10nn"] >= 0.95:
+            problems.append("10-NN label agreement %.4f < 0.95"
+                            % rec["agreement_10nn"])
+        if name in ("adam", "sgd"):
+            # a batch from the state the run ended in
+            rep, ids, bad = replay_vis_batch(app.solver, seed + 1)
+            log("   %s batch, card vs CPU:" % name, json.dumps(rep))
+            out["replay_" + name] = rep
+            problems += ["%s replay: %s" % (name, p) for p in bad]
+            if name == "sgd":
+                out["ids"] = ids
+        if name == "adam":
+            out["trace"] = trace_episode(app.solver, rec["ms_per_batch"],
+                                         LARGEVIS, batches=20)
+            log("   trace:", json.dumps(out["trace"]))
+        del app
+    del graph
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def vis_big_phase(seed):
+    """LargeVis at the largevis_imagenet.yaml shape: the IVF route."""
+    import torch
+    from graphvite_tpu_torch import VisualizationApplication, knn
+
+    out, problems = {}, []
+    t0 = time.perf_counter()
+    x, _ = imagenet_clone(IMAGENET_N, seed)
+    torch.cuda.synchronize()
+    log("   ImageNet clone %r made on the card in %.1f s"
+        % (tuple(x.shape), time.perf_counter() - t0))
+    app = VisualizationApplication(dim=2)
+    torch.cuda.reset_peak_memory_stats()
+    rec, bad = build_knn(app, x, num_neighbor=200, perplexity=50)
+    g = app.graph
+    problems += ["knn: " + p for p in bad]
+    if "queries" not in rec["stages_s"]:
+        problems.append("the IVF route was not taken")
+    t0 = time.perf_counter()
+    nbrs = g.edge_tails.view(g.num_vertex, g.num_neighbor)
+    rec["recall_at_200"] = knn.knn_recall(x, nbrs, nq=512, seed=seed)
+    rec["recall_s"] = time.perf_counter() - t0
+    # the tools' protocol scores the raw vectors; the graph was searched
+    # over the normalized ones, which this one scores
+    xn = g._normalize(x)
+    rec["recall_at_200_normalized"] = knn.knn_recall(xn, nbrs, nq=512,
+                                                     seed=seed)
+    del xn
+    if not rec["recall_at_200"] >= 0.75:
+        problems.append("recall@200 %.4f < 0.75" % rec["recall_at_200"])
+    log("   KNN graph (IVF):", json.dumps(rec))
+    out["knn"] = rec
+    graph = app.graph
+    del app, x, nbrs
+    torch.cuda.empty_cache()
+    app, rec, bad = train_vis(graph, ADAM_VIS, "float32", VIS_BIG_BATCHES,
+                              falling=False)
+    log("   adam:", json.dumps(rec))
+    out["adam"] = rec
+    out["knn"]["stages_s"]["alias"] = rec["sampler_build_s"]
+    problems += ["adam: " + p for p in bad]
+    out["trace"] = trace_episode(app.solver, rec["ms_per_batch"], LARGEVIS,
+                                 batches=10)
+    log("   trace:", json.dumps(out["trace"]))
+    del app, graph
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def two_blocks(n=60, seed=0):
     """Two dense communities, sparse cross links (tests/test_solver.py)."""
     rng = np.random.default_rng(seed)
@@ -1484,8 +1865,8 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--main-batches", type=int, default=1000)
     ap.add_argument("--edge-batches", type=int, default=1000)
-    ap.add_argument("--kg-batches", type=int, default=200)
-    ap.add_argument("--kg-big-batches", type=int, default=200)
+    ap.add_argument("--kg-batches", type=int, default=100)
+    ap.add_argument("--kg-big-batches", type=int, default=100)
     args = ap.parse_args()
 
     try:
@@ -1623,10 +2004,12 @@ def main():
                  EDGE_SGD_LAUNCHES),
                 ("adam", "float32", ADAM_FLICKR, max(n // 5, 10),
                  EDGE_ADAM_LAUNCHES))
+        samplers = None
         for name, float_type, opt, batches, per_batch in runs:
             solver, rec, bad = train_edge_path(
                 graph, float_type, opt, batches, per_batch,
-                falling=(name == "float32"))
+                falling=(name == "float32"), sampler_cache=samplers)
+            samplers = solver._sampler_cache
             log("   %s:" % name, json.dumps(rec))
             out[name] = rec
             problems += ["%s: %s" % (name, p) for p in bad]
@@ -1743,7 +2126,15 @@ def main():
     phase("kg_big", kg_big_path)
     torch.cuda.empty_cache()
 
-    # 7. each kernel against its plain version, on the paths' own ids
+    # 7. LargeVis at the largevis_mnist_2d.yaml shape (exact KNN)
+    phase("vis", lambda: vis_phase(args.seed))
+    torch.cuda.empty_cache()
+
+    # 8. LargeVis at the largevis_imagenet.yaml shape (IVF KNN)
+    phase("vis_big", lambda: vis_big_phase(args.seed))
+    torch.cuda.empty_cache()
+
+    # 9. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         cases = {"scatter_add": [], "gather_sorted": [],
@@ -1823,14 +2214,28 @@ def main():
             log("   scatter_update_ (%s)" % name, json.dumps(rec))
             cases["scatter_update"].append(rec)
             torch.cuda.empty_cache()
+        # the vis SGD batch's update ids at 8 columns (one 128-column pass
+        # per warp, 8 live lanes of 32); kernel 2 at the same shape with
+        # the pooled step's touch counts (no vis route takes it: the table
+        # is below the dense-update size)
+        vis = results["vis"]["ids"]
+        for dtype in (torch.float32, torch.bfloat16):
+            rec = check_add_rows("vis SGD", vis["ids"], MNIST_N, 8, dtype,
+                                 gen)
+            log("   scatter_add_ (vis SGD, W 8)", json.dumps(rec))
+            cases["scatter_add"].append(rec)
+            rec = check_update_rows("vis ids, W 8", vis["ids"],
+                                    vis["counts"], MNIST_N, 8, dtype, gen)
+            log("   scatter_update_ (vis ids, W 8)", json.dumps(rec))
+            cases["scatter_update"].append(rec)
         return cases
-    needed = ("main", "edge", "kg", "kg_big")
+    needed = ("main", "edge", "kg", "kg_big", "vis")
     if all(name in results for name in needed):
         phase("kernel", kernel)
     else:
         failures.append("kernel (needs the paths' ids)")
 
-    # 8. quality
+    # 10. quality
     def quality_phase():
         out = {}
         for model in ("DeepWalk", "LINE"):
@@ -1859,7 +2264,7 @@ def main():
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 9. summary: the card line, the kernels line, the result line
+    # 11. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
@@ -1870,9 +2275,14 @@ def main():
     kg_big = results["kg_big"]
     for name in ("float32", "bfloat16"):
         k1["kg_big_" + name] = kg_big[name]["launches"]["scatter_add_"]
+    k1["vis_sgd"] = results["vis"]["sgd"]["launches"]["scatter_add_"]
     k2 = {"edge_adam": (edge["adam"]["launches"]["scatter_update_"]
                         + edge["adam"]["launches"]["scatter_update_sorted_"]),
-          "kg_big_adam": kg_big["adam"]["launches"]["scatter_update_"]}
+          "kg_big_adam": kg_big["adam"]["launches"]["scatter_update_"],
+          # the vis tables take the dense moment route
+          "vis_adam": results["vis"]["adam"]["launches"]["scatter_update_"],
+          "vis_big_adam": (results["vis_big"]["adam"]["launches"]
+                           ["scatter_update_"])}
     k3 = {"edge_float32": edge["float32"]["launches"]["gather_sorted"]}
     kernels_line = {"kernels": [
         # the DeepWalk batch-100000 update, float32 table

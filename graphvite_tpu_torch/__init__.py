@@ -3,8 +3,9 @@
 A second package beside the JAX one, which stays the reference. It imports
 torch and numpy, never jax or graphvite_tpu. So far it trains DeepWalk and
 LINE node embeddings through the banded walk route (augmentation_step >= 2)
-and the edge route (augmentation_step 1), and knowledge-graph embeddings
-(six models, the classic and the pooled step, filtered ranking), with the
+and the edge route (augmentation_step 1), knowledge-graph embeddings (six
+models, the classic and the pooled step, filtered ranking), and LargeVis
+layouts (exact and IVF KNN graphs on the device), with the
 table updates and the edge route's sorted gather on hand-written CUDA
 kernels (graphvite_tpu_torch/csrc/). Its solvers and applications run on
 CUDA unless the caller asks for the CPU (`device="cpu"`).
@@ -16,11 +17,14 @@ import numpy as _np
 
 from graphvite_tpu_torch.utils.common import auto
 from graphvite_tpu_torch.graph import Graph, KnowledgeGraph
+from graphvite_tpu_torch.knn import KNNGraph
 from graphvite_tpu_torch.optim import Optimizer, make_optimizer
 from graphvite_tpu_torch.solver import (GraphSolver, KnowledgeGraphSolver,
+                                        VisualizationSolver,
                                         state_from_numpy, state_to_numpy)
 from graphvite_tpu_torch.application import (Application, GraphApplication,
-                                             KnowledgeGraphApplication)
+                                             KnowledgeGraphApplication,
+                                             VisualizationApplication)
 
 # dtype shorthands, mirroring the reference's graphvite.float32 / .uint32
 float32 = _np.float32
@@ -29,8 +33,10 @@ uint32 = _np.uint32
 uint64 = _np.uint64
 
 __all__ = [
-    "auto", "Graph", "KnowledgeGraph", "Optimizer", "make_optimizer",
-    "GraphSolver", "KnowledgeGraphSolver", "Application", "GraphApplication",
-    "KnowledgeGraphApplication", "state_from_numpy", "state_to_numpy",
+    "auto", "Graph", "KnowledgeGraph", "KNNGraph", "Optimizer",
+    "make_optimizer", "GraphSolver", "KnowledgeGraphSolver",
+    "VisualizationSolver", "Application", "GraphApplication",
+    "KnowledgeGraphApplication", "VisualizationApplication",
+    "state_from_numpy", "state_to_numpy",
     "float32", "float64", "uint32", "uint64",
 ]

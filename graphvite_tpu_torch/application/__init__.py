@@ -1,7 +1,8 @@
 """Application pipelines: load -> build -> train -> evaluate -> save (the
-port of ApplicationMixin, GraphApplication and KnowledgeGraphApplication in
-graphvite_tpu/application/__init__.py). The solver runs on CUDA unless the
-caller passes `device="cpu"`; evaluation runs on the solver's device."""
+port of ApplicationMixin, GraphApplication, KnowledgeGraphApplication and
+VisualizationApplication in graphvite_tpu/application/__init__.py). The
+solver runs on CUDA unless the caller passes `device="cpu"`; evaluation
+runs on the solver's device."""
 from __future__ import annotations
 
 import os
@@ -15,6 +16,7 @@ from graphvite_tpu_torch import base
 from graphvite_tpu_torch import graph as graph_mod
 from graphvite_tpu_torch import solver as solver_mod
 from graphvite_tpu_torch.application import evaluate as ev
+from graphvite_tpu_torch.knn import KNNGraph
 from graphvite_tpu_torch.models import KG_MODELS
 from graphvite_tpu_torch.utils.common import Monitor, assert_in, auto, logger
 
@@ -406,14 +408,227 @@ class KnowledgeGraphApplication(ApplicationMixin):
                         "moments": solver.state["moments"]}
 
 
+class VisualizationApplication(ApplicationMixin):
+    """LargeVis visualization application (ref application.py:1070-1368).
+    The KNN graph is built on the application's device. Plots need
+    matplotlib; without it they are skipped with a warning, as in the
+    reference, and the frames and coordinates are still returned."""
+
+    def get_graph(self, **kwargs):
+        return KNNGraph(device=self.device)
+
+    def get_solver(self, **kwargs):
+        return solver_mod.VisualizationSolver(
+            self.dim, self.float_type, self.index_type,
+            gpu_memory_limit=self.gpu_memory_limit,
+            num_worker=max(len(self.gpus), 1), device=self.device)
+
+    def load(self, vectors=None, file_name=None, **kwargs):
+        with self.monitor.stage("load"):
+            if vectors is not None:
+                self.graph.load_numpy(vectors, **kwargs)
+            elif file_name is not None:
+                self.graph.load_file(file_name, **kwargs)
+            else:
+                raise ValueError("provide vectors or file_name")
+        return self
+
+    @staticmethod
+    def _pyplot(what):
+        try:
+            import matplotlib
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+            return plt
+        except ImportError as e:  # pragma: no cover - host without it
+            logger.warning("matplotlib unavailable (%s); skipping %s", e,
+                           what)
+            return None
+
+    def visualization(self, Y=None, save_file=None, figure_size=10, scale=2):
+        """2D/3D scatter with 5-sigma outlier clipping
+        (ref application.py:1119-1187); returns the clipped coordinates."""
+        coords = self.solver.coordinates
+        mean = coords.mean(axis=0)
+        std = coords.std(axis=0)
+        clipped = np.clip(coords, mean - 5 * std, mean + 5 * std)
+        if save_file is None:
+            return clipped
+        plt = self._pyplot("plot")
+        if plt is None:
+            return clipped
+        fig = plt.figure(figsize=(figure_size, figure_size))
+        if self.dim == 3:
+            ax = fig.add_subplot(111, projection="3d")
+            args = (clipped[:, 0], clipped[:, 1], clipped[:, 2])
+        else:
+            ax = fig.add_subplot(111)
+            args = (clipped[:, 0], clipped[:, 1])
+        if Y is not None:
+            classes = np.unique(Y)
+            for c in classes:
+                m = np.asarray(Y) == c
+                ax.scatter(*(a[m] for a in args), s=scale, label=str(c))
+            if len(classes) <= 20:
+                ax.legend(markerscale=6)
+        else:
+            ax.scatter(*args, s=scale)
+        ax.set_xticks([])
+        ax.set_yticks([])
+        fig.savefig(save_file, bbox_inches="tight")
+        plt.close(fig)
+        logger.info("saved visualization to %s", save_file)
+        return clipped
+
+    def hierarchy(self, HY=None, file_name=None, target=None, save_file=None,
+                  figure_size=10, scale=2, duration=3):
+        """Animated zoom over a label hierarchy (ref application.py:1189-1255
+        + render_hierarchy :1317-1343): find the first vertex whose label at
+        some level equals `target`; emit one frame per level down to that
+        depth, coloring by the next level's labels with every vertex OUTSIDE
+        the target's current branch grayed out as "else". `file_name`: text
+        file with one whitespace-separated label path per vertex. Returns
+        the frames (coordinates, labels, focus label)."""
+        if file_name is not None and HY is None:
+            with open(file_name) as f:
+                HY = [line.split() for line in f if line.split()]
+            width = max(len(r) for r in HY)
+            HY = [r + [r[-1]] * (width - len(r)) for r in HY]
+        HY = np.asarray(HY)
+        if HY.dtype.kind == "U" and HY.dtype.itemsize < 4 * len("else"):
+            # the fixed-width string dtype must be able to hold "else"
+            # (ref application.py:1225-1227)
+            HY = HY.astype("U4")
+        coords = self.solver.coordinates
+        # 5-sigma outlier removal (ref application.py:1229-1234)
+        mean = coords.mean(axis=0)
+        std = coords.std(axis=0)
+        inside = np.all(np.abs(coords - mean) < 5 * std, axis=1)
+        coords = coords[inside]
+        HY = HY[inside]
+
+        if target is not None:
+            sample = depth = None
+            for level in range(HY.shape[1]):
+                idx = np.nonzero(HY[:, level] == str(target))[0]
+                if idx.size:
+                    sample, depth = int(idx[0]), level
+                    break
+            if sample is None:
+                raise ValueError("can't find target `%s` in the hierarchy"
+                                 % target)
+            frames = []
+            for i in range(depth + 1):
+                y = HY[:, i].copy()
+                if i > 0:
+                    # gray out everything outside the target's branch
+                    y[HY[:, i - 1] != HY[sample, i - 1]] = "else"
+                frames.append((coords, y, y[sample]))
+        else:
+            frames = [(coords, HY[:, level], None)
+                      for level in range(HY.shape[1])]
+        if save_file is None:
+            return frames
+        plt = self._pyplot("gif")
+        if plt is None:
+            return frames
+        from matplotlib import animation
+        fig = plt.figure(figsize=(figure_size, figure_size))
+        ax = fig.add_subplot(111)
+
+        def draw(level):
+            ax.clear()
+            c_fr, y, focus = frames[level]
+            classes = sorted(set(y))
+            if focus is not None:
+                # focus class first, "else" in light grey at the back
+                classes = ([focus] + [c for c in classes
+                                      if c not in (focus, "else")]
+                           + (["else"] if "else" in classes else []))
+            for z, c in enumerate(classes):
+                m = y == c
+                ax.scatter(c_fr[m, 0], c_fr[m, 1], s=scale,
+                           c="lightgrey" if c == "else" else None,
+                           zorder=-z, label=str(c))
+            ax.set_xticks([])
+            ax.set_yticks([])
+            ax.legend(markerscale=6, loc="upper right")
+        anim = animation.FuncAnimation(fig, draw, frames=len(frames),
+                                       interval=duration * 1000)
+        anim.save(save_file, writer="pillow")
+        plt.close(fig)
+        return frames
+
+    def animation(self, Y=None, save_file=None, figure_size=5, scale=2,
+                  elevation=30, num_frame=700):
+        """Rotating 3D scatter gif (ref application.py:1257-1314); returns
+        the coordinates."""
+        if self.dim != 3:
+            raise ValueError("animation requires dim=3")
+        coords = self.solver.coordinates
+        if save_file is None:
+            return coords
+        plt = self._pyplot("gif")
+        if plt is None:
+            return coords
+        from matplotlib import animation as mpl_anim
+        fig = plt.figure(figsize=(figure_size, figure_size))
+        ax = fig.add_subplot(111, projection="3d")
+        if Y is None:
+            Y = np.zeros(len(coords), dtype=int)
+        Y = np.asarray(Y)
+        # 5-sigma outlier removal (ref application.py:1300-1305)
+        mean = coords.mean(axis=0)
+        std = coords.std(axis=0)
+        inside = np.all(np.abs(coords - mean) < 5 * std, axis=1)
+        coords = coords[inside]
+        Y = Y[inside]
+        # the class scatters are drawn once; each frame turns the view
+        for c in np.unique(Y):
+            m = Y == c
+            ax.scatter(coords[m, 0], coords[m, 1], coords[m, 2], s=scale)
+        ax.set_xticks([])
+        ax.set_yticks([])
+        ax.set_zticks([])
+
+        def draw(frame):
+            ax.view_init(elev=elevation, azim=frame * 360.0 / num_frame)
+            return ()
+        anim = mpl_anim.FuncAnimation(fig, draw, frames=num_frame,
+                                      interval=70000.0 / num_frame)
+        anim.save(save_file, writer="pillow")
+        plt.close(fig)
+        return coords
+
+    def model_state(self):
+        return {"kind": "visualization",
+                "coordinates": self.solver.coordinates}
+
+    def set_model_state(self, state):
+        solver = self.solver
+        if solver.state is None:
+            solver._allocate()
+        coords = np.asarray(state["coordinates"], dtype=np.float32)
+        pad = solver._pad_dim - coords.shape[1]
+        if pad > 0:
+            coords = np.concatenate(
+                [coords, np.zeros((coords.shape[0], pad), coords.dtype)],
+                axis=1)
+        table = torch.as_tensor(coords, device=solver.device).to(
+            solver.float_type)
+        solver.state = {"tables": (table,),
+                        "moments": solver.state["moments"]}
+
+
 APPLICATIONS = {
     "graph": GraphApplication,
     "knowledge graph": KnowledgeGraphApplication,
     "knowledge_graph": KnowledgeGraphApplication,
+    "visualization": VisualizationApplication,
 }
 # the reference's other application types, by the ROADMAP item that ports
 # them
-_NOT_PORTED = {"word graph": 14, "word_graph": 14, "visualization": 13}
+_NOT_PORTED = {"word graph": 14, "word_graph": 14}
 
 
 def Application(type, *args, **kwargs):

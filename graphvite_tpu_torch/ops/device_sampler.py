@@ -64,17 +64,29 @@ class DeviceEdgeSampler:
     @classmethod
     def build(cls, graph, with_relation=False, sort_stream=None,
               device="cpu"):
-        w = np.asarray(graph.edge_weights)
+        w = graph.edge_weights
+        w = w.cpu().numpy() if torch.is_tensor(w) else np.asarray(w)
         uniform = bool(w.size == 0 or np.all(w == w[0]))
         alias_arrays = () if uniform else device_alias_arrays(AliasTable(w))
-        cols = [np.asarray(graph.edge_heads, np.int32),
-                np.asarray(graph.edge_tails, np.int32)]
+        del w
+        cols = [graph.edge_heads, graph.edge_tails]
         if with_relation:
-            cols.append(np.asarray(graph.edge_relations, np.int32))
-        packed = np.stack(cols, axis=1)
-        n_edge = int(packed.shape[0])
+            cols.append(graph.edge_relations)
+        n_edge = int(cols[0].shape[0])
         C = cls.STREAM_CHUNK
         streamed = uniform and n_edge >= C * cls.MIN_STREAM_BLOCKS
+        if all(torch.is_tensor(c) for c in cols) and not streamed:
+            # device edge arrays (KNNGraph) stay on the device
+            return cls(
+                edges=torch.stack([c.to(device=device, dtype=torch.int32)
+                                   for c in cols], dim=1),
+                alias_arrays=tuple(torch.as_tensor(a, device=device)
+                                   for a in alias_arrays),
+                num_edge=n_edge, uniform=uniform,
+                with_rel=bool(with_relation))
+        packed = np.stack([c.cpu().numpy().astype(np.int32)
+                           if torch.is_tensor(c) else np.asarray(c, np.int32)
+                           for c in cols], axis=1)
         if sort_stream is None:
             sort_stream = os.environ.get("GRAPHVITE_SORTED_STREAM",
                                          "0") != "0"

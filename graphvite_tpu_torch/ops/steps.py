@@ -1,6 +1,6 @@
 """Training steps and the episode runner (the port of the node-embedding
-shared-negative-pool steps and the knowledge-graph steps of
-graphvite_tpu/ops/steps.py).
+shared-negative-pool steps, the knowledge-graph steps and the LargeVis
+steps of graphvite_tpu/ops/steps.py).
 
 Each step takes a state dict {"tables": (...), "moments": (...)} and one
 batch, samples a shared negative pool per sample group, computes
@@ -16,12 +16,14 @@ Knowledge-graph steps take (heads, tails, rels) triplets over a tied entity
 table and a relation table: the classic per-draw step
 (`make_kg_train_step`) and the shared-candidate-pool step
 (`make_kg_pool_step`, with a generic body for every model and the RotatE
-isometry body).
+isometry body). LargeVis steps take edges over one coordinate table: the
+classic K-draw step (`make_vis_train_step`) and the shared-pool step
+(`make_vis_pool_step`).
 
 Random draws: the pool draws (u1, u2) [G, M] are optional inputs
-(`draws`; the knowledge-graph steps take their candidate ids as
-`negatives`); otherwise they come from the `generator` on the tables'
-device.
+(`draws`; [B, K] for the classic LargeVis step; the knowledge-graph steps
+take their candidate ids as `negatives`); otherwise they come from the
+`generator` on the tables' device.
 
 Loss conventions match the reference's gpu/graph.cuh:73-92.
 """
@@ -40,6 +42,7 @@ from graphvite_tpu_torch.ops.scatter import (scatter_add_,
                                              scatter_update_,
                                              scatter_update_sorted_)
 from graphvite_tpu_torch.optim import Optimizer, apply_row_updates
+from graphvite_tpu_torch.models.visualization import SMOOTH_TERM
 from graphvite_tpu_torch.utils.common import EPSILON
 
 
@@ -954,6 +957,216 @@ def make_kg_pool_step(model, opt: Optimizer, num_negative: int,
 def kg_predict(model, entity, relation, heads, tails, rels, margin_or_l3):
     return model.score(entity[heads], entity[tails], relation[rels],
                        margin_or_l3)
+
+
+# ---------------------------------------------------------------------------
+# visualization / LargeVis: one shared coordinate table (ref
+# gpu/visualization.cuh)
+# ---------------------------------------------------------------------------
+
+def make_vis_train_step(model, opt: Optimizer, num_negative: int,
+                        negative_weight: float, trust=None):
+    """The classic LargeVis step: K negative draws per sample, each scored
+    with the student-t kernel 1/(1+x), x = ||h - t||^2, and the
+    reference's smoothed negative gradient -2 prob / (x + SMOOTH_TERM).
+    Head rows get K+1 touches, tail and negative rows one each.
+
+    step(state, heads [B], tails [B], lr, *neg_state, mask=None,
+    generator=None, draws=None) -> (state, loss); `draws` = (u1, u2)
+    [B, K] negative-sampler uniforms (`step.draw_shape(B)`)."""
+    k = num_negative
+
+    def step(state, heads, tails, lr, *neg_state, mask=None,
+             generator=None, draws=None):
+        (coord,) = state["tables"]
+        (moms,) = state["moments"]
+        b = heads.shape[0]
+        v = coord.shape[0]
+        dev = coord.device
+        if draws is None:
+            draws = (torch.rand((b, k), generator=generator, device=dev),
+                     torch.rand((b, k), generator=generator, device=dev))
+        negs = device_sample(*neg_state, *draws)             # [B, K]
+
+        h = coord[heads][:, None, :].float()                 # [B, 1, D]
+        t_ids = torch.cat([negs, tails[:, None].long()], dim=1)
+        t = coord[t_ids].float()                             # [B, K+1, D]
+        x = model.score(h, t)                                # [B, K+1]
+        prob = 1.0 / (1.0 + x)
+        gradient = torch.cat([-2.0 * prob[:, :k] / (x[:, :k] + SMOOTH_TERM),
+                              2.0 * prob[:, k:]], dim=1)
+        weight = torch.cat([torch.full((b, k), float(negative_weight),
+                                       device=dev),
+                            torch.ones((b, 1), device=dev)], dim=1)
+        if mask is not None:
+            gradient = gradient * mask[:, None]
+            weight = weight * mask[:, None]
+        # prob = 1/(1+x): -log(prob) = log1p(x); -log(1-prob) = log1p(x) -
+        # log(x), with an epsilon floor on x only
+        log1px = torch.log1p(x)
+        loss = torch.cat([log1px[:, :k] - torch.log(x[:, :k] + EPSILON),
+                          log1px[:, k:]], dim=1)
+        sample_loss = ((weight * loss).sum(dim=-1)
+                       / (1.0 + k * negative_weight))
+
+        gh, gt = model.backward(h, t, gradient)
+        w = weight[..., None]
+        wd = opt.weight_decay
+        per_touch_h = w * (gh + wd * h)                      # [B, K+1, D]
+        reg_h = per_touch_h.sum(dim=1)
+        reg_t = w * (gt + wd * t)
+        ids = torch.cat([_mask_ids(heads.long(), mask, v),
+                         _mask_ids(t_ids, mask, v).reshape(-1)])
+        grads = torch.cat([reg_h, reg_t.reshape(b * (k + 1), -1)])
+        counts = sqs = None
+        if opt.num_moment > 0:
+            counts = torch.cat([torch.full((b,), k + 1.0, device=dev),
+                                torch.ones(b * (k + 1), device=dev)])
+            sqs = torch.cat([(per_touch_h * per_touch_h).sum(dim=1),
+                             (reg_t * reg_t).reshape(b * (k + 1), -1)])
+        new_coord, new_moms = apply_row_updates(
+            coord, moms, ids, grads, opt, lr, entry_counts=counts,
+            entry_sqs=sqs, trust=trust)
+        return ({"tables": (new_coord,), "moments": (new_moms,)},
+                _mean_sample_loss(sample_loss, mask))
+
+    step.draw_shape = lambda b: (b, k)
+    return step
+
+
+def make_vis_pool_step(opt: Optimizer, num_negative: int,
+                       negative_weight: float, pool_size: int = 256,
+                       pool_groups: int = 8, trust: float = 0.25):
+    """Shared-negative-pool LargeVis step (make_graph_pool_step's structure
+    with the student-t kernel, gpu/visualization.cuh:38-240).
+
+    Each of `pool_groups` groups draws ONE pool of `pool_size` rows and
+    every sample of the group scores the whole pool through pairwise
+    squared distances ||h||^2 + ||P||^2 - 2 h.P (a batched product),
+    weighted negative_weight * K / pool_size per pool row, so the
+    expected negative gradient mass per sample matches K draws. Row
+    traffic per batch drops from B*(2+K) entries to 2B + G*M, all in one
+    `apply_row_updates` call (kernel 1 at the table's width on SGD with
+    `trust`; the dense moment route on small tables). Moment optimizers
+    get the emulated K-draw touch counts (head K+1, tail 1, pool row
+    Bg*K/M) and M/K-rescaled squared-gradient sums.
+
+    step(state, heads [B], tails [B], lr, *neg_state, mask=None,
+    generator=None, draws=None) -> (state, loss); B % pool_groups == 0;
+    `draws` = (u1, u2) [G, M] pool uniforms (`step.pool_shape`)."""
+    k = num_negative
+    M = int(pool_size)
+    G = int(pool_groups)
+    neg_w = float(negative_weight) * k / M
+
+    def step(state, heads, tails, lr, *neg_state, mask=None,
+             generator=None, draws=None):
+        (coord,) = state["tables"]
+        (moms,) = state["moments"]
+        b = heads.shape[0]
+        v = coord.shape[0]
+        dev = coord.device
+        if b % G:
+            raise ValueError("batch %d must divide into %d pool groups"
+                             % (b, G))
+        bg = b // G
+        pool_ids = _pool_ids(neg_state, G, M, dev, generator, draws)
+
+        h = coord[heads].reshape(G, bg, -1).float()
+        t = coord[tails].reshape(G, bg, -1).float()
+        P = coord[pool_ids].float()                          # [G, M, D]
+
+        d = h - t
+        x_pos = (d * d).sum(dim=-1)                          # [G, Bg]
+        gpos = 2.0 / (1.0 + x_pos)                           # 2 * prob
+        # x, the gradients and the squared sums below are differences of
+        # batched products whose terms cancel where a pool row's weight
+        # sits on the heads nearest it (x -> 0 far from the origin, once a
+        # layout spreads): in float32 their rounding, and so the order of
+        # the sums, would move the result by up to ~1e-4 of a row. The
+        # products and the differences run in float64 (the reference's are
+        # float32); the elementwise passes stay in float32.
+        h64, P64 = h.double(), P.double()
+        hh = (h64 * h64).sum(dim=-1)
+        pp = (P64 * P64).sum(dim=-1)
+        x = (hh[:, :, None] + pp[:, None, :]
+             - 2.0 * torch.bmm(h64, P64.transpose(1, 2))).float()
+        x = torch.clamp(x, min=0.0)
+        prob = 1.0 / (1.0 + x)
+        gneg = -2.0 * prob / (x + SMOOTH_TERM) * neg_w       # [G, Bg, M]
+        if mask is not None:
+            m2 = mask.reshape(G, bg)
+            gpos = gpos * m2
+            gneg = gneg * m2[..., None]
+            n_active = mask.sum()
+        else:
+            m2 = None
+            n_active = torch.tensor(float(b), device=dev)
+
+        # loss on the K-draw scale (as make_vis_train_step reports it)
+        loss_terms = (torch.log1p(x_pos)
+                      + neg_w * (torch.log1p(x)
+                                 - torch.log(x + EPSILON)).sum(dim=-1))
+        if m2 is not None:
+            loss_terms = loss_terms * m2
+        mean_loss = (loss_terms.sum() / torch.clamp(n_active, min=1.0)
+                     / (1.0 + k * negative_weight))
+
+        wd = opt.weight_decay
+        gneg64 = gneg.double()
+        # sum_m gneg (h - P_m) and sum_b gneg (P - h_b), in float64
+        h_neg = (gneg64.sum(dim=-1)[..., None] * h64
+                 - torch.bmm(gneg64, P64)).float()
+        p_neg = (gneg64.sum(dim=1)[..., None] * P64
+                 - torch.bmm(gneg64.transpose(1, 2), h64)).float()
+        dh = gpos[..., None] * d + h_neg + wd * (1.0 + M * neg_w) * h
+        dt = -gpos[..., None] * d + wd * t
+        dP = p_neg + wd * (neg_w * bg) * P
+
+        counts = sqs = None
+        if opt.num_moment > 0:
+            # EMULATED K-draw touch counts: a moment rule moves a row by
+            # ~lr * count, so counts follow the K-draw scheme this step
+            # emulates, not its M pool terms. Per-draw grad = (M/K) x
+            # per-term grad, so summed squares rescale by M/K.
+            sq_scale = M / max(k, 1)
+            g2 = gneg64 * gneg64
+            h_neg_sqs = (g2.sum(dim=-1)[..., None] * (h64 * h64)
+                         - 2.0 * h64 * torch.bmm(g2, P64)
+                         + torch.bmm(g2, P64 * P64)).float()
+            t_sqs = (gpos[..., None] * d) ** 2
+            h_sqs = t_sqs + sq_scale * h_neg_sqs
+            g2T = g2.transpose(1, 2)
+            p_sqs = sq_scale * (g2.sum(dim=1)[..., None] * (P64 * P64)
+                                - 2.0 * P64 * torch.bmm(g2T, h64)
+                                + torch.bmm(g2T, h64 * h64)).float()
+            if m2 is None:
+                p_counts = torch.full((G, M), bg * k / M, device=dev)
+            else:
+                p_counts = (m2.sum(dim=1)[:, None] * (k / M)).expand(G, M)
+            counts = torch.cat([torch.full((b,), k + 1.0, device=dev),
+                                torch.ones(b, device=dev),
+                                p_counts.reshape(-1)])
+            # squared-gradient sums are nonnegative by construction; the
+            # expanded (a-b)^2 forms can dip below zero in floating point
+            sqs = torch.clamp(torch.cat([h_sqs.reshape(b, -1),
+                                         t_sqs.reshape(b, -1),
+                                         p_sqs.reshape(G * M, -1)]),
+                              min=0.0)
+
+        ids = torch.cat([_mask_ids(heads.long(), mask, v),
+                         _mask_ids(tails.long(), mask, v),
+                         pool_ids.reshape(-1)])
+        grads = torch.cat([dh.reshape(b, -1), dt.reshape(b, -1),
+                           dP.reshape(G * M, -1)])
+        new_coord, new_moms = apply_row_updates(
+            coord, moms, ids, grads, opt, lr, entry_counts=counts,
+            entry_sqs=sqs, trust=trust)
+        return ({"tables": (new_coord,), "moments": (new_moms,)},
+                mean_loss)
+
+    step.pool_shape = (G, M)   # the shape of each of the `draws`
+    return step
 
 
 def make_micro_step(step_fn, num_micro: int, has_relation: bool = False):

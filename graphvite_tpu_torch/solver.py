@@ -12,11 +12,13 @@ stream with the sweep kernels) and the banded walk route (above 1: fused
 (vertex|context) SGD arena, or the unfused step for moment optimizers and
 the trust clip on small tables). Knowledge graphs: the classic per-draw
 step and the shared-candidate-pool step over a tied entity table and a
-relation table, positives from the relation-carrying edge sampler. What
-later slices port raises NotImplementedError naming its ROADMAP item: the
-edge route's blocked and overflow episodes, node2vec, the host sampler
-backend, host-resident tables and the multi-device engines (num_worker >
-1).
+relation table, positives from the relation-carrying edge sampler.
+LargeVis: the classic K-draw step and the shared-pool step over one padded
+coordinate table, positives from the alias-weighted edge sampler over a
+KNN graph. What later slices port raises NotImplementedError naming its
+ROADMAP item: the edge route's blocked and overflow episodes, node2vec,
+the host sampler backend, host-resident tables and the multi-device
+engines (num_worker > 1).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 
 from graphvite_tpu_torch import base
 from graphvite_tpu_torch import optim as _optim
-from graphvite_tpu_torch.models import GRAPH_MODELS, KG_MODELS
+from graphvite_tpu_torch.models import GRAPH_MODELS, KG_MODELS, LargeVis
 from graphvite_tpu_torch.ops import steps as _steps
 from graphvite_tpu_torch.ops.alias import AliasTable, device_alias_arrays
 from graphvite_tpu_torch.ops.device_sampler import (DeviceEdgeSampler,
@@ -754,3 +756,93 @@ class KnowledgeGraphSolver(SolverBase):
                     margin_or_l3).float().cpu().numpy())
         return (np.concatenate(out) if out
                 else np.zeros(0, dtype=np.float32))
+
+
+class VisualizationSolver(SolverBase):
+    """LargeVis solver (ref visualization.cuh:417-596): one coordinate
+    table serves both head and tail roles.
+
+    Tables are padded to MIN_COLS columns, as the reference pads them: the
+    squared-distance math keeps the zero-initialized pad columns exactly
+    zero under every rule and weight decay, so they are inert;
+    `coordinates` strips them."""
+
+    MIN_COLS = 8
+
+    def get_default_optimizer(self):
+        # ref visualization.cuh:554-556
+        return Optimizer(type="Adam", lr=0.5, weight_decay=1e-5,
+                         schedule="linear")
+
+    def get_available_models(self):
+        return {"LargeVis"}
+
+    @property
+    def _pad_dim(self):
+        return max(self.dim, self.MIN_COLS)
+
+    def _table_shapes(self):
+        return ((self.graph.num_vertex, self._pad_dim),)
+
+    def init_embeddings(self):
+        """coord ~ U(-5e-5/dim, 5e-5/dim) (visualization.cuh:563-569),
+        drawn on the device from a generator seeded by the solver's rng;
+        the pad columns are zero."""
+        self.state = None
+        v = self.graph.num_vertex
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(int(self._rng.integers(2**31)))
+        bound = 5e-5 / self.dim
+        coord = torch.zeros((v, self._pad_dim), dtype=torch.float32,
+                            device=self.device)
+        u = torch.rand((v, self.dim), generator=gen, device=self.device)
+        coord[:, :self.dim] = u.mul_(2 * bound).sub_(bound)
+        self.state = {"tables": (coord.to(self.float_type),),
+                      "moments": (self.optimizer.init_moments(
+                          (v, self._pad_dim), self.device),)}
+
+    @property
+    def coordinates(self):
+        return self.table(0)[:, :self.dim]
+
+    def train(self, model="LargeVis", num_epoch=50, resume=False,
+              sample_batch_size=2000, positive_reuse=5,
+              negative_sample_exponent=0.75, negative_weight=5.0,
+              negative_sharing=auto, log_frequency=1000):
+        """Train on the device with the alias-weighted edge sampler (KNN
+        weights are not uniform). `negative_sharing`: the shared-pool step
+        (default) or the classic K-draw step; auto, like every value equal
+        to 0 (False included, as in the reference), reads
+        GRAPHVITE_NEG_SHARING ("0" picks the classic step).
+        `sample_batch_size` serves the host sampler only and is accepted
+        for parity."""
+        if model not in self.get_available_models():
+            raise ValueError("unknown model `%s`" % model)
+        self.model = "LargeVis"
+        if not resume or self.state is None or self.batch_id == 0:
+            self.init_embeddings()
+            self.batch_id = 0
+        weights = np.asarray(self.graph.vertex_weights, dtype=np.float64)
+        weights = np.maximum(weights, 1e-12) ** negative_sample_exponent
+        neg_state = tuple(torch.as_tensor(a, device=self.device)
+                          for a in device_alias_arrays(AliasTable(weights)))
+        trust = float(os.environ.get("GRAPHVITE_TRUST", 0.25)) or None
+        if negative_sharing in (auto, None):
+            negative_sharing = os.environ.get("GRAPHVITE_NEG_SHARING",
+                                              "1") != "0"
+        # the pooled step plans its batch under the pooled memory cap
+        self._pooled_step = bool(negative_sharing)
+        if negative_sharing:
+            pool_groups = _steps.graph_pool_groups(self._batch_plan()[1])
+            step_fn = _steps.make_vis_pool_step(
+                self.optimizer, self.num_negative, float(negative_weight),
+                pool_groups=pool_groups, trust=trust)
+        else:
+            step_fn = _steps.make_vis_train_step(
+                LargeVis, self.optimizer, self.num_negative,
+                float(negative_weight), trust=trust)
+        sampler = self._get_sampler(
+            ("edge", str(self.device)),
+            lambda: DeviceEdgeSampler.build(self.graph, device=self.device))
+        self._train_loop_device(step_fn, sampler, neg_state, num_epoch,
+                                positive_reuse, log_frequency)

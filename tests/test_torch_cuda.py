@@ -631,3 +631,187 @@ def test_plain_scatter_add_on_run_layouts(layout, sorted_entry):
     fn = scatter.scatter_add_sorted_ if sorted_entry else scatter.scatter_add_
     got = fn(table.clone(), ids, upd)
     np.testing.assert_array_equal(got.numpy().astype(np.float64), want)
+
+
+# ---------------------------------------------------------------------------
+# the LargeVis path: kernels 1 and 2 at 8 and 16 columns (one 128-column
+# pass per warp, mostly idle lanes), the KNN search and the vis pool step,
+# card against CPU
+# ---------------------------------------------------------------------------
+
+NARROW = [8, 16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+@pytest.mark.parametrize("w", NARROW)
+def test_segmented_add_on_run_layouts_narrow(layout, dtype, sorted_entry, w):
+    _check_segmented_add(_cuda(), layout, w, dtype, sorted_entry)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+@pytest.mark.parametrize("w", NARROW)
+def test_segmented_update_on_run_layouts_narrow(layout, dtype, sorted_entry,
+                                                w):
+    _check_segmented_update(_cuda(), layout, w, dtype, sorted_entry,
+                            delta_ulp=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [R + 1, 5000, 60000])
+@pytest.mark.parametrize("sorted_entry", [True, False])
+@pytest.mark.parametrize("w", NARROW)
+def test_narrow_hub_runs(n, sorted_entry, w):
+    """Hub-skewed ids (a few rows take most entries) at 8 and 16 columns,
+    exact on the grid and bit for bit on a second launch."""
+    dev = _cuda()
+    _check_segmented_add(dev, None, w, torch.float32, sorted_entry, n=n)
+    _check_segmented_update(dev, None, w, torch.float32, sorted_entry, n=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vis_batch_shape_add(dtype):
+    """The vis SGD update's shape: 2 x 99,840 heads and tails plus 64 x 256
+    pool rows = 216,064 unsorted ids over a 70,000 x 8 accumulator (tiles
+    of 32 rows)."""
+    dev = _cuda()
+    rng = np.random.default_rng(17)
+    n, v, w = 216064, 70000, 8
+    assert scatter.tile_rows(n, w) == 32
+    ids = torch.as_tensor(_hub_ids(rng, n, v), device=dev)
+    upd = torch.as_tensor(_grid(rng, (n, w), -2, 2), device=dev)
+    table = torch.as_tensor(_grid(rng, (v, w), -4, 4), device=dev).to(dtype)
+    want = scatter.scatter_add_plain(table.clone(), ids, upd)
+    got = scatter.scatter_add_(table.clone(), ids, upd)
+    again = scatter.scatter_add_(table.clone(), ids, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_exact_knn_on_card_matches_cpu():
+    from graphvite_tpu_torch import knn
+
+    dev = _cuda()
+    rng = np.random.default_rng(18)
+    x = rng.standard_normal((3000, 64)).astype(np.float32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dg, lg = knn.exact_knn(x, 30, row_chunk=700, device=dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    dc, lc = knn.exact_knn(x, 30, device="cpu")
+    assert dg.device.type == "cuda"
+    dg, lg = dg.cpu().numpy(), lg.cpu().numpy()
+    dc, lc = dc.numpy(), lc.numpy()
+    np.testing.assert_allclose(dg[:, 1:], dc[:, 1:], rtol=1e-4)
+    assert (lg[:, 0] == np.arange(3000)).all()
+    # labels wherever the neighbour's gap to both sides is over 1e-4
+    gap = np.minimum(np.diff(dc, axis=1)[:, :-1], np.diff(dc, axis=1)[:, 1:])
+    clear = gap > 1e-4 * dc[:, 1:-1]
+    assert clear.mean() > 0.9
+    assert np.array_equal(lg[:, 1:-1][clear], lc[:, 1:-1][clear])
+
+
+@pytest.mark.cuda
+def test_ivf_knn_on_card_matches_cpu():
+    """bfloat16 rows with float32 products (cuBLAS with a float32 output on
+    the card): the same neighbours as the CPU's float32 products of the
+    same rows, but for near ties."""
+    from graphvite_tpu_torch import knn
+
+    dev = _cuda()
+    rng = np.random.default_rng(19)
+    centers = rng.standard_normal((24, 48)).astype(np.float32) * 5
+    x = (centers[rng.integers(0, 24, 8000)]
+         + rng.standard_normal((8000, 48)).astype(np.float32))
+    kw = dict(nlist=64, nprobe=8, sample=4096, seed=0)
+    a = torch.as_tensor(x[:64], device=dev).bfloat16()
+    b = torch.as_tensor(x[64:160], device=dev).bfloat16()
+    np.testing.assert_allclose(knn._mm_f32(a, b.T).cpu().numpy(),
+                               (a.float() @ b.float().T).cpu().numpy(),
+                               rtol=1e-5, atol=1e-3)
+    dg, lg = knn.ivf_knn(x, 10, device=dev, **kw)
+    dc, lc = knn.ivf_knn(x, 10, device="cpu", **kw)
+    lg, lc = lg.cpu().numpy(), lc.numpy()
+    overlap = np.mean([len(set(p) & set(q)) / len(set(q))
+                       for p, q in zip(lg.tolist(), lc.tolist())])
+    assert overlap >= 0.98
+    np.testing.assert_allclose(np.sort(dg.cpu().numpy(), axis=1),
+                               np.sort(dc.numpy(), axis=1), rtol=1e-3,
+                               atol=1e-3)
+    rg = knn.knn_recall(x, lg, nq=300, device=dev)
+    rc = knn.knn_recall(x, lc, nq=300, device="cpu")
+    assert abs(rg - rc) <= 0.02 and rg > 0.85
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["SGD", "Adam"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vis_pool_step_on_card_matches_cpu(rule, dtype):
+    """One LargeVis pool step (G 8, M 64, 8 columns, 2 live) on the card
+    against the CPU from the same state and draws. SGD with the trust
+    clip launches kernel 1 once; Adam takes the dense route. The layout is
+    a spread one (a cluster far from the origin beside one at it), where
+    the step's pool products cancel; they run in float64, so the card is
+    held to 1e-7 + 1e-5 x the row's largest magnitude (+ 1 bf16 ulp of
+    the result on bf16 tables), moments the same."""
+    dev = _cuda()
+    rng = np.random.default_rng(20)
+    v, b, G, M = 5000, 4096, 8, 64
+    opt = Optimizer(type=rule, lr=0.3 if rule == "SGD" else 0.5,
+                    weight_decay=1e-5)
+    step = steps.make_vis_pool_step(opt, 5, 3.0, pool_size=M, pool_groups=G,
+                                    trust=0.25 if rule == "SGD" else None)
+    coord = np.zeros((v, 8), np.float32)
+    coord[:, :2] = rng.normal(size=(v, 2))
+    coord[v // 2:, :2] = coord[v // 2:, :2] * 0.3 + [30.0, -20.0]
+    # moments as a run leaves them, m2 at or above the squared gradients:
+    # beside a cold m2, Adam's weight w = 1 - exp(c log beta2) (the
+    # reference's form, ~1e-3 at c = 1) turns the last-ulp difference of
+    # the card's and the CPU's exp into ~1e-4 of a row
+    moms = [np.zeros((v, 8), np.float32) for _ in range(opt.num_moment)]
+    if moms:
+        moms[0][:, :2] = rng.normal(size=(v, 2)) * 1e-2
+        moms[1][:, :2] = np.abs(rng.normal(size=(v, 2))) * 4 + 4
+    heads, tails = rng.integers(0, v, b), rng.integers(0, v, b)
+    heads[:64] = 11                                    # a hub
+    draws = (rng.random((G, M)).astype(np.float32),
+             rng.random((G, M)).astype(np.float32))
+    neg = np.stack([np.ones(v, np.float32), np.arange(v, dtype=np.float32)],
+                   axis=1)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        # copies: the SGD route updates the table in place
+        t = lambda x: torch.tensor(x, device=device)
+        state = {"tables": (t(coord).to(dtype),),
+                 "moments": (tuple(t(m) for m in moms),)}
+        before = scatter.scatter_add_.launches
+        with torch.no_grad():
+            new, loss = step(state, t(heads), t(tails), opt.lr, t(neg),
+                             draws=tuple(t(d) for d in draws))
+        _sync(device)
+        if device.type == "cuda":
+            assert (scatter.scatter_add_.launches - before
+                    == (1 if rule == "SGD" else 0))
+        out.append((new["tables"][0].float().cpu(),
+                    [m.cpu() for m in new["moments"][0]], float(loss)))
+    (gt, gm, gl), (ct, cm, cl) = out
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    scale = torch.maximum(ct.abs(), torch.as_tensor(coord).abs()).amax(
+        dim=1, keepdim=True)
+    tol = 1e-7 + 1e-5 * scale
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(ct)
+    assert bool(((gt - ct).abs() <= tol).all()), float((gt - ct).abs().max())
+    assert bool((gt[:, 2:] == 0).all())
+    for a, c in zip(gm, cm):
+        scale = c.abs().amax(dim=1, keepdim=True)
+        assert bool(((a - c).abs() <= 1e-7 + 1e-5 * scale).all())

@@ -11,9 +11,11 @@ import pytest
 import torch
 
 import graphvite_tpu_torch
-from graphvite_tpu_torch import (GraphApplication, GraphSolver,
+from graphvite_tpu_torch import (GraphApplication, GraphSolver, KNNGraph,
                                  KnowledgeGraphApplication,
-                                 KnowledgeGraphSolver)
+                                 KnowledgeGraphSolver,
+                                 VisualizationApplication,
+                                 VisualizationSolver)
 
 PACKAGE_DIR = os.path.dirname(graphvite_tpu_torch.__file__)
 REPO = os.path.dirname(PACKAGE_DIR)
@@ -77,13 +79,47 @@ def test_entry_points_default_to_cuda():
     """With no `device`, the solver and the application ask for CUDA, and
     raise where there is none (here, a CPU-only torch)."""
     entries = (GraphSolver, GraphApplication, KnowledgeGraphSolver,
-               KnowledgeGraphApplication)
+               KnowledgeGraphApplication, VisualizationSolver,
+               VisualizationApplication)
     if torch.cuda.is_available():
         assert GraphSolver(dim=4).device.type == "cuda"
         assert KnowledgeGraphSolver(dim=4).device.type == "cuda"
+        assert VisualizationSolver(dim=2).device.type == "cuda"
+        assert KNNGraph().device.type == "cuda"
         return
     for entry in entries:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry(dim=4)
     assert GraphSolver(dim=4, device="cpu").device.type == "cpu"
     assert KnowledgeGraphSolver(dim=4, device="cpu").device.type == "cpu"
+    assert VisualizationSolver(dim=2, device="cpu").device.type == "cpu"
+
+
+def test_knn_graph_defaults_to_cuda():
+    """KNNGraph builds on CUDA unless asked for the CPU, and so do the
+    search functions given numpy vectors."""
+    import numpy as np
+
+    from graphvite_tpu_torch import knn
+
+    if torch.cuda.is_available():
+        assert KNNGraph().device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        KNNGraph()
+    x = np.zeros((10, 3), np.float32)
+    for fn in (knn.exact_knn, knn.ivf_knn):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fn(x, 3)
+    assert KNNGraph(device="cpu").device.type == "cpu"
+
+
+def test_knn_casts_with_torch():
+    """The IVF search's bfloat16 rows come from torch's own cast (the
+    reference casts with ml_dtypes on the host): round to nearest even."""
+    from graphvite_tpu_torch import knn
+
+    x = torch.tensor([[1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8]])
+    got = knn._upload(x.numpy(), torch.device("cpu"), torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert got.float().tolist() == [[1.0, 1.0 + 2 ** -6]]

@@ -307,8 +307,9 @@ def test_gaps_raise_naming_their_items():
                "moments": s.state["moments"]}
     with pytest.raises(NotImplementedError, match="item 15"):
         s.predict(np.zeros((1, 3), np.int64))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        Application("visualization", dim=2)
+    # visualization is ported (ROADMAP item 13)
+    assert type(Application("visualization", dim=2, device="cpu")
+                ).__name__ == "VisualizationApplication"
     with pytest.raises(NotImplementedError, match="item 14"):
         Application("word graph", dim=2)
     with pytest.raises(ValueError, match="application type"):
