@@ -1,7 +1,9 @@
 """Smoke run of graphvite_tpu_torch on one NVIDIA GPU (an H100 is the target).
 
-    python3 chip_smoke.py [--seed N] [--main-batches N] [--edge-batches N]
-                          [--kg-batches N] [--kg-big-batches N]
+    python3 chip_smoke.py [--seed N] [--main-batches N]
+                          [--node2vec-batches N] [--layout-batches N]
+                          [--edge-batches N] [--kg-batches N]
+                          [--kg-big-batches N]
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
@@ -23,7 +25,27 @@ Phases, in order (any failure exits non-zero and prints no result line):
             solver's own walk sampler, pool shape and negative sampler) and
             replayed: the fused step on the card against the same step on
             the CPU, over the whole 1,138,499 x 256 arena.
-4. edge     LINE through GraphSolver.build/train at the
+4. node2vec node2vec through GraphApplication at the
+            config/graph/node2vec_youtube.yaml hyperparameters (p 4, q 2,
+            dim 128, SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5,
+            walk 40, batch 100000) on the same graph: the cuckoo table's
+            host build (seconds, bytes), --node2vec-batches measured
+            batches (ms/batch, valid pairs/s, one scatter-add launch per
+            batch on the fused arena, finite and falling losses, host
+            syncs per batch of the loop's body and their call sites by
+            torch's sync debug mode, peak memory, a trace of 10 batches:
+            kernels per batch), the chain's R, round cap, proposal rounds
+            per step and time; the chain on the card against the CPU from
+            the same draws (ids equal), and one batch's step replayed on
+            the card against the CPU.
+5. layouts  DeepWalk at the deepwalk_youtube.yaml shape on the pair layout
+            (GRAPHVITE_WALK_STEP=pair), the multitail layout
+            (GRAPHVITE_WALK_STEP=multitail) and the classic K-draw step
+            (GRAPHVITE_NEG_SHARING=0), --layout-batches each: ms/batch,
+            kernels per batch (a trace of 5), kernel 1 on the vertex and
+            the context table per step, one batch replayed on the card
+            against the CPU.
+6. edge     LINE through GraphSolver.build/train at the
             config/graph/line_flickr.yaml hyperparameters (dim 128, SGD lr
             0.025 wd 5e-3, K 1, negative_weight 5, aug 1, batch 100000,
             episode 1000) on a Flickr-sized synthetic power-law graph
@@ -37,7 +59,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             replayed through the pool step on the card and on the CPU from
             the same tables and moments; its heads must ascend and, in
             float32, every head's vertex row must move.
-5. kg       RotatE through KnowledgeGraphApplication.load/build/train/
+7. kg       RotatE through KnowledgeGraphApplication.load/build/train/
             evaluate at the config/knowledge_graph/rotate_fb15k.yaml
             hyperparameters (dim 2048, Adam lr 2e-4, K 64, batch 100000,
             margin 24, adversarial temperature 2, episode 1) on a graph of
@@ -53,7 +75,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             from the same state and candidate ids; filtered ranking of
             the first 2,000 test triplets, both sides, on the card, and
             filtered_rankings on the card against the CPU on 64 of them.
-6. kg_big   RotatE at the config/knowledge_graph/rotate_wikidata5m.yaml
+8. kg_big   RotatE at the config/knowledge_graph/rotate_wikidata5m.yaml
             hyperparameters (dim 512, SGD lr 0.01, K 64, batch 100000,
             margin 6, adversarial temperature 0.2, episode 200) on a
             graph of Wikidata5m's published size made from --seed
@@ -67,7 +89,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             each run one batch is captured and replayed on the card
             against the CPU, which holds a renumbered copy of the touched
             rows.
-7. vis      LargeVis through VisualizationApplication.load/build/train at
+9. vis      LargeVis through VisualizationApplication.load/build/train at
             the config/visualization/largevis_mnist_2d.yaml
             hyperparameters (dim 2 padded to 8 columns, num_neighbor 200,
             perplexity 20, Adam lr 0.5 wd 1e-5, K 5, negative_weight 3,
@@ -83,7 +105,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             and a bfloat16 Adam run of 200; one batch of the Adam and of
             the SGD run replayed on the card against the CPU over the
             whole 70,000 x 8 table.
-8. vis_big  LargeVis at config/visualization/largevis_imagenet.yaml
+10. vis_big LargeVis at config/visualization/largevis_imagenet.yaml
             (perplexity 50) on a clone of tools/largevis_imagenet.py's
             statistics drawn on the card (1,331,167 x 2048, 1000
             classes): KNNGraph's auto route is the
@@ -93,10 +115,11 @@ Phases, in order (any failure exits non-zero and prints no result line):
             512 queries (>= 0.75, on the raw vectors as the tool scores
             it, and on the normalized ones the search used); 200 Adam
             batches with a trace of 10.
-9. kernel   each kernel against its plain torch version on the card, on the
+11. kernel  each kernel against its plain torch version on the card, on the
             ids the main paths drew: scatter_add on the DeepWalk update ids
             (batch 100000 and 250000, with dropped ids added, float32 and
-            bfloat16 tables) and on the edge route's sorted heads;
+            bfloat16 tables), on the node2vec batch's (float32) and on the
+            edge route's sorted heads;
             gather_sorted on the edge route's 99,328 sorted heads (float32
             and bfloat16 tables, float32 out); scatter_update (Adam) on its
             vertex side (sorted heads) and context side (107,520 unsorted
@@ -120,19 +143,22 @@ Phases, in order (any failure exits non-zero and prints no result line):
             scatter_add_ on the vis SGD batch's 216,064 update ids and
             scatter_update_ (Adam, the pooled step's touch counts) on
             the same ids, float32 and bfloat16 tables.
-10. quality  GraphApplication on a small two-block graph on the card:
-            DeepWalk (the unfused trust-clip route) and LINE on the edge
-            route (the small-table route, the trust clip on the
-            scatter-add): link-prediction AUC > 0.9. The offline math
+12. quality  GraphApplication on a small two-block graph on the card:
+            DeepWalk (the unfused trust-clip route), node2vec (p 4, q 2,
+            the same route), the classic step (GRAPHVITE_NEG_SHARING=0) and
+            LINE on the edge route (the small-table route, the trust clip
+            on the scatter-add): link-prediction AUC > 0.9. The offline math
             fixture (1,000 entities, 20,000 triplets) through
             KnowledgeGraphApplication at config/demo/math.yaml cut to dim
             128 and 500 epochs: filtered tail MRR >= 0.60.
-11. summary the card line, the kernels line, and the result line.
+13. summary the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -150,10 +176,27 @@ FLICKR_V = 1_715_256
 FLICKR_E = 22_613_981
 WIDTH = 256          # the fused (vertex|context) arena row: 2 x dim 128
 DIM = 128
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+@contextlib.contextmanager
+def environ(env):
+    """Set the variables of `env` for the block, then restore each to its
+    earlier value (or remove it)."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def card_line():
@@ -429,7 +472,293 @@ def trace_episode(solver, ms_per_batch, train_kwargs, batches=10):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the edge route
+# phases 4-5: node2vec and the walk layouts
+# ---------------------------------------------------------------------------
+
+NODE2VEC_YOUTUBE = dict(model="node2vec", augmentation_step=5,
+                        random_walk_length=40, p=4.0, q=2.0,
+                        negative_weight=5.0, log_frequency=10**9)
+# the other walk layouts and the classic step, each picked by the
+# reference's switch, DeepWalk at the same shape
+WALK_LAYOUTS = (("pair", {"GRAPHVITE_WALK_STEP": "pair"}),
+                ("multitail", {"GRAPHVITE_WALK_STEP": "multitail"}),
+                ("classic", {"GRAPHVITE_NEG_SHARING": "0"}))
+
+
+def syncs_per_call(fn, calls=3):
+    """Host syncs that `fn` makes, per call, and their call sites: the
+    warnings of torch's sync debug mode (an explicit
+    torch.cuda.synchronize is not one), each attributed to the innermost
+    frame of this checkout and the frame that made the synchronizing call,
+    as {"file:line -> file:line": count}."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = {}
+
+    def show(message, category, filename, lineno, *args, **kwargs):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if os.path.abspath(f.filename).startswith(HERE + os.sep)]
+        site = "%s:%d -> %s:%d" % (
+            os.path.relpath(ours[-1].filename, HERE), ours[-1].lineno,
+            os.path.basename(filename), lineno)
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(sites.values()) / calls, sites
+
+
+def chain_record(solver, seed):
+    """node2vec's chain on the solver's sampler: R, the round cap, the
+    rounds a lockstep loop (the reference's while_loop) runs per step and
+    each live lane's rounds, the chain's time and host syncs, and the
+    chain on the card against the CPU from the same draws (ids, validity
+    and rounds must be equal)."""
+    import torch
+
+    sampler = solver._active_sampler
+    arrays = sampler.arrays()
+    fn = sampler.make_chain_fn()
+    R, C = fn.proposals, fn.rounds_cap
+    W, L = sampler.num_walk, sampler.walk_length
+    dev = solver.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lockstep, lanes = [], []
+    for _ in range(8):
+        draws = (torch.rand(W, generator=gen, device=dev),
+                 torch.rand(W, generator=gen, device=dev),
+                 torch.rand((L - 1, C, 3, R, W), generator=gen, device=dev))
+        chain, valid, rounds = fn(*arrays, draws=draws, with_rounds=True)
+        lockstep.append(rounds.amax(dim=1).double().mean())
+        lanes.append(rounds[rounds > 0].double().mean())
+    cpu = fn(*(a.cpu() for a in arrays), draws=tuple(d.cpu() for d in draws),
+             with_rounds=True)
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip((chain, valid,
+                                                         rounds), cpu))
+    rec = {"proposals": R, "round_cap": C, "walks": W,
+           "membership": sampler.membership,
+           "table_bytes": sampler.memb.numel() * 4,
+           "lockstep_rounds_per_step": float(torch.stack(lockstep).mean()),
+           "lane_rounds_per_step": float(torch.stack(lanes).mean()),
+           "capped_lanes": int((rounds == C).sum()),
+           "chain_equal_card_cpu": equal}
+    rec["chain_ms"] = cuda_ms(lambda: fn(*arrays, draws=draws), reps=10)
+    rec["chain_syncs"], rec["chain_sync_sites"] = syncs_per_call(
+        lambda: fn(*arrays, draws=draws))
+    return rec
+
+
+def loop_syncs_per_batch(solver, seed):
+    """Host syncs of the episode loop's body, per batch, and their call
+    sites: one batch drawn by the solver's sampler and trained by its step
+    on a packed copy of the state (torch's sync debug mode)."""
+    import torch
+    from graphvite_tpu_torch.ops import steps
+
+    gen = torch.Generator(device=solver.device).manual_seed(seed)
+    state = steps.banded_fused_pack(solver.state)
+    arrays = solver._active_sampler.arrays()
+    step, neg = solver._active_step_fn, solver._active_neg_state
+
+    def one_batch():
+        *ids, mask = solver._active_sample_fn(*arrays, generator=gen)
+        step(state, *ids, 1e-3, *neg, mask=mask, generator=gen)
+
+    with torch.no_grad():
+        return syncs_per_call(one_batch)
+
+
+def node2vec_path(graph, batches, seed):
+    """node2vec through GraphApplication at the node2vec_youtube.yaml
+    shape: the cuckoo table's host build (timed alone, then the solver's
+    own), 5 warm-up batches, the measured call with the launch counts set
+    to 0 just before and read just after, host syncs per batch, a trace,
+    the chain record, and one batch replayed on the card against the CPU
+    (replay_batch: the fused arena). Returns (record, update ids,
+    problems)."""
+    import torch
+    from graphvite_tpu_torch import GraphApplication
+    from graphvite_tpu_torch.ops.device_sampler import DeviceWalkSampler
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table = DeviceWalkSampler._build_cuckoo(graph)
+    cuckoo_s = time.perf_counter() - t0
+    if table is None:
+        raise AssertionError("the cuckoo table was not built")
+    del table
+    app = GraphApplication(dim=DIM)
+    app.graph = graph
+    app.build(optimizer=SGD_YOUTUBE, num_negative=1, batch_size=100000,
+              episode_size=25)
+    solver = app.solver
+    t0 = time.perf_counter()
+    app.train(num_epoch=5 * 100000 / graph.num_edge, **NODE2VEC_YOUTUBE)
+    warm_s = time.perf_counter() - t0
+    eff = solver.effective_batch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    app.train(num_epoch=batches * eff / graph.num_edge + 1e-9,
+              **NODE2VEC_YOUTUBE)
+    elapsed = time.perf_counter() - t0          # train() ends synchronized
+    counts = read_launches()
+    run = solver.batch_id
+    # as in the main phase: the loss moves slowly from ln 2 (context rows
+    # start at zero), so compare the first and last tenth in float64
+    losses = solver.batch_losses.double()
+    k = max(run // 10, 5)
+    vf = valid_fraction(solver)
+    sampler = solver._active_sampler
+    syncs, sync_sites = loop_syncs_per_batch(solver, seed)
+    rec = {"batches": run, "effective_batch": eff,
+           "cuckoo_build_s": cuckoo_s, "warmup_s": warm_s,
+           "elapsed_s": elapsed, "ms_per_batch": elapsed / run * 1e3,
+           "pair_slots_per_s": run * eff / elapsed, "valid_fraction": vf,
+           "valid_pairs_per_s": run * eff * vf / elapsed,
+           "launches": counts,
+           "host_syncs_per_batch": syncs, "host_sync_sites": sync_sites,
+           "fused_arena": solver._banded_fused, "biased": sampler.biased,
+           "p": sampler.p, "q": sampler.q,
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": all(bool(torch.isfinite(t.float()).all())
+                                for t in solver.state["tables"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    problems = []
+    if not (rec["biased"] and (rec["p"], rec["q"]) == (4.0, 2.0)
+            and rec["fused_arena"]):
+        problems.append("not the biased sampler on the fused arena: %r"
+                        % rec)
+    if counts["scatter_add_"] != run or sum(counts.values()) != run:
+        problems.append("kernel launches %r for %d batches" % (counts, run))
+    if not rec["losses_finite"] or not rec["tables_finite"]:
+        problems.append("losses or tables not finite")
+    if not rec["loss_last"] < rec["loss_first"]:
+        problems.append("losses not falling")
+    rec["trace"] = trace_episode(solver, rec["ms_per_batch"],
+                                 NODE2VEC_YOUTUBE)
+    rec["chain"] = chain_record(solver, seed)
+    if sampler.membership != "cuckoo":
+        problems.append("membership %r, not the cuckoo table"
+                        % sampler.membership)
+    if not rec["chain"]["chain_equal_card_cpu"]:
+        problems.append("chains differ: %r" % rec["chain"])
+    rep, ids, bad = replay_batch(solver, seed + 1)
+    rec["replay"] = rep
+    problems += ["replay: " + p for p in bad]
+    return rec, ids, problems
+
+
+def replay_walk_step(solver, seed):
+    """One batch of a separate-table walk step (pair, multitail, classic)
+    on the card and on the CPU from the same tables, batch and draws.
+    Tolerances of the CPU tests: tables rtol 3e-4, atol 3e-6; loss rtol
+    2e-5. Returns (record, problems)."""
+    import torch
+
+    dev = solver.device
+    step, neg = solver._active_step_fn, solver._active_neg_state
+    step = getattr(step, "base", step)       # one micro-step's chunk
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    *ids, mask = solver._active_sample_fn(*solver._active_sampler.arrays(),
+                                          generator=gen)
+    shape = (step.pool_shape if hasattr(step, "pool_shape")
+             else step.draw_shape(ids[0].shape[0]))
+    draws = tuple(torch.rand(shape, generator=gen, device=dev)
+                  for _ in range(2))
+    lr = solver.optimizer.schedule_lr(0, solver.num_batch)
+    tables = [t.clone() for t in solver.state["tables"]]
+    cpu_tables = [t.to("cpu", copy=True) for t in tables]
+    with torch.no_grad():
+        new, loss = step({"tables": tuple(tables), "moments": ((), ())},
+                         *ids, lr, *neg, mask=mask, draws=draws)
+        cpu_new, cpu_loss = step(
+            {"tables": tuple(cpu_tables), "moments": ((), ())},
+            *(i.cpu() for i in ids), lr, *(t.cpu() for t in neg),
+            mask=mask.cpu(), draws=tuple(d.cpu() for d in draws))
+    diff = 0.0
+    ok = True
+    for got, want in zip(new["tables"], cpu_new["tables"]):
+        want = want.to(dev)
+        d = (got - want).abs()
+        ok = ok and bool((d <= 3e-6 + 3e-4 * want.abs()).all())
+        diff = max(diff, float(d.max()))
+    rec = {"rows": int(ids[0].numel()), "loss": float(loss),
+           "cpu_loss": float(cpu_loss), "max_abs_diff": diff,
+           "tolerance": "rtol 3e-4, atol 3e-6"}
+    problems = []
+    if not ok:
+        problems.append("card and CPU disagree on a batch: %r" % rec)
+    if abs(rec["loss"] - rec["cpu_loss"]) > 2e-5 * abs(rec["cpu_loss"]):
+        problems.append("card loss vs CPU loss: %r" % rec)
+    return rec, problems
+
+
+def walk_layout_path(graph, name, env, batches, seed):
+    """DeepWalk at the deepwalk_youtube.yaml shape on one more walk layout
+    (its switch set in the environment for the run): 5 warm-up batches,
+    the measured call (launch counts set to 0 just before, read just
+    after: kernel 1 on the vertex and the context table, per micro-step),
+    a trace of 5 batches and one replay. Returns (record, problems)."""
+    import torch
+    from graphvite_tpu_torch.solver import GraphSolver
+
+    with environ(env):
+        solver = GraphSolver(dim=DIM)
+        solver.build(graph, optimizer=SGD_YOUTUBE, num_negative=1,
+                     batch_size=100000, episode_size=25)
+        solver.train(num_epoch=5 * 100000 / graph.num_edge,
+                     **DEEPWALK_YOUTUBE)
+        eff = solver.effective_batch
+        reset_launches()
+        t0 = time.perf_counter()
+        solver.train(num_epoch=batches * eff / graph.num_edge + 1e-9,
+                     **DEEPWALK_YOUTUBE)
+        elapsed = time.perf_counter() - t0
+        counts = read_launches()
+        run = solver.batch_id
+        vf = valid_fraction(solver)
+        step = solver._active_step_fn
+        micro = solver._batch_plan()[2]
+        rec = {"layout": name, "env": env, "batches": run,
+               "effective_batch": eff, "micro_steps": micro,
+               "step": getattr(step, "base", step).__qualname__.split(".")[0],
+               "ms_per_batch": elapsed / run * 1e3,
+               "pair_slots_per_s": run * eff / elapsed,
+               "valid_fraction": vf,
+               "valid_pairs_per_s": run * eff * vf / elapsed,
+               "launches": counts,
+               "losses_finite": bool(torch.isfinite(
+                   solver.batch_losses).all())}
+        rec["trace"] = trace_episode(solver, rec["ms_per_batch"],
+                                     DEEPWALK_YOUTUBE, batches=5)
+        rep, problems = replay_walk_step(solver, seed)
+        rec["replay"] = rep
+    want = {n: (2 * micro * run if n == "scatter_add_" else 0)
+            for n in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if not rec["losses_finite"]:
+        problems.append("losses not finite")
+    return rec, problems
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the edge route
 # ---------------------------------------------------------------------------
 
 LINE_FLICKR = dict(model="LINE", augmentation_step=1, negative_weight=5.0,
@@ -599,7 +928,7 @@ def replay_edge_batch(solver, seed):
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: knowledge graphs
+# phases 7 and 8: knowledge graphs
 # ---------------------------------------------------------------------------
 
 FB15K_ENT = 14951            # prime: multiplicative maps are bijections
@@ -1098,7 +1427,7 @@ def math_quality():
 
 
 # ---------------------------------------------------------------------------
-# phase 7: each kernel against its plain version
+# phase 11: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def check_kernel(ids, dtype, gen):
@@ -1389,11 +1718,11 @@ def front_end_breakdown(name, call, calls=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: quality
+# phase 12: quality
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
-# phases vis and vis_big: LargeVis
+# phases 9 and 10 (vis, vis_big): LargeVis
 # ---------------------------------------------------------------------------
 
 MNIST_N, MNIST_DIMS, MNIST_CLASSES = 70_000, 784, 10
@@ -1756,26 +2085,31 @@ def two_blocks(n=60, seed=0):
     return edges
 
 
-def quality(model="DeepWalk", device=None):
+def quality(model="DeepWalk", device=None, classic=False):
     """Two-block link prediction and node classification through
-    GraphApplication: DeepWalk (augmentation 2, the unfused trust-clip
-    walk route) or LINE (augmentation 1, the edge route on a table below
-    the dense-update size: the trust clip on the scatter-add), with the
-    protocols of tests/test_solver.py."""
+    GraphApplication: DeepWalk or node2vec (p 4, q 2; augmentation 2, the
+    unfused trust-clip walk route), or LINE (augmentation 1, the edge route
+    on a table below the dense-update size: the trust clip on the
+    scatter-add), with the protocols of tests/test_solver.py. `classic`:
+    the classic K-draw step (GRAPHVITE_NEG_SHARING=0) on walk pairs."""
     from graphvite_tpu_torch import GraphApplication
 
     edges = two_blocks()
     app = GraphApplication(dim=16, device=device)
     app.load(edge_list=edges)
-    if model == "DeepWalk":
+    if model in ("DeepWalk", "node2vec"):
         app.build(optimizer={"type": "SGD", "lr": 0.1, "weight_decay": 5e-3},
                   num_negative=1, batch_size=2048, episode_size=8)
         kw = dict(num_epoch=2000, augmentation_step=2, random_walk_length=8)
+        if model == "node2vec":
+            kw.update(p=4.0, q=2.0)
     else:
         app.build(num_negative=2, batch_size=512, episode_size=8)
         kw = dict(num_epoch=1000, augmentation_step=1)
     reset_launches()
-    app.train(model=model, negative_weight=1.0, log_frequency=10**9, **kw)
+    with environ({"GRAPHVITE_NEG_SHARING": "0"} if classic else {}):
+        app.train(model=model, negative_weight=1.0, log_frequency=10**9,
+                  **kw)
     launches = read_launches()
     g = app.graph
     rng = np.random.default_rng(1)
@@ -1793,10 +2127,11 @@ def quality(model="DeepWalk", device=None):
     nc = app.evaluate("node classification", X=labels, Y=classes,
                       portions=(0.5,), patience=20)
     s = app.solver
-    return {"model": model, "auc": auc, "micro_f1": nc["micro-F1@50%"],
-            "fused_arena": s._banded_fused,
+    return {"model": model, "classic": classic, "auc": auc,
+            "micro_f1": nc["micro-F1@50%"], "fused_arena": s._banded_fused,
             "sweeps": [s._sweep_gather, s._sweep_scatter, s._sweep_context],
-            "batches": s.batch_id, "launches": launches}
+            "batches": s.batch_id, "micro_steps": s._batch_plan()[2],
+            "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1864,6 +2199,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--main-batches", type=int, default=1000)
+    ap.add_argument("--node2vec-batches", type=int, default=1000)
+    ap.add_argument("--layout-batches", type=int, default=50)
     ap.add_argument("--edge-batches", type=int, default=1000)
     ap.add_argument("--kg-batches", type=int, default=100)
     ap.add_argument("--kg-big-batches", type=int, default=100)
@@ -1935,13 +2272,23 @@ def main():
     if not phase("build", build):
         return 1
 
+    shared = {}
+
+    def youtube_graph():
+        """The Youtube-sized graph of the walk phases, built once."""
+        if "youtube" not in shared:
+            t0 = time.perf_counter()
+            graph = power_law_graph(YOUTUBE_V, YOUTUBE_E, args.seed)
+            log("graph: %d vertices, %d input edges, %d directed, built in "
+                "%.1f s" % (graph.num_vertex, graph.num_edge,
+                            graph.num_directed_edge,
+                            time.perf_counter() - t0))
+            shared["youtube"] = graph
+        return shared["youtube"]
+
     # 3. main path (DeepWalk)
     def main_path():
-        t0 = time.perf_counter()
-        graph = power_law_graph(YOUTUBE_V, YOUTUBE_E, args.seed)
-        log("graph: %d vertices, %d input edges, %d directed, built in %.1f s"
-            % (graph.num_vertex, graph.num_edge, graph.num_directed_edge,
-               time.perf_counter() - t0))
+        graph = youtube_graph()
         out = {"batch_ids": []}
         problems = []
 
@@ -1988,7 +2335,34 @@ def main():
         return out
     phase("main", main_path)
 
-    # 4. the edge route (LINE)
+    # 4. node2vec at the node2vec_youtube.yaml shape
+    def node2vec_phase():
+        rec, ids, problems = node2vec_path(youtube_graph(),
+                                           args.node2vec_batches, args.seed)
+        log("   node2vec:", json.dumps(rec))
+        torch.cuda.empty_cache()
+        if problems:
+            raise AssertionError("; ".join(problems))
+        return {"record": rec, "ids": ids}
+    phase("node2vec", node2vec_phase)
+
+    # 5. the pair and multitail layouts and the classic step (DeepWalk)
+    def layouts_phase():
+        out, problems = {}, []
+        for name, env in WALK_LAYOUTS:
+            rec, bad = walk_layout_path(youtube_graph(), name, env,
+                                        args.layout_batches, args.seed + 2)
+            log("   %s:" % name, json.dumps(rec))
+            out[name] = rec
+            problems += ["%s: %s" % (name, p) for p in bad]
+            torch.cuda.empty_cache()
+        if problems:
+            raise AssertionError("; ".join(problems))
+        return out
+    phase("layouts", layouts_phase)
+    shared.clear()
+
+    # 6. the edge route (LINE)
     def edge_path():
         t0 = time.perf_counter()
         graph = power_law_graph(FLICKR_V, FLICKR_E, args.seed)
@@ -2032,7 +2406,7 @@ def main():
         return out
     phase("edge", edge_path)
 
-    # 5. knowledge graphs: RotatE at the rotate_fb15k.yaml shape
+    # 7. knowledge graphs: RotatE at the rotate_fb15k.yaml shape
     def kg_path():
         from graphvite_tpu_torch import KnowledgeGraphApplication
 
@@ -2072,7 +2446,7 @@ def main():
     phase("kg", kg_path)
     torch.cuda.empty_cache()
 
-    # 6. knowledge graphs: RotatE at the rotate_wikidata5m.yaml shape
+    # 8. knowledge graphs: RotatE at the rotate_wikidata5m.yaml shape
     def kg_big_path():
         from graphvite_tpu_torch import KnowledgeGraphApplication
 
@@ -2126,15 +2500,15 @@ def main():
     phase("kg_big", kg_big_path)
     torch.cuda.empty_cache()
 
-    # 7. LargeVis at the largevis_mnist_2d.yaml shape (exact KNN)
+    # 9. LargeVis at the largevis_mnist_2d.yaml shape (exact KNN)
     phase("vis", lambda: vis_phase(args.seed))
     torch.cuda.empty_cache()
 
-    # 8. LargeVis at the largevis_imagenet.yaml shape (IVF KNN)
+    # 10. LargeVis at the largevis_imagenet.yaml shape (IVF KNN)
     phase("vis_big", lambda: vis_big_phase(args.seed))
     torch.cuda.empty_cache()
 
-    # 9. each kernel against its plain version, on the paths' own ids
+    # 11. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         cases = {"scatter_add": [], "gather_sorted": [],
@@ -2144,6 +2518,9 @@ def main():
                 rec = check_kernel(ids, dtype, gen)
                 log("   scatter_add", json.dumps(rec))
                 cases["scatter_add"].append(rec)
+        rec = check_kernel(results["node2vec"]["ids"], torch.float32, gen)
+        log("   scatter_add (node2vec batch)", json.dumps(rec))
+        cases["scatter_add"].append(rec)
         e = results["edge"]["ids"]
         heads, ctx = e["heads"], e["ctx"]
         rec = check_sorted_add(heads, gen)
@@ -2229,28 +2606,32 @@ def main():
             log("   scatter_update_ (vis ids, W 8)", json.dumps(rec))
             cases["scatter_update"].append(rec)
         return cases
-    needed = ("main", "edge", "kg", "kg_big", "vis")
+    needed = ("main", "node2vec", "edge", "kg", "kg_big", "vis")
     if all(name in results for name in needed):
         phase("kernel", kernel)
     else:
         failures.append("kernel (needs the paths' ids)")
 
-    # 10. quality
+    # 12. quality
     def quality_phase():
         out = {}
-        for model in ("DeepWalk", "LINE"):
-            q = quality(model)
-            log("   two-block %s on the card:" % model, json.dumps(q))
+        for name, model, classic in (("DeepWalk", "DeepWalk", False),
+                                     ("LINE", "LINE", False),
+                                     ("node2vec", "node2vec", False),
+                                     ("classic", "DeepWalk", True)):
+            q = quality(model, classic=classic)
+            log("   two-block %s on the card:" % name, json.dumps(q))
             if not q["auc"] > 0.9:
                 raise AssertionError("%s link-prediction AUC %.4f <= 0.9"
-                                     % (model, q["auc"]))
+                                     % (name, q["auc"]))
             others = sum(q["launches"].values()) - q["launches"]["scatter_add_"]
-            if (q["launches"]["scatter_add_"] != 2 * q["batches"] or others
+            if (q["launches"]["scatter_add_"]
+                    != 2 * q["micro_steps"] * q["batches"] or others
                     or q["fused_arena"] or any(q["sweeps"])):
                 raise AssertionError("the small-table route did not launch "
-                                     "the scatter-add twice per batch: %r"
+                                     "the scatter-add twice per step: %r"
                                      % q)
-            out[model] = q
+            out[name] = q
         q = math_quality()
         log("   math fixture, RotatE on the card:", json.dumps(q))
         if not q["MRR"] >= 0.60 or not q["loss_last"] < q["loss_first"]:
@@ -2264,14 +2645,18 @@ def main():
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 11. summary: the card line, the kernels line, the result line
+    # 13. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
     k1 = {"deepwalk_float32": main_rec["launches"],
-          "edge_float32": (edge["float32"]["launches"]["scatter_add_"]
-                           + edge["float32"]["launches"]
-                           ["scatter_add_sorted_"])}
+          "node2vec_float32": (results["node2vec"]["record"]["launches"]
+                               ["scatter_add_"])}
+    for name, _ in WALK_LAYOUTS:
+        k1["walk_" + name] = (results["layouts"][name]["launches"]
+                              ["scatter_add_"])
+    k1["edge_float32"] = (edge["float32"]["launches"]["scatter_add_"]
+                          + edge["float32"]["launches"]["scatter_add_sorted_"])
     kg_big = results["kg_big"]
     for name in ("float32", "bfloat16"):
         k1["kg_big_" + name] = kg_big[name]["launches"]["scatter_add_"]

@@ -153,6 +153,33 @@ class Graph:
     def num_directed_edge(self):
         return self.edge_heads.size
 
+    @property
+    def degrees(self):
+        """Out-degree of every vertex (CSR row lengths)."""
+        return np.diff(self.indptr)
+
+    def neighbors(self, u):
+        """(neighbor ids, edge weights) of vertex u, in CSR order."""
+        lo, hi = self.indptr[u], self.indptr[u + 1]
+        return self.indices[lo:hi], self.csr_weights[lo:hi]
+
+    def info(self):
+        return ("#vertex: %d, #edge: %d\nas undirected: %s, normalization: %s"
+                % (self.num_vertex, self.num_edge,
+                   "yes" if self.as_undirected else "no",
+                   "yes" if self.normalization else "no"))
+
+    def save(self, file_name, weighted=True, anonymous=False):
+        """Write the directed edge list, one "head\ttail[\tweight]" line
+        per edge, by name (by id when `anonymous`)."""
+        with open(file_name, "w") as f:
+            for u, v, w in zip(self.edge_heads, self.edge_tails,
+                               self.edge_weights):
+                a = str(u) if anonymous else self.id2name[u]
+                b = str(v) if anonymous else self.id2name[v]
+                f.write("%s\t%s\t%f\n" % (a, b, w) if weighted
+                        else "%s\t%s\n" % (a, b))
+
     def __repr__(self):
         return "Graph<%d vertices, %d edges>" % (self.num_vertex, self.num_edge)
 

@@ -1,4 +1,5 @@
-"""ctypes loader for the native host alias construction (sampler.cpp).
+"""ctypes loader for the native host alias construction and the cuckoo
+membership table of node2vec's walks (sampler.cpp).
 
 Compiled with g++ at first use into a per-user cache directory of the
 port's own (`~/.cache/graphvite_tpu_torch`, or GRAPHVITE_TPU_TORCH_CACHE_DIR).
@@ -67,6 +68,9 @@ def load():
     lib.gv_build_alias.restype = ctypes.c_int
     lib.gv_build_alias_packed.argtypes = [pd, pi, i64, pd, pi]
     lib.gv_build_alias_packed.restype = ctypes.c_int
+    p32 = ctypes.POINTER(ctypes.c_int32)
+    lib.gv_build_cuckoo.argtypes = [p32, p32, i64, p32, i64]
+    lib.gv_build_cuckoo.restype = ctypes.c_int
     return lib
 
 
@@ -98,3 +102,17 @@ def build_alias_packed(weights, offsets):
     if rc != 0:
         raise ValueError("alias table requires positive finite weights")
     return prob, alias
+
+
+def build_cuckoo(us, vs, num_buckets):
+    """Bucketized cuckoo table over the directed edges (us[i] -> vs[i]),
+    contiguous int32 arrays: the [num_buckets, 4] int32 table (bucket b
+    holds up to two (u, v) pairs, empty slots -1), or None when an
+    insertion failed at this size (the caller doubles num_buckets and
+    retries). Its hash is ops/device_sampler.py:_cuckoo_buckets, bit for
+    bit."""
+    table = np.full((num_buckets, 4), -1, dtype=np.int32)
+    rc = load().gv_build_cuckoo(
+        _ptr(us, ctypes.c_int32), _ptr(vs, ctypes.c_int32), us.shape[0],
+        _ptr(table, ctypes.c_int32), num_buckets)
+    return table if rc == 0 else None

@@ -3,14 +3,16 @@ shared-negative-pool steps, the knowledge-graph steps and the LargeVis
 steps of graphvite_tpu/ops/steps.py).
 
 Each step takes a state dict {"tables": (...), "moments": (...)} and one
-batch, samples a shared negative pool per sample group, computes
-hand-derived gradients (no autograd) and applies the row updates. Two
-batch layouts: whole walks (chain [B, L+1] plus a pair mask [B, L+1, T];
-the banded steps, augmentation_step >= 2) and edges (heads [B], tails [B],
-mask [B]; `make_graph_pool_step`, augmentation_step 1). Table updates go
-through the hand-written CUDA kernels on the card (ops/scatter.py,
-ops/gather.py). Tables are updated in place where the update is a
-scatter-add, and by the moment kernel.
+batch, samples its negatives (a shared pool per sample group, or K draws
+per sample in the classic steps), computes hand-derived gradients (no
+autograd) and applies the row updates. Node-embedding batch layouts: whole
+walks (chain [B, L+1] plus a pair mask [B, L+1, T]; the banded steps),
+walk positions (heads [B], tails [B, T], mask [B, T];
+`make_graph_pool_multitail_step`) and pairs (heads [B], tails [B], mask
+[B]; `make_graph_pool_step` for edges and walk pairs, and the classic
+`make_graph_train_step`). Table updates go through the hand-written CUDA
+kernels on the card (ops/scatter.py, ops/gather.py). Tables are updated
+in place where the update is a scatter-add, and by the moment kernel.
 
 Knowledge-graph steps take (heads, tails, rels) triplets over a tied entity
 table and a relation table: the classic per-draw step
@@ -21,7 +23,7 @@ classic K-draw step (`make_vis_train_step`) and the shared-pool step
 (`make_vis_pool_step`).
 
 Random draws: the pool draws (u1, u2) [G, M] are optional inputs
-(`draws`; [B, K] for the classic LargeVis step; the knowledge-graph steps
+(`draws`; [B, K] for the classic graph and LargeVis steps; the knowledge-graph steps
 take their candidate ids as `negatives`); otherwise they come from the
 `generator` on the tables' device.
 
@@ -58,6 +60,84 @@ def _mask_ids(ids, mask, sentinel):
     return torch.where(dead, torch.full_like(ids, sentinel), ids)
 
 
+def _logistic_terms(logits, num_negative, negative_weight, mask=None):
+    """Per-subsample gradient (dL/dlogit), weight and per-sample loss for
+    the layout [negatives..., positive] along the last axis; `mask` [B]
+    zeroes padded sample slots."""
+    k = num_negative
+    prob = torch.sigmoid(logits)
+    label = torch.zeros_like(logits)
+    label[..., k:] = 1.0
+    gradient = prob - label
+    weight = torch.where(label > 0, 1.0, float(negative_weight)).to(
+        logits.dtype)
+    if mask is not None:
+        gradient = gradient * mask[:, None]
+        weight = weight * mask[:, None]
+    # stable logistic loss: -log sigmoid(z) = softplus(-z),
+    # -log(1 - sigmoid(z)) = softplus(z)
+    loss = torch.where(label > 0, F.softplus(-logits), F.softplus(logits))
+    sample_loss = (weight * loss).sum(dim=-1) / (1.0 + k * negative_weight)
+    return gradient, weight, sample_loss
+
+
+def make_graph_train_step(model, opt: Optimizer, num_negative: int,
+                          negative_weight: float, trust=None):
+    """The classic node-embedding step (GRAPHVITE_NEG_SHARING=0): K
+    negative draws per sample from the degree^0.75 alias sampler, scored
+    with the model's <vertex, context>. The vertex row gets K+1 touches
+    (accumulated before its update), the tail and the negative rows one
+    each. `trust`: the SGD displacement clip of optim.apply_row_updates.
+
+    step(state, heads [B], tails [B], lr, *neg_state, mask=None,
+    generator=None, draws=None) -> (state, loss); `draws` = (u1, u2)
+    [B, K] negative-sampler uniforms (`step.draw_shape(B)`)."""
+    k = num_negative
+
+    def step(state, heads, tails, lr, *neg_state, mask=None,
+             generator=None, draws=None):
+        vertex, context = state["tables"]
+        v_moms, c_moms = state["moments"]
+        b = heads.shape[0]
+        dev = vertex.device
+        if draws is None:
+            draws = (torch.rand((b, k), generator=generator, device=dev),
+                     torch.rand((b, k), generator=generator, device=dev))
+        negs = device_sample(*neg_state, *draws)             # [B, K]
+
+        v = vertex[heads].float()                            # [B, D]
+        ctx_ids = torch.cat([negs, tails[:, None].long()], dim=1)
+        c = context[ctx_ids].float()                         # [B, K+1, D]
+        logits = model.score(v[:, None, :], c)               # [B, K+1]
+        gradient, weight, sample_loss = _logistic_terms(
+            logits, k, negative_weight, mask)
+
+        gv, gc = model.backward(v[:, None, :], c, gradient)
+        w = weight[..., None]
+        wd = opt.weight_decay
+        per_touch_v = w * (gv + wd * v[:, None, :])          # [B, K+1, D]
+        reg_v = per_touch_v.sum(dim=1)
+        reg_c = w * gc + wd * w * c
+        v_counts = v_sqs = None
+        if opt.num_moment > 0:
+            v_counts = torch.full((b,), k + 1.0, device=dev)
+            v_sqs = (per_touch_v * per_touch_v).sum(dim=1)
+        new_vertex, new_v_moms = apply_row_updates(
+            vertex, v_moms, _mask_ids(heads.long(), mask, vertex.shape[0]),
+            reg_v, opt, lr, entry_counts=v_counts, entry_sqs=v_sqs,
+            trust=trust)
+        new_context, new_c_moms = apply_row_updates(
+            context, c_moms,
+            _mask_ids(ctx_ids, mask, context.shape[0]).reshape(-1),
+            reg_c.reshape(b * (k + 1), -1), opt, lr, trust=trust)
+        new_state = {"tables": (new_vertex, new_context),
+                     "moments": (new_v_moms, new_c_moms)}
+        return new_state, _mean_sample_loss(sample_loss, mask)
+
+    step.draw_shape = lambda b: (b, k)
+    return step
+
+
 def graph_pool_groups(batch_size: int, target_group: int = 2048,
                       lo: int = 8, hi: int = 256):
     """Pool-group count for a batch: bound the per-group sample count so a
@@ -78,7 +158,9 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
                          sweep_context: bool = False,
                          sweep_gather: bool = False,
                          sort_heads: bool = False):
-    """Shared-negative-pool step over a batch of edges (the edge route).
+    """Shared-negative-pool step over a batch of pairs: edges (the edge
+    route) or walk pairs (the pair layout, GRAPHVITE_WALK_STEP=pair or
+    GRAPHVITE_MULTITAIL=0, with the sweeps off).
 
     Each of `pool_groups` sample groups draws ONE pool of `pool_size`
     negative rows, and every sample of the group scores against the whole
@@ -218,6 +300,114 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
             new_context, new_c_moms = apply_row_updates(
                 context, c_moms, ctx_ids, ctx_grads, opt, lr,
                 entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
+        new_state = {"tables": (new_vertex, new_context),
+                     "moments": (new_v_moms, new_c_moms)}
+        return new_state, mean_loss
+
+    step.pool_shape = (G, M)   # the shape of each of the `draws`
+    return step
+
+
+def make_graph_pool_multitail_step(opt: Optimizer, num_negative: int,
+                                   negative_weight: float, num_tail: int,
+                                   pool_size: int = 128,
+                                   pool_groups: int = 8,
+                                   trust: float = 0.25):
+    """Shared-negative-pool step over position-major walk samples
+    (GRAPHVITE_WALK_STEP=multitail): each sample is one walk position
+    (head) with `num_tail` augmentation tails. The exact regrouping of
+    make_graph_pool_step over the expanded (head, tail) pairs (same
+    gradients, moment counts and squares), but the head row is gathered
+    and updated once for its T pairs and the pool is scored once per head.
+    Updates go through optim.apply_row_updates (kernel 1 on SGD; kernel 2
+    for moment rules on tables above DENSE_UPDATE_ELEMS).
+
+    step(state, heads [B], tails [B, T], lr, *neg_state, mask [B, T],
+    generator=None, draws=None) -> (state, loss); B % pool_groups == 0;
+    `draws` = (u1, u2) [G, M] pool uniforms (`step.pool_shape`)."""
+    k = num_negative
+    M = int(pool_size)
+    G = int(pool_groups)
+    T = int(num_tail)
+    neg_w = float(negative_weight) * k / M
+
+    def step(state, heads, tails, lr, *neg_state, mask=None,
+             generator=None, draws=None):
+        vertex, context = state["tables"]
+        v_moms, c_moms = state["moments"]
+        b = heads.shape[0]
+        if b % G:
+            raise ValueError("batch %d must divide into %d pool groups"
+                             % (b, G))
+        bg = b // G
+        dev = vertex.device
+        pool_ids = _pool_ids(neg_state, G, M, dev, generator, draws)
+        if mask is None:
+            mask = torch.ones((b, T), dtype=torch.float32, device=dev)
+        m3 = mask.reshape(G, bg, T)
+        cnt = m3.sum(dim=-1)                                 # [G, Bg]
+
+        v = vertex[heads].reshape(G, bg, -1).float()
+        c = context[tails.reshape(-1)].reshape(G, bg, T, -1).float()
+        P = context[pool_ids].float()                        # [G, M, D]
+
+        pos_logit = (v[:, :, None, :] * c).sum(dim=-1)       # [G, Bg, T]
+        neg_logits = torch.bmm(v, P.transpose(1, 2))         # [G, Bg, M]
+        gpos = (torch.sigmoid(pos_logit) - 1.0) * m3
+        # a head's negative gradient: each of its cnt pairs contributes
+        # sigmoid(v.P) * neg_w
+        gneg_u = torch.sigmoid(neg_logits) * neg_w
+        gneg = gneg_u * cnt[..., None]
+        n_active = mask.sum()
+        loss_terms = ((m3 * F.softplus(-pos_logit)).sum(dim=-1)
+                      + cnt * (neg_w * F.softplus(neg_logits).sum(dim=-1)))
+        mean_loss = (loss_terms.sum() / torch.clamp(n_active, min=1.0)
+                     / (1.0 + k * negative_weight))
+
+        wd = opt.weight_decay
+        dv = ((gpos[..., None] * c).sum(dim=2) + torch.bmm(gneg, P)
+              + (wd * (1.0 + M * neg_w)) * cnt[..., None] * v)
+        dc = gpos[..., None] * v[:, :, None, :] + wd * c     # [G,Bg,T,D]
+        dc = torch.where(m3[..., None] > 0, dc, 0.0)
+        dP = (torch.bmm(gneg.transpose(1, 2), v)
+              + wd * (neg_w * bg * T) * P)
+        if trust is not None:
+            dnorm = torch.linalg.vector_norm(dP, dim=-1, keepdim=True)
+            limit = (trust * (torch.linalg.vector_norm(P, dim=-1,
+                                                       keepdim=True)
+                              + 1e-2)
+                     / max(lr, EPSILON))
+            dP = dP * torch.clamp(limit / torch.clamp(dnorm, min=EPSILON),
+                                  max=1.0)
+
+        v_counts = v_sqs = c_counts = c_sqs = None
+        if opt.num_moment > 0:
+            sq_scale = M / max(k, 1)
+            v_counts = ((k + 1.0) * cnt).reshape(b)
+            v_sqs = (((gpos * gpos)[..., None] * (c * c)).sum(dim=2)
+                     + sq_scale * cnt[..., None]
+                     * torch.bmm(gneg_u ** 2, P ** 2)).reshape(b, -1)
+            p_counts = (cnt.sum(dim=1)[:, None] * (k / M)).expand(G, M)
+            c_counts = torch.cat([mask.reshape(-1), p_counts.reshape(-1)])
+            p_sqs = sq_scale * torch.bmm(
+                (gneg_u ** 2 * cnt[..., None]).transpose(1, 2), v ** 2)
+            c_sqs = torch.cat([(dc ** 2).reshape(b * T, -1),
+                               p_sqs.reshape(G * M, -1)])
+
+        head_mask = (cnt > 0).reshape(b).float()
+        new_vertex, new_v_moms = apply_row_updates(
+            vertex, v_moms, _mask_ids(heads, head_mask, vertex.shape[0]),
+            dv.reshape(b, -1), opt, lr, entry_counts=v_counts,
+            entry_sqs=v_sqs, trust=trust)
+        flat_tails = _mask_ids(tails.reshape(-1), mask.reshape(-1),
+                               context.shape[0])
+        ctx_ids = torch.cat([flat_tails,
+                             pool_ids.reshape(-1).to(flat_tails.dtype)])
+        ctx_grads = torch.cat([dc.reshape(b * T, -1),
+                               dP.reshape(G * M, -1)])
+        new_context, new_c_moms = apply_row_updates(
+            context, c_moms, ctx_ids, ctx_grads, opt, lr,
+            entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
         new_state = {"tables": (new_vertex, new_context),
                      "moments": (new_v_moms, new_c_moms)}
         return new_state, mean_loss

@@ -6,19 +6,21 @@ runner call that samples and trains a run of batches on the device, with
 losses kept there until log time. The solver runs on CUDA unless the
 caller passes `device="cpu"`.
 
-Ported here, both with a shared negative pool: the edge route
-(augmentation_step 1: edge sampler, pool step, and on the card the sorted
-stream with the sweep kernels) and the banded walk route (above 1: fused
-(vertex|context) SGD arena, or the unfused step for moment optimizers and
-the trust clip on small tables). Knowledge graphs: the classic per-draw
-step and the shared-candidate-pool step over a tied entity table and a
-relation table, positives from the relation-carrying edge sampler.
-LargeVis: the classic K-draw step and the shared-pool step over one padded
-coordinate table, positives from the alias-weighted edge sampler over a
-KNN graph. What later slices port raises NotImplementedError naming its
-ROADMAP item: the edge route's blocked and overflow episodes, node2vec,
-the host sampler backend, host-resident tables and the multi-device
-engines (num_worker > 1).
+Ported here: node embedding on the edge route (augmentation_step 1:
+edge sampler, pool step, and on the card the sorted stream with the sweep
+kernels) and on the walk route (above 1: first-order walks, or node2vec's
+biased walks; the banded layout with its fused (vertex|context) SGD arena
+or the unfused step for moment optimizers and the trust clip on small
+tables, the multitail and the pair layouts), each route also with the
+classic K-draw step. Knowledge graphs: the classic per-draw step and the
+shared-candidate-pool step over a tied entity table and a relation table,
+positives from the relation-carrying edge sampler. LargeVis: the classic
+K-draw step and the shared-pool step over one padded coordinate table,
+positives from the alias-weighted edge sampler over a KNN graph. What
+later slices port raises NotImplementedError naming its ROADMAP item: the
+edge route's blocked and overflow episodes, the host sampler backend and
+the reference's experimental walk opt-ins, host-resident tables and the
+multi-device engines (num_worker > 1).
 """
 from __future__ import annotations
 
@@ -216,7 +218,8 @@ class SolverBase:
         GRAPHVITE_MAX_TOUCH (default 64) touches per row. Sweep-route edge
         batches come in whole 1024-edge stream chunks; banded batches in
         whole walks of T * (L+1) slots, with a power-of-2 walk factor so
-        the pool groups can divide them."""
+        the pool groups can divide them; position-major (multitail)
+        batches in units that T tails divide."""
         if getattr(self, "_pooled_step", False):
             live_bytes = 16 * self.dim * 4
         else:
@@ -229,6 +232,10 @@ class SolverBase:
             # the sweep routes take batches of whole sorted stream chunks:
             # a partial chunk forces the roll, leaving two sorted runs
             unit = 1024
+        T = int(getattr(self, "_multitail_T", 0) or 0)
+        if T > 1:
+            # position-major walk batches split into T tails per head
+            unit = unit * T // math.gcd(unit, T)
         s = int(getattr(self, "_walk_slot_unit", 0) or 0)
         if s > 1:
             mult = 64
@@ -306,6 +313,11 @@ class SolverBase:
         self.batch_losses = torch.cat(all_losses)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def clear(self):
+        """Drop the state (tables and moments), freeing their device
+        memory."""
+        self.state = None
 
     # -- persistence ---------------------------------------------------------
     def table(self, i):
@@ -392,18 +404,18 @@ class GraphSolver(SolverBase):
               positive_reuse=1, negative_sample_exponent=0.75,
               negative_weight=5.0, negative_sharing=auto,
               log_frequency=1000):
-        """Train with a shared negative pool: the edge route for
-        augmentation_step 1, the banded walk route above it.
-        `random_walk_batch_size` and `shuffle_base` serve the host sampler
-        only, and are accepted for parity; so is `negative_sharing`, which
-        the reference reads as auto (on) for every value a caller can pass
-        equal to 0, False included."""
+        """Train on the device, routed as the reference routes it: the
+        edge route for augmentation_step 1, walks above it (node2vec's
+        biased by p and q). The step family: a shared negative pool unless
+        GRAPHVITE_NEG_SHARING=0 picks the classic K-draw step
+        (`negative_sharing` is read as auto for every value a caller can
+        pass equal to 0, False included, as the reference reads it). The
+        pooled walk layout: banded, or GRAPHVITE_WALK_STEP=multitail|pair
+        (GRAPHVITE_MULTITAIL=0: pair). `random_walk_batch_size` and
+        `shuffle_base` serve the host sampler only, and are accepted for
+        parity."""
         if model not in self.get_available_models():
             raise ValueError("unknown model `%s`" % model)
-        if model == "node2vec":
-            raise NotImplementedError(
-                "node2vec (biased walks) is not ported yet "
-                "(ROADMAP queue 1, item 11)")
         num_vertex = self.graph.num_vertex
         num_edge = self.graph.num_edge
         if augmentation_step in (auto, None):
@@ -425,70 +437,124 @@ class GraphSolver(SolverBase):
         neg_state = tuple(torch.as_tensor(a, device=self.device)
                           for a in device_alias_arrays(AliasTable(weights)))
 
-        # shared-negative-pool steps keep ~16 [B, D] tensors live per
-        # sample (the batch plan's memory cap)
-        self._pooled_step = True
+        env = os.environ.get
+        if negative_sharing in (auto, None):
+            negative_sharing = env("GRAPHVITE_NEG_SHARING", "1") != "0"
+        negative_sharing = bool(negative_sharing)
+        # pooled steps keep ~16 [B, D] tensors live per sample, the classic
+        # step [B, K+1, D] chains (the batch plan's memory cap)
+        self._pooled_step = negative_sharing
         # SGD safety net for dense small graphs (optim.apply_row_updates)
-        trust = float(os.environ.get("GRAPHVITE_TRUST", 0.25)) or None
+        trust = float(env("GRAPHVITE_TRUST", 0.25)) or None
         # the sweep routes (the hand-written sorted-id kernels): on by
         # default on the card, GRAPHVITE_SWEEP_SCATTER=1 forces them on any
         # device (the CPU tests), "0" turns them off; they engage only for
-        # tables above the dense-update size, read at call time
-        sweep_env = os.environ.get("GRAPHVITE_SWEEP_SCATTER", "")
+        # pooled steps on tables above the dense-update size, read at call
+        # time
+        sweep_env = env("GRAPHVITE_SWEEP_SCATTER", "")
         sweep_enabled = (sweep_env == "1"
                          or (sweep_env != "0" and self.device.type == "cuda"))
         big = num_vertex * self.dim > _optim.DENSE_UPDATE_ELEMS
         self._sweep_scatter = self._sweep_gather = False
         self._sweep_context = False
         self._banded_fused = False
+        self._multitail_T = self._walk_slot_unit = 0
         if augmentation_step == 1:
             # the context sweep needs no sorted ids, so it has a gate of
             # its own (GRAPHVITE_SWEEP_CONTEXT: "1" forces it, "0" stops it)
-            ctx_env = os.environ.get("GRAPHVITE_SWEEP_CONTEXT", "")
-            sweep_context = big and (ctx_env == "1" or (ctx_env != "0"
-                                                        and sweep_enabled))
+            ctx_env = env("GRAPHVITE_SWEEP_CONTEXT", "")
+            sweep_context = (negative_sharing and big
+                             and (ctx_env == "1" or (ctx_env != "0"
+                                                     and sweep_enabled)))
             self._train_edges(num_epoch, positive_reuse, negative_weight,
-                              neg_state, trust, sweep_enabled and big,
-                              sweep_context, log_frequency)
+                              neg_state, trust,
+                              sweep_enabled and big and negative_sharing,
+                              sweep_context, negative_sharing, log_frequency)
             return
-        if (sweep_enabled and big
-                and os.environ.get("GRAPHVITE_SWEEP_WALK", "0") == "1"):
+        if (negative_sharing and sweep_enabled and big
+                and env("GRAPHVITE_SWEEP_WALK", "0") == "1"):
             raise NotImplementedError(
                 "GRAPHVITE_SWEEP_WALK=1 (walk pairs with the sort_heads sweep "
                 "front end) is not ported yet (ROADMAP queue 1, item 11)")
+        # the pooled walk layouts, exact regroupings of one pair set:
+        # "pair" (one slot per pair), "multitail" (one sample per walk
+        # position with its T tails), "banded" (whole walks, the default)
+        walk_step_mode = env("GRAPHVITE_WALK_STEP", "banded")
+        if env("GRAPHVITE_MULTITAIL", "1") == "0":
+            walk_step_mode = "pair"
+        walk_grouped = (negative_sharing
+                        and walk_step_mode in ("banded", "multitail"))
+        banded = walk_grouped and walk_step_mode == "banded"
+        multitail = walk_grouped and walk_step_mode == "multitail"
         # bidirectional emission mines the reversed pairs of each walk
-        # (first-order walks from stationary starts on an undirected graph
-        # are reversible); GRAPHVITE_WALK_BIDIR=0 restores forward-only
-        walk_bidir = (bool(self.graph.as_undirected)
-                      and os.environ.get("GRAPHVITE_WALK_BIDIR", "1") != "0")
-        num_tail = augmentation_step * (2 if walk_bidir else 1)
-        slot_unit = num_tail * (random_walk_length + 1)
+        # (grouped layouts on an undirected graph); GRAPHVITE_WALK_BIDIR=0
+        # restores forward-only
+        walk_bidir = (walk_grouped and bool(self.graph.as_undirected)
+                      and env("GRAPHVITE_WALK_BIDIR", "1") != "0")
+        num_tail = (augmentation_step * (2 if walk_bidir else 1)
+                    if walk_grouped else 0)
+        for name, where in (("GRAPHVITE_BULK_WALKS", not multitail),
+                            ("GRAPHVITE_BF16_BAND", banded),
+                            ("GRAPHVITE_SWEEP_BANDED", banded)):
+            if where and env(name, "0") == "1":
+                raise NotImplementedError(
+                    "%s=1 (an experimental opt-in of the reference) is not "
+                    "ported yet (ROADMAP queue 1, item 11)" % name)
+        self._multitail_T = num_tail if multitail else 0
         # banded batches come in whole-walk units of T * (L+1) slots
-        self._walk_slot_unit = slot_unit
-        # groups partition WALKS of the micro-batch; bound coherent pair
-        # mass per pool row at a ~2048-slot target
+        self._walk_slot_unit = (num_tail * (random_walk_length + 1)
+                                if banded else 0)
+        # groups scale with the micro-batch, the unit the pool step sees
         pool_batch = self._batch_plan()[1]
-        pool_size = int(os.environ.get("GRAPHVITE_POOL_SIZE", 64))
-        b_walks = max(pool_batch // slot_unit, 1)
-        pool_groups = _steps.graph_pool_groups(
-            b_walks, target_group=max(2048 // slot_unit, 1))
-        # fused (vertex|context) arena: ONE gather + ONE scatter per batch.
-        # SGD only, and only where the trust clip is inactive (its row-norm
-        # logic is per table); packed/unpacked once per episode
-        self._banded_fused = (
-            self.optimizer.num_moment == 0
-            and (trust is None or big)
-            and os.environ.get("GRAPHVITE_FUSED_ARENA", "1") != "0")
-        if self._banded_fused:
-            step_fn = _steps.make_graph_banded_fused_step(
+        # grouped layouts default to 64 pool rows, the pair layout to 128
+        pool_size = int(env("GRAPHVITE_POOL_SIZE",
+                            64 if walk_grouped else 128))
+        if banded:
+            # groups partition WALKS; bound coherent pair mass per pool row
+            # at a ~2048-slot target
+            slot_unit = self._walk_slot_unit
+            pool_groups = _steps.graph_pool_groups(
+                max(pool_batch // slot_unit, 1),
+                target_group=max(2048 // slot_unit, 1))
+            # fused (vertex|context) arena: ONE gather + ONE scatter per
+            # batch. SGD only, and only where the trust clip is inactive
+            # (its row-norm logic is per table); packed/unpacked once per
+            # episode
+            self._banded_fused = (
+                self.optimizer.num_moment == 0
+                and (trust is None or big)
+                and env("GRAPHVITE_FUSED_ARENA", "1") != "0")
+            if self._banded_fused:
+                step_fn = _steps.make_graph_banded_fused_step(
+                    self.optimizer, self.num_negative, float(negative_weight),
+                    augmentation_step, walk_bidir, pool_size=pool_size,
+                    pool_groups=pool_groups)
+            else:
+                step_fn = _steps.make_graph_banded_walk_step(
+                    self.optimizer, self.num_negative, float(negative_weight),
+                    augmentation_step, walk_bidir, pool_size=pool_size,
+                    pool_groups=pool_groups, trust=trust)
+        elif multitail:
+            # groups bound coherent PAIR mass per pool row, so the target
+            # in positions shrinks by the tail count
+            pool_groups = _steps.graph_pool_groups(
+                pool_batch // num_tail,
+                target_group=max(2048 // num_tail, 256))
+            step_fn = _steps.make_graph_pool_multitail_step(
                 self.optimizer, self.num_negative, float(negative_weight),
-                augmentation_step, walk_bidir, pool_size=pool_size,
-                pool_groups=pool_groups)
+                num_tail, pool_size=pool_size, pool_groups=pool_groups,
+                trust=trust)
+        elif negative_sharing:
+            # walk pairs arrive unsorted: the sweeps stay off
+            step_fn = _steps.make_graph_pool_step(
+                self.optimizer, self.num_negative, float(negative_weight),
+                pool_size=pool_size,
+                pool_groups=_steps.graph_pool_groups(pool_batch),
+                trust=trust)
         else:
-            step_fn = _steps.make_graph_banded_walk_step(
-                self.optimizer, self.num_negative, float(negative_weight),
-                augmentation_step, walk_bidir, pool_size=pool_size,
-                pool_groups=pool_groups, trust=trust)
+            step_fn = _steps.make_graph_train_step(
+                GRAPH_MODELS[model], self.optimizer, self.num_negative,
+                float(negative_weight), trust=trust)
 
         demand, budget = self._memory_demand()
         if demand > budget:
@@ -498,12 +564,19 @@ class GraphSolver(SolverBase):
                 demand / 1e9, budget / 1e9)
 
         eff_batch = self._effective_batch()
+        biased = model == "node2vec"
         sampler = self._get_sampler(
-            ("walk", augmentation_step, int(random_walk_length), eff_batch,
-             walk_bidir, str(self.device)),
+            ("walk", augmentation_step, int(random_walk_length), biased,
+             float(p), float(q), eff_batch, multitail, banded, walk_bidir,
+             # the membership structure and the proposal count shape the
+             # built sampler and its chain (node2vec only)
+             env("GRAPHVITE_N2V_CUCKOO", "1"),
+             env("GRAPHVITE_N2V_PROPOSALS", ""),
+             env("GRAPHVITE_CUCKOO_MAX_BYTES", ""), str(self.device)),
             lambda: DeviceWalkSampler.build(
                 self.graph, augmentation_step, random_walk_length, eff_batch,
-                bidir=walk_bidir, device=self.device))
+                biased=biased, p=p, q=q, position_major=multitail,
+                bidir=walk_bidir, banded=banded, device=self.device))
         fused = self._banded_fused
         self._train_loop_device(
             step_fn, sampler, neg_state, num_epoch, positive_reuse,
@@ -522,10 +595,11 @@ class GraphSolver(SolverBase):
 
     def _train_edges(self, num_epoch, positive_reuse, negative_weight,
                      neg_state, trust, use_sweep, use_sweep_ctx,
-                     log_frequency):
+                     negative_sharing, log_frequency):
         """The edge route (augmentation_step 1): positive edges from the
-        device edge sampler through the shared-pool step. `use_sweep`: the
-        sweep gate holds (on, and tables above the dense-update size); the
+        device edge sampler through the shared-pool step, or the classic
+        K-draw step without `negative_sharing`. `use_sweep`: the sweep gate
+        holds (on, pooled, and tables above the dense-update size); the
         vertex-side sweeps then take the sorted stream. `use_sweep_ctx`:
         the context update takes the unsorted sweep."""
         blocked = ("blocked and host-master overflow episodes are not "
@@ -542,7 +616,6 @@ class GraphSolver(SolverBase):
         elif int(self.num_partition) > 1:
             raise NotImplementedError("num_partition=%d: %s"
                                       % (int(self.num_partition), blocked))
-        self._walk_slot_unit = 0      # edge batches: no whole-walk unit
         if use_sweep:
             # a graph too small (or weighted) for the stream has no sorted
             # heads, and a batch below one 1024-edge chunk is rolled into
@@ -558,15 +631,20 @@ class GraphSolver(SolverBase):
         self._sweep_gather = (
             use_sweep
             and os.environ.get("GRAPHVITE_SWEEP_GATHER", "1") != "0")
-        # batches of whole 1024-edge stream chunks on the sweep route
-        # (_batch_plan); pool groups scale with the micro-batch
-        pool_groups = _steps.graph_pool_groups(self._batch_plan()[1])
-        step_fn = _steps.make_graph_pool_step(
-            self.optimizer, self.num_negative, float(negative_weight),
-            pool_size=int(os.environ.get("GRAPHVITE_POOL_SIZE", 128)),
-            pool_groups=pool_groups, trust=trust,
-            sweep_vertex=use_sweep, sweep_context=use_sweep_ctx,
-            sweep_gather=self._sweep_gather)
+        if negative_sharing:
+            # batches of whole 1024-edge stream chunks on the sweep route
+            # (_batch_plan); pool groups scale with the micro-batch
+            pool_groups = _steps.graph_pool_groups(self._batch_plan()[1])
+            step_fn = _steps.make_graph_pool_step(
+                self.optimizer, self.num_negative, float(negative_weight),
+                pool_size=int(os.environ.get("GRAPHVITE_POOL_SIZE", 128)),
+                pool_groups=pool_groups, trust=trust,
+                sweep_vertex=use_sweep, sweep_context=use_sweep_ctx,
+                sweep_gather=self._sweep_gather)
+        else:
+            step_fn = _steps.make_graph_train_step(
+                GRAPH_MODELS[self.model], self.optimizer, self.num_negative,
+                float(negative_weight), trust=trust)
         sampler = self._get_sampler(
             ("edge", use_sweep), lambda: DeviceEdgeSampler.build(
                 self.graph, sort_stream=True if use_sweep else None,

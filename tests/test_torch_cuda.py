@@ -815,3 +815,109 @@ def test_vis_pool_step_on_card_matches_cpu(rule, dtype):
     for a, c in zip(gm, cm):
         scale = c.abs().amax(dim=1, keepdim=True)
         assert bool(((a - c).abs() <= 1e-7 + 1e-5 * scale).all())
+
+
+# ---------------------------------------------------------------------------
+# node2vec's biased walks, the multitail and classic steps
+# ---------------------------------------------------------------------------
+
+def _power_law_graph(v, e, seed):
+    from graphvite_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    a = (rng.random(e) ** 2.5 * v).astype(np.int64)
+    b = (rng.random(e) ** 2.5 * v).astype(np.int64)
+    keep = a != b
+    return Graph().load_edge_list([(str(x), str(y))
+                                   for x, y in zip(a[keep], b[keep])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("membership", ["cuckoo", "search"])
+def test_biased_chain_on_card_matches_cpu(membership, monkeypatch):
+    """node2vec's chain (p 4, q 2, aug 5, walk 40) on the card and on the
+    CPU from the same draws: equal ids, validity and rounds."""
+    from graphvite_tpu_torch.ops.device_sampler import DeviceWalkSampler
+
+    dev = _cuda()
+    monkeypatch.setenv("GRAPHVITE_N2V_CUCKOO",
+                       "1" if membership == "cuckoo" else "0")
+    g = _power_law_graph(20000, 150000, 21)
+    samplers = [DeviceWalkSampler.build(g, 5, 40, 410 * 64, biased=True,
+                                        p=4.0, q=2.0, banded=True,
+                                        bidir=True, device=d)
+                for d in (dev, torch.device("cpu"))]
+    assert samplers[0].membership == membership
+    fn = samplers[1].make_chain_fn()
+    gen = torch.Generator().manual_seed(3)
+    W, L, R, C = 64, 40, fn.proposals, fn.rounds_cap
+    draws = (torch.rand(W, generator=gen), torch.rand(W, generator=gen),
+             torch.rand((L - 1, C, 3, R, W), generator=gen))
+    want = fn(*samplers[1].arrays(), draws=draws, with_rounds=True)
+    got = samplers[0].make_chain_fn()(
+        *samplers[0].arrays(), draws=tuple(d.to(dev) for d in draws),
+        with_rounds=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["SGD", "Adam"])
+@pytest.mark.parametrize("kind", ["multitail", "classic"])
+@pytest.mark.parametrize("big_table", [False, True])
+def test_walk_steps_on_card_match_cpu(rule, kind, big_table, monkeypatch):
+    """The multitail and classic steps on the card against the CPU from
+    the same state, batch and draws; `big_table` shrinks the dense-update
+    size so that SGD takes kernel 1 without the clip and Adam kernel 2.
+    Tolerances of the CPU tests."""
+    from graphvite_tpu_torch.models import GRAPH_MODELS
+
+    dev = _cuda()
+    if big_table:
+        monkeypatch.setattr(optim_mod, "DENSE_UPDATE_ELEMS", 1000)
+    rng = np.random.default_rng(22)
+    V, D, B, T, G, M, K = 4000, 128, 2048, 10, 8, 64, 1
+    opt = Optimizer(type=rule, lr=0.025 if rule == "SGD" else 1e-3,
+                    weight_decay=5e-3)
+    if kind == "multitail":
+        step = steps.make_graph_pool_multitail_step(opt, K, 5.0, T, M, G)
+        tails = (rng.random((B, T)) ** 2 * V).astype(np.int64)
+        mask = (rng.random((B, T)) > 0.1).astype(np.float32)
+        shape = (G, M)
+    else:
+        step = steps.make_graph_train_step(GRAPH_MODELS["node2vec"], opt, K,
+                                           5.0, trust=0.25)
+        tails = (rng.random(B) ** 2 * V).astype(np.int64)
+        mask = (rng.random(B) > 0.1).astype(np.float32)
+        shape = (B, K)
+    heads = (rng.random(B) ** 2 * V).astype(np.int64)
+    u1, u2 = rng.random(shape, np.float32), rng.random(shape, np.float32)
+    packed = np.stack([np.ones(V, np.float32),
+                       np.arange(V, dtype=np.float32)], axis=1)
+    tables = [rng.normal(0, 0.1, (V, D)).astype(np.float32)
+              for _ in range(2)]
+    moms = [[np.abs(rng.normal(0, 1e-3, (V, D))).astype(np.float32)
+             for _ in range(opt.num_moment)] for _ in range(2)]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        def t(a):
+            return torch.tensor(a, device=d)
+        state = {"tables": tuple(t(x) for x in tables),
+                 "moments": tuple(tuple(t(m) for m in g) for g in moms)}
+        before = (scatter.scatter_add_.launches
+                  + scatter.scatter_update_.launches)
+        with torch.no_grad():
+            new, loss = step(state, t(heads), t(tails), opt.lr, t(packed),
+                             mask=t(mask), draws=(t(u1), t(u2)))
+        _sync(d)
+        if d.type == "cuda":
+            launched = (scatter.scatter_add_.launches
+                        + scatter.scatter_update_.launches - before)
+            assert launched == (2 if rule == "SGD" or big_table else 0)
+        out.append(([x.cpu().numpy() for x in new["tables"]]
+                    + [m.cpu().numpy() for g in new["moments"] for m in g],
+                    float(loss)))
+    (gpu, gl), (cpu, cl) = out
+    np.testing.assert_allclose(gl, cl, rtol=2e-5)
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose(a, b, rtol=3e-4, atol=3e-6)

@@ -85,6 +85,7 @@ def test_chain_matches_reference_from_its_draws(weighted, undirected):
                                                 bidir=undirected))
     g = Graph().load_edge_list(edges, as_undirected=undirected)
     samplers.append(port.DeviceWalkSampler.build(g, aug, L, batch,
+                                                 banded=True,
                                                  bidir=undirected))
     s_ref, s_port = samplers
     assert s_ref.uniform == s_port.uniform == (not weighted)
@@ -126,7 +127,7 @@ def _collect(sampler, rounds, seed=0):
 def _build(g, aug, L, walks, bidir):
     T = aug * (2 if bidir else 1)
     return port.DeviceWalkSampler.build(g, aug, L, walks * T * (L + 1),
-                                        bidir=bidir)
+                                        banded=True, bidir=bidir)
 
 
 def test_walk_pairs_are_paths():
@@ -174,7 +175,8 @@ def test_banded_shapes_and_valid_fraction():
     e = rng.integers(0, 500, (4000, 2))
     e = e[e[:, 0] != e[:, 1]]
     g = Graph().load_edge_list([tuple(map(str, x)) for x in e])
-    s = port.DeviceWalkSampler.build(g, 2, 40, 164 * 8, bidir=True)
+    s = port.DeviceWalkSampler.build(g, 2, 40, 164 * 8, banded=True,
+                                     bidir=True)
     ct, ct2, pm = s.make_sample_fn(164 * 8)(
         *s.arrays(), generator=torch.Generator().manual_seed(1))
     assert ct.shape == (8, 41) and pm.shape == (8, 41, 4)

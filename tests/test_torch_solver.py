@@ -243,11 +243,16 @@ def test_linear_classification_matches_reference():
         assert abs(a[key] - b[key]) < 0.02, (a, b)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(augmentation_step=1, num_partition=2), "item 17"),
-    (dict(model="node2vec"), "item 11"),
+@pytest.mark.parametrize("kwargs,env,match", [
+    (dict(augmentation_step=1, num_partition=2), {}, "item 17"),
+    # the reference's experimental walk opt-ins
+    (dict(model="node2vec"), {"GRAPHVITE_BULK_WALKS": "1"}, "item 11"),
+    (dict(), {"GRAPHVITE_BF16_BAND": "1"}, "item 11"),
+    (dict(), {"GRAPHVITE_SWEEP_BANDED": "1"}, "item 11"),
 ])
-def test_unported_training_paths_raise(kwargs, match):
+def test_unported_training_paths_raise(kwargs, env, match, monkeypatch):
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
     g = _port_graph(two_blocks(40))
     s = GraphSolver(dim=8, device="cpu")
     kw = dict(model="DeepWalk", num_epoch=1, augmentation_step=2,
