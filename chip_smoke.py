@@ -147,11 +147,38 @@ Phases, in order (any failure exits non-zero and prints no result line):
             DeepWalk (the unfused trust-clip route), node2vec (p 4, q 2,
             the same route), the classic step (GRAPHVITE_NEG_SHARING=0) and
             LINE on the edge route (the small-table route, the trust clip
-            on the scatter-add): link-prediction AUC > 0.9. The offline math
-            fixture (1,000 entities, 20,000 triplets) through
-            KnowledgeGraphApplication at config/demo/math.yaml cut to dim
-            128 and 500 epochs: filtered tail MRR >= 0.60.
-13. summary the card line, the kernels line, and the result line.
+            on the scatter-add): link-prediction AUC > 0.9.
+13. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
+            list` in a process of its own (the total of baselines), then
+            three shipped configs through cmd.load_config and
+            cmd.run_config, each copied with its save: path moved into a
+            temporary dataset directory (GRAPHVITE_DATASET_PATH, removed
+            at the end; the phase downloads nothing), the kernels' launch
+            counts set to 0 just before each run and read just after:
+            config/demo/quick_start.yaml at its 2000 epochs on this
+            script's copy of the BlogCatalog clone of
+            tools/blogcatalog_clone.py (10,312 vertices, 39 communities;
+            206,311 distinct edges at seed 0, about 62% of BlogCatalog's
+            333,983) written as the registry's raw files, so the
+            registry makes the config's 100:1:1 link-prediction split
+            (LINE, aug 2, the unfused walk step, kernel 1 on each table):
+            link-prediction AUC >= 0.85, micro-F1@20% recorded;
+            config/demo/math.yaml cut to dim 128 and 500 epochs (the
+            offline math fixture): filtered tail MRR >= 0.60;
+            config/word_graph/line_wikipedia.yaml at its 80 epochs on a
+            planted-topic corpus of 10M tokens (this script's
+            copy of tools/word_graph_e2e.py:write_corpus: 50 topics, a
+            Zipf vocabulary of 100,000): the word graph's host build,
+            LINE on the edge route (kernel 1 on the small-table update),
+            same-topic minus random-pair cosine >= 0.2, the saved model
+            reloaded through load_model giving the same predict scores.
+            Every run: stage seconds, ms/batch, samples/s, kernel 1
+            launches per batch (>= 1 on the two graph configs), a falling
+            loss, finite tables, peak memory, a trace of 10 batches. Then
+            kernel 1 against its plain version (and timed, beside
+            index_add_ and its bound) on the vertex and the context ids
+            of one more batch of each graph config.
+14. summary the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -159,9 +186,12 @@ import argparse
 import contextlib
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -953,11 +983,6 @@ ROTATE_WIKIDATA5M = dict(model="RotatE", margin=6,
 # closed-form c-touch update moves a hub row by ~6 lr c per batch (c = 33
 # touches per positive, hundreds of positives per hub), so lr stays small.
 ADAM_WIKIDATA5M = {"type": "Adam", "lr": 1e-6, "weight_decay": 0}
-# config/demo/math.yaml, cut to dim 128 and 500 epochs
-ADAM_MATH = {"type": "Adam", "lr": 5.0e-3, "weight_decay": 0}
-BUILD_MATH = dict(num_negative=8, batch_size=100000, episode_size=100)
-ROTATE_MATH = dict(model="RotatE", margin=9, adversarial_temperature=2,
-                   log_frequency=10**9)
 
 
 def fb15k_clone(seed):
@@ -1001,30 +1026,6 @@ def fb15k_clone(seed):
                       for a, b, c in zip(h[sl].tolist(), r[sl].tolist(),
                                          t[sl].tolist())]
         lo += n
-    return out
-
-
-MATH_OPERATORS = [
-    ("+", lambda x, y: (x + y) % 1000),
-    ("-", lambda x, y: (x - y) % 1000),
-    ("*", lambda x, y: (x * y) % 1000),
-    ("/", lambda x, y: x // y),
-    ("%", lambda x, y: x % y),
-]
-
-
-def math_triplets(num_triplet, seed):
-    """The offline math fixture (1,000 entities, 30 relation operands):
-    triplets (x, op c, y) with y = x op c; this script's copy of the
-    generator of graphvite_tpu/dataset.py (train 20,000 from seed 1023,
-    valid 1,000 from 1024, test 1,000 from 1025)."""
-    rng = np.random.RandomState(seed)
-    out = []
-    for _ in range(num_triplet):
-        op, fn = MATH_OPERATORS[int(rng.rand() * len(MATH_OPERATORS))]
-        x = int(rng.rand() * 1000)
-        y = int(rng.rand() * 30) + 1
-        out.append((str(x), "%s%d" % (op, y), str(fn(x, y))))
     return out
 
 
@@ -1395,35 +1396,6 @@ def check_update_rows(name, ids, counts, v, d, dtype, gen):
             "result and 1 of the old row)",
             "ms": ms, "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
-
-
-def math_quality():
-    """The offline math fixture through KnowledgeGraphApplication at
-    config/demo/math.yaml cut to dim 128 and 500 epochs: filtered tail
-    ranking of the test split."""
-    from graphvite_tpu_torch import KnowledgeGraphApplication
-
-    train = math_triplets(20000, 1023)
-    valid = math_triplets(1000, 1024)
-    test = math_triplets(1000, 1025)
-    app = KnowledgeGraphApplication(dim=128)
-    app.load(triplet_list=train)
-    app.build(optimizer=ADAM_MATH, **BUILD_MATH)
-    t0 = time.perf_counter()
-    app.train(num_epoch=500, **ROTATE_MATH)
-    train_s = time.perf_counter() - t0
-    fH, fR, fT = (list(x) for x in zip(*(train + valid + test)))
-    H, R, T = (list(x) for x in zip(*test))
-    metrics = app.evaluate("link prediction", H=H, R=R, T=T, filter_H=fH,
-                           filter_R=fR, filter_T=fT, target="tail")
-    s = app.solver
-    losses = s.batch_losses.double()
-    k = max(s.batch_id // 10, 5)
-    return {"model": "RotatE", "dim": 128, "epochs": 500,
-            "plan": list(s._batch_plan()), "pooled": s._pooled_step,
-            "batches": s.batch_id, "train_s": train_s,
-            "loss_first": float(losses[:k].mean()),
-            "loss_last": float(losses[-k:].mean()), **metrics}
 
 
 # ---------------------------------------------------------------------------
@@ -2135,6 +2107,339 @@ def quality(model="DeepWalk", device=None, classic=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the command line
+# ---------------------------------------------------------------------------
+
+# tools/blogcatalog_clone.py: BlogCatalog's published statistics
+BLOGCATALOG_V = 10_312
+BLOGCATALOG_E = 333_983
+BLOGCATALOG_COMMUNITIES = 39
+BLOGCATALOG_MIXING = 0.25     # fraction of stubs wired to the background
+# tools/word_graph_e2e.py: the planted-topic corpus
+CORPUS_TOKENS = 10_000_000
+CORPUS_VOCAB = 100_000
+CORPUS_TOPICS = 50
+
+
+def blogcatalog_clone(seed):
+    """A planted-community graph with BlogCatalog's statistics (10,312
+    vertices, 39 overlapping communities, power-law degrees scaled to
+    333,983 undirected edges, of which 206,311 are distinct at seed 0, a
+    quarter of the stubs wired globally): this script's copy of
+    tools/blogcatalog_clone.py:generate. Returns the sorted (u < v) edges
+    [E, 2] and the memberships [V, 39]."""
+    V, C = BLOGCATALOG_V, BLOGCATALOG_COMMUNITIES
+    rng = np.random.default_rng(seed)
+    deg = np.maximum((rng.pareto(1.2, V) + 1) * 2, 2)
+    deg = np.floor(deg * (2.0 * BLOGCATALOG_E / deg.sum())).astype(np.int64)
+    deg = np.maximum(deg, 2)
+    comm_w = np.arange(1, C + 1) ** -0.7
+    comm_w /= comm_w.sum()
+    labels = np.zeros((V, C), np.int64)
+    for v in range(V):
+        k = 1 + (rng.random() < 0.4)
+        labels[v, rng.choice(C, size=k, replace=False, p=comm_w)] = 1
+    num_member = labels.sum(axis=1)
+    edges = set()
+
+    def add_pairs(pool_v, pool_deg, n_pairs):
+        if pool_v.size < 2 or n_pairs <= 0:
+            return
+        p = pool_deg / pool_deg.sum()
+        a = rng.choice(pool_v, size=n_pairs, p=p)
+        b = rng.choice(pool_v, size=n_pairs, p=p)
+        for u, w in zip(a.tolist(), b.tolist()):
+            if u != w:
+                edges.add((min(u, w), max(u, w)))
+
+    for c in range(C):
+        m = np.nonzero(labels[:, c])[0]
+        if m.size < 2:
+            continue
+        intra = deg[m] * (1 - BLOGCATALOG_MIXING) / np.maximum(
+            num_member[m], 1)
+        add_pairs(m, deg[m].astype(np.float64), int(intra.sum() / 2))
+    add_pairs(np.arange(V), deg.astype(np.float64),
+              int(deg.sum() * BLOGCATALOG_MIXING / 2))
+    return np.asarray(sorted(edges), dtype=np.int64), labels
+
+
+def topic_corpus(path, n_tokens, vocab, seed, sent_len=20,
+                 topic_purity=0.7):
+    """A corpus with planted topics: sentences of `sent_len` words, each
+    sentence of one of 50 topics, each word's topic drawn once, Zipf
+    unigram frequencies, 70% of a sentence's words from its topic: this
+    script's copy of tools/word_graph_e2e.py:write_corpus. Returns each
+    word's topic."""
+    rng = np.random.default_rng(seed)
+    freq = 1.0 / (np.arange(1, vocab + 1) ** 1.05)
+    freq /= freq.sum()
+    word_topic = rng.integers(0, CORPUS_TOPICS, vocab)
+    topic_words = [np.flatnonzero(word_topic == t)
+                   for t in range(CORPUS_TOPICS)]
+    topic_p = [freq[tw] / freq[tw].sum() for tw in topic_words]
+    n_sent = n_tokens // sent_len
+    chunk = 20000
+    with open(path, "w") as f:
+        for lo in range(0, n_sent, chunk):
+            m = min(chunk, n_sent - lo)
+            topics = rng.integers(0, CORPUS_TOPICS, m)
+            rows = []
+            for t in range(CORPUS_TOPICS):
+                idx = np.flatnonzero(topics == t)
+                if not idx.size:
+                    continue
+                pure = rng.random((idx.size, sent_len)) < topic_purity
+                in_topic = topic_words[t][rng.choice(
+                    topic_words[t].size, (idx.size, sent_len),
+                    p=topic_p[t])]
+                backgr = rng.choice(vocab, (idx.size, sent_len), p=freq)
+                words = np.where(pure, in_topic, backgr)
+                rows += zip(idx.tolist(), words.tolist())
+            rows.sort()
+            f.write("".join(" ".join("w%d" % w for w in row) + "\n"
+                            for _, row in rows))
+    return word_topic
+
+
+def topic_probe(emb, name2id, word_topic, seed):
+    """The word-graph tool's probe: mean cosine of same-topic pairs among
+    each topic's 200 most frequent words, and of random word pairs."""
+    emb = np.asarray(emb, np.float64)
+    emb = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
+    rng = np.random.default_rng(seed)
+    same, rand = [], []
+    for _ in range(2000):
+        tw = np.flatnonzero(word_topic == rng.integers(CORPUS_TOPICS))[:200]
+        a, b = ("w%d" % x for x in rng.choice(tw, 2, replace=False))
+        if a in name2id and b in name2id:
+            same.append(float(emb[name2id[a]] @ emb[name2id[b]]))
+        x, y = ("w%d" % x for x in rng.choice(word_topic.size, 2,
+                                              replace=False))
+        if x in name2id and y in name2id:
+            rand.append(float(emb[name2id[x]] @ emb[name2id[y]]))
+    return float(np.mean(same)), float(np.mean(rand))
+
+
+@contextlib.contextmanager
+def no_downloads():
+    """Every split the cli phase reads is written or generated locally
+    first; a download would mean a misplaced file, so it fails the run
+    instead of reaching for the network."""
+    from graphvite_tpu_torch import dataset
+
+    def refuse(self, url):
+        raise AssertionError("the smoke downloads nothing (%s: %s is not "
+                             "under %s)" % (self.name, url, self.path))
+    old = dataset.Dataset.download
+    dataset.Dataset.download = refuse
+    try:
+        yield
+    finally:
+        dataset.Dataset.download = old
+
+
+def cli_config(name, root, cuts=()):
+    """Copy config/<name> into `root` with its `save:` path moved there and
+    each (old, new) of `cuts` replaced (each must occur once); returns the
+    copy's path."""
+    with open(os.path.join(HERE, "config", name)) as f:
+        text = f.read()
+    save = re.search(r"^save:\n  file_name: (\S+)$", text, re.M)
+    cuts = list(cuts) + [(save.group(0), "save:\n  file_name: %s"
+                          % os.path.join(root, save.group(1)))]
+    for old, new in cuts:
+        if text.count(old) != 1:
+            raise AssertionError("%r occurs %d times in %s"
+                                 % (old, text.count(old), name))
+        text = text.replace(old, new)
+    path = os.path.join(root, os.path.basename(name))
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def run_cli(path):
+    """One config through the port's CLI on the card: cmd.load_config (the
+    dataset splits are made there), then cmd.run_config with the kernels'
+    launch counts set to 0 just before it and read just after. Returns
+    the loaded config, the application, the evaluation results and the
+    record."""
+    import torch
+    from graphvite_tpu_torch import cmd
+
+    t0 = time.perf_counter()
+    cfg = cmd.load_config(path)
+    config_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    app, results = cmd.run_config(cfg)
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    s = app.solver
+    stages = {k: v["total_s"] for k, v in app.monitor.summary().items()}
+    losses = s.batch_losses.double()
+    k = max(s.batch_id // 10, 5)
+    k1 = launches["scatter_add_"] + launches["scatter_add_sorted_"]
+    rec = {"config": os.path.basename(path), "load_config_s": config_s,
+           "run_config_s": run_s, "stages_s": stages,
+           "batches": s.batch_id, "effective_batch": s.effective_batch,
+           "ms_per_batch": stages["train"] / s.batch_id * 1e3,
+           "samples_per_s": s.batch_id * s.effective_batch / stages["train"],
+           "launches": launches, "k1_per_batch": k1 / s.batch_id,
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": all(bool(torch.isfinite(t.float()).all())
+                                for t in s.state["tables"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "saved": os.path.isfile(cfg["save"]["file_name"])}
+    problems = []
+    if not (rec["losses_finite"] and rec["tables_finite"]):
+        problems.append("losses or tables not finite")
+    if not rec["loss_last"] < rec["loss_first"]:
+        problems.append("the loss did not fall")
+    if not rec["saved"]:
+        problems.append("no model saved at %s" % cfg["save"]["file_name"])
+    return cfg, app, results, rec, problems
+
+
+def trace_and_update_ids(app, cfg, rec, batches=10):
+    """A trace of `batches` more batches of the config's own training
+    call (it starts the tables afresh, so it runs after the checks), then
+    the ids of kernel 1's calls in one more batch: [(ids, table rows)],
+    recorded where optim.apply_row_updates launches it."""
+    from graphvite_tpu_torch import optim
+
+    s = app.solver
+    kw = {k: v for k, v in cfg["train"].items() if k != "num_epoch"}
+    rec["trace"] = trace_episode(s, rec["ms_per_batch"], kw, batches)
+    calls, launch = [], optim.scatter_add_
+
+    def record(table, ids, upd):
+        calls.append((ids.clone(), table.shape[0]))
+        return launch(table, ids, upd)
+    optim.scatter_add_ = record
+    try:
+        s.train(num_epoch=s.effective_batch / s.graph.num_edge + 1e-9, **kw)
+    finally:
+        optim.scatter_add_ = launch
+    return calls
+
+
+def quick_start_cli(root, seed):
+    """config/demo/quick_start.yaml at its 2000 epochs through the CLI, on
+    the BlogCatalog clone written as the registry's raw graph and label
+    files: the registry makes <blogcatalog.train|test> with its 100:1:1
+    link-prediction split, the config evaluates link prediction and
+    node classification."""
+    t0 = time.perf_counter()
+    edges, labels = blogcatalog_clone(seed)
+    data = os.path.join(root, "blogcatalog")
+    os.makedirs(data, exist_ok=True)
+    with open(os.path.join(data, "blogcatalog_graph.txt"), "w") as f:
+        f.write("".join("%d\t%d\n" % e for e in map(tuple, edges.tolist())))
+    vs, cs = np.nonzero(labels)
+    with open(os.path.join(data, "blogcatalog_label.txt"), "w") as f:
+        f.write("".join("%d\t%d\n" % x
+                        for x in zip(vs.tolist(), cs.tolist())))
+    clone_s = time.perf_counter() - t0
+    cfg, app, results, rec, problems = run_cli(
+        cli_config("demo/quick_start.yaml", root))
+    s = app.solver
+    rec.update({"clone_s": clone_s, "edges": int(len(edges)),
+                "vertices": app.graph.num_vertex,
+                "train_edges": app.graph.num_edge,
+                "fused_arena": s._banded_fused,
+                "auc": results[0]["AUC"],
+                "micro_f1_20": results[1]["micro-F1@20%"],
+                "macro_f1_20": results[1]["macro-F1@20%"]})
+    if not rec["auc"] >= 0.85:
+        problems.append("link-prediction AUC %.4f < 0.85" % rec["auc"])
+    if not rec["k1_per_batch"] >= 1:
+        problems.append("kernel 1 launched %r in %d batches"
+                        % (rec["launches"], rec["batches"]))
+    return rec, problems, trace_and_update_ids(app, cfg, rec)
+
+
+def math_cli(root):
+    """config/demo/math.yaml through the CLI, cut to dim 128 and 500
+    epochs: filtered tail ranking of the offline math fixture's test
+    split."""
+    cfg, app, results, rec, problems = run_cli(cli_config(
+        "demo/math.yaml", root, (("dim: 512", "dim: 128"),
+                                 ("num_epoch: 2000", "num_epoch: 500"))))
+    s = app.solver
+    rec.update({"model": s.model, "dim": s.dim,
+                "plan": list(s._batch_plan()), "pooled": s._pooled_step,
+                **results[0]})
+    if not rec["MRR"] >= 0.60:
+        problems.append("filtered tail MRR %.4f < 0.60" % rec["MRR"])
+    return rec, problems, []
+
+
+def word_graph_cli(root, seed, tokens):
+    """config/word_graph/line_wikipedia.yaml at its 80 epochs through the
+    CLI, on a planted-topic corpus written as the registry's Wikipedia
+    corpus: the word graph's host build, LINE on the edge route (kernel 1
+    on the small-table SGD update), the saved model reloaded through
+    load_model."""
+    from graphvite_tpu_torch import Application
+
+    data = os.path.join(root, "wikipedia")
+    os.makedirs(data, exist_ok=True)
+    t0 = time.perf_counter()
+    word_topic = topic_corpus(os.path.join(data, "wikipedia_graph.txt"),
+                              tokens, CORPUS_VOCAB, seed)
+    corpus_s = time.perf_counter() - t0
+    cfg, app, results, rec, problems = run_cli(
+        cli_config("word_graph/line_wikipedia.yaml", root))
+    g, s = app.graph, app.solver
+    same, rand = topic_probe(s.vertex_embeddings, g.name2id, word_topic,
+                             seed + 1)
+    rec.update({"tokens": tokens, "corpus_s": corpus_s,
+                "graph_s": rec["stages_s"]["load"],
+                "vocabulary": g.num_vertex, "edges": g.num_edge,
+                "sweeps": [s._sweep_gather, s._sweep_scatter,
+                           s._sweep_context],
+                "same_topic_cos": same, "random_pair_cos": rand})
+    if not same - rand >= 0.2:
+        problems.append("same-topic cosine %.4f - random %.4f < 0.2"
+                        % (same, rand))
+    if not rec["k1_per_batch"] >= 1:
+        problems.append("kernel 1 launched %r in %d batches"
+                        % (rec["launches"], rec["batches"]))
+    # the saved model, reloaded on the card over the same graph
+    again = Application(cfg["application"], **cfg["resource"])
+    again.graph = g
+    again.solver.build(g)
+    again.load_model(cfg["save"]["file_name"])
+    pairs = np.random.default_rng(seed).integers(g.num_vertex, size=(4096, 2))
+    rec["reload_equal"] = bool(np.array_equal(s.predict(pairs),
+                                              again.solver.predict(pairs)))
+    if not rec["reload_equal"]:
+        problems.append("the reloaded model predicts other scores")
+    del again
+    return rec, problems, trace_and_update_ids(app, cfg, rec)
+
+
+def cli_list():
+    """`python3 -m graphvite_tpu_torch.cmd list` in a process of its own:
+    argv, the module's entry point and the baseline walk."""
+    out = subprocess.run([sys.executable, "-m", "graphvite_tpu_torch.cmd",
+                          "list"], cwd=HERE, capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    want = sum(len([f for f in files if f.endswith(".yaml")])
+               for path, _, files in os.walk(os.path.join(HERE, "config"))
+               if os.path.basename(path) != "template")
+    last = out.strip().splitlines()[-1]
+    if last != "total: %d baselines" % want or "quick_start.yaml" not in out:
+        raise AssertionError("cmd list printed %r" % out[-500:])
+    return {"baselines": want}
+
+
+# ---------------------------------------------------------------------------
 
 def front_ends(walk_ids, heads, v_counts, ctx, c_counts, gen):
     """The four entries' breakdown at the main paths' shapes: scatter_add_
@@ -2215,6 +2520,19 @@ def main():
         sys.stderr.write("chip_smoke: CUDA is not available; this script "
                          "runs on a GPU only\n")
         return 2
+    # the cli phase's datasets live in a directory of their own, removed
+    # at the end; the registry reads its path when it is first imported
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    os.environ["GRAPHVITE_DATASET_PATH"] = data_dir
+    try:
+        return run(args)
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def run(args):
+    import torch
+
     try:
         from graphvite_tpu_torch.ops import gather, kernels, scatter
     except ImportError as e:
@@ -2632,20 +2950,50 @@ def main():
                                      "the scatter-add twice per step: %r"
                                      % q)
             out[name] = q
-        q = math_quality()
-        log("   math fixture, RotatE on the card:", json.dumps(q))
-        if not q["MRR"] >= 0.60 or not q["loss_last"] < q["loss_first"]:
-            raise AssertionError("math fixture: filtered tail MRR %.4f < "
-                                 "0.60, or the loss did not fall" % q["MRR"])
-        out["math"] = q
         return out
     phase("quality", quality_phase)
+
+    # 13. the command line: three shipped configs through cmd, in process,
+    # and `cmd list` in a process of its own
+    def cli_phase():
+        root = os.environ["GRAPHVITE_DATASET_PATH"]
+        out, problems = {"list": cli_list()}, []
+        runs = (("quick_start", lambda: quick_start_cli(root, args.seed)),
+                ("math", lambda: math_cli(root)),
+                ("line_wikipedia",
+                 lambda: word_graph_cli(root, args.seed, CORPUS_TOKENS)))
+        calls = []
+        with no_downloads():
+            for name, drive in runs:
+                rec, bad, ids = drive()
+                log("   %s:" % name, json.dumps(rec))
+                out[name] = rec
+                problems += ["%s: %s" % (name, p) for p in bad]
+                calls += [("%s %s" % (name, side), c)
+                          for side, c in zip(("vertex", "context"), ids)]
+                torch.cuda.empty_cache()
+        # kernel 1 at these paths' shapes: one batch's vertex and context
+        # updates (the trust clip's float32 accumulator), against its
+        # plain version
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        out["kernel_cases"] = []
+        for name, (ids, rows) in calls:
+            rec = check_add_rows(name, ids, rows, DIM, torch.float32, gen)
+            log("   scatter_add_ (%s)" % name, json.dumps(rec))
+            out["kernel_cases"].append(rec)
+        if len(calls) != 4:
+            problems.append("%d kernel 1 calls in the two configs' batches, "
+                            "want 2 each" % len(calls))
+        if problems:
+            raise AssertionError("; ".join(problems))
+        return out
+    phase("cli", cli_phase)
 
     if failures:
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 13. summary: the card line, the kernels line, the result line
+    # 14. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
@@ -2661,6 +3009,8 @@ def main():
     for name in ("float32", "bfloat16"):
         k1["kg_big_" + name] = kg_big[name]["launches"]["scatter_add_"]
     k1["vis_sgd"] = results["vis"]["sgd"]["launches"]["scatter_add_"]
+    for name in ("quick_start", "line_wikipedia"):
+        k1["cli_" + name] = results["cli"][name]["launches"]["scatter_add_"]
     k2 = {"edge_adam": (edge["adam"]["launches"]["scatter_update_"]
                         + edge["adam"]["launches"]["scatter_update_sorted_"]),
           "kg_big_adam": kg_big["adam"]["launches"]["scatter_update_"],
@@ -2673,7 +3023,8 @@ def main():
         # the DeepWalk batch-100000 update, float32 table
         kernel_row("scatter_add", "graphvite_tpu_torch/csrc/scatter_add.cu",
                    "graphvite_tpu/ops/pallas_scatter.py:146",
-                   sum(k1.values()), k1, cases["scatter_add"],
+                   sum(k1.values()), k1,
+                   cases["scatter_add"] + results["cli"]["kernel_cases"],
                    cases["scatter_add"][0]),
         # the edge route's sorted heads, float32 table
         kernel_row("gather_sorted",

@@ -1,8 +1,8 @@
 """Application pipelines: load -> build -> train -> evaluate -> save (the
-port of ApplicationMixin, GraphApplication, KnowledgeGraphApplication and
-VisualizationApplication in graphvite_tpu/application/__init__.py). The
-solver runs on CUDA unless the caller passes `device="cpu"`; evaluation
-runs on the solver's device."""
+port of ApplicationMixin, GraphApplication, WordGraphApplication,
+KnowledgeGraphApplication and VisualizationApplication in
+graphvite_tpu/application/__init__.py). The solver runs on CUDA unless the
+caller passes `device="cpu"`; evaluation runs on the solver's device."""
 from __future__ import annotations
 
 import os
@@ -19,6 +19,7 @@ from graphvite_tpu_torch.application import evaluate as ev
 from graphvite_tpu_torch.knn import KNNGraph
 from graphvite_tpu_torch.models import KG_MODELS
 from graphvite_tpu_torch.utils.common import Monitor, assert_in, auto, logger
+from graphvite_tpu_torch.word_graph import WordGraph
 
 
 class ApplicationMixin:
@@ -254,6 +255,14 @@ class GraphApplication(ApplicationMixin):
                                    up(state["context_embeddings"])),
                         "moments": solver.state["moments"]}
 
+
+class WordGraphApplication(GraphApplication):
+    """Word-cooccurrence node embedding (ref application.py:536-573): the
+    graph application over a `WordGraph` built from a corpus
+    (`load(file_name=..., window=..., min_count=...)`)."""
+
+    def get_graph(self, **kwargs):
+        return WordGraph()
 
 
 class KnowledgeGraphApplication(ApplicationMixin):
@@ -622,21 +631,16 @@ class VisualizationApplication(ApplicationMixin):
 
 APPLICATIONS = {
     "graph": GraphApplication,
+    "word graph": WordGraphApplication,
+    "word_graph": WordGraphApplication,
     "knowledge graph": KnowledgeGraphApplication,
     "knowledge_graph": KnowledgeGraphApplication,
     "visualization": VisualizationApplication,
 }
-# the reference's other application types, by the ROADMAP item that ports
-# them
-_NOT_PORTED = {"word graph": 14, "word_graph": 14}
 
 
 def Application(type, *args, **kwargs):
     """Factory mirroring graphvite.application.Application
     (ref application.py:1371-1392)."""
-    if type in _NOT_PORTED:
-        raise NotImplementedError(
-            "the `%s` application is not ported yet (ROADMAP queue 1, item "
-            "%d)" % (type, _NOT_PORTED[type]))
     assert_in("application type", type, set(APPLICATIONS))
     return APPLICATIONS[type](*args, **kwargs)

@@ -77,6 +77,15 @@ class Monitor:
         return {k: {"total_s": t, "calls": c} for k, (t, c) in self.records.items()}
 
 
+def recursive_map(obj, fn):
+    """Apply fn to every leaf of a nested dict/list structure (ref util.py)."""
+    if isinstance(obj, dict):
+        return {k: recursive_map(v, fn) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [recursive_map(v, fn) for v in obj]
+    return fn(obj)
+
+
 def assert_in(name, value, candidates):
     if value not in candidates:
         raise ValueError("Unknown %s `%s`; expected one of %s" % (name, value, sorted(candidates)))

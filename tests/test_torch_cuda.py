@@ -921,3 +921,60 @@ def test_walk_steps_on_card_match_cpu(rule, kind, big_table, monkeypatch):
     np.testing.assert_allclose(gl, cl, rtol=2e-5)
     for a, b in zip(gpu, cpu):
         np.testing.assert_allclose(a, b, rtol=3e-4, atol=3e-6)
+
+
+@pytest.mark.cuda
+def test_cli_two_block_config_on_card(tmp_path):
+    """A two-block edge-list config (LINE, the edge route) through the
+    port's command line with no `device` in its resource section: it
+    trains on the card, through kernel 1 (the small-table SGD update),
+    and its link-prediction evaluation clears AUC 0.9."""
+    _cuda()
+    from graphvite_tpu_torch import cmd
+
+    rng = np.random.default_rng(0)
+    n, half = 60, 30
+    edges = []
+    for _ in range(n * 6):
+        c = rng.integers(2)
+        u, v = rng.integers(half, size=2) + c * half
+        if u != v:
+            edges.append((u, v))
+    edges += [(rng.integers(half), rng.integers(half) + half)
+              for _ in range(n // 10)]
+    graph = tmp_path / "graph.txt"
+    graph.write_text("".join("%d\t%d\n" % e for e in edges))
+    picks = rng.choice(len(edges), 300, replace=False)
+    links = ["%d\t%d\t1\n" % edges[i] for i in picks]
+    links += ["%d\t%d\t0\n" % (rng.integers(half), rng.integers(half) + half)
+              for _ in range(300)]
+    (tmp_path / "links.txt").write_text("".join(links))
+    config = tmp_path / "two_blocks.yaml"
+    config.write_text("""application: graph
+resource:
+  dim: 16
+graph:
+  file_name: %s
+  as_undirected: true
+build:
+  num_negative: 2
+  batch_size: 512
+  episode_size: 8
+train:
+  model: LINE
+  num_epoch: 1000
+  augmentation_step: 1
+  negative_weight: 1
+  log_frequency: 1000000000
+evaluate:
+  task: link prediction
+  file_name: %s
+save:
+  file_name: %s
+""" % (graph, tmp_path / "links.txt", tmp_path / "line.pkl"))
+    before = scatter.scatter_add_.launches
+    app, results = cmd.run_config(cmd.load_config(str(config)))
+    assert app.solver.device.type == "cuda"
+    assert scatter.scatter_add_.launches - before >= app.solver.batch_id
+    assert results[0]["AUC"] > 0.9, results
+    assert (tmp_path / "line.pkl").is_file()

@@ -53,6 +53,72 @@ print("ok", len(%r))
     assert out.stdout.startswith("ok")
 
 
+def test_cli_modules_are_walked_and_run_with_yaml_blocked(tmp_path):
+    """The command line's modules are in the walk above, and its runtime
+    paths (the YAML reader, the registry, `list`) run in an interpreter
+    where the forbidden packages cannot be imported."""
+    for name in ("cmd", "dataset", "word_graph", "utils.yaml_lite"):
+        assert "graphvite_tpu_torch." + name in _modules()
+    code = """
+import sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in %r:
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Block())
+from graphvite_tpu_torch import cmd
+cfg = cmd.load_config("config/demo/math.yaml")
+assert cfg["build"]["optimizer"].type == "Adam", cfg
+assert cfg["build"]["num_partition"] == 0, cfg
+with open(cfg["graph"]["file_name"]) as f:
+    assert len(f.read().splitlines()) == 20000
+cmd.main(["list"])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+assert not loaded, loaded
+""" % (FORBIDDEN, FORBIDDEN)
+    env = dict(os.environ, PYTHONPATH=REPO,
+               GRAPHVITE_DATASET_PATH=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "total: 47 baselines" in out.stdout
+    assert os.path.isfile(tmp_path / "math" / "math_test.txt")
+
+
+def test_run_config_defaults_to_cuda(tmp_path):
+    """A config whose resource section names no device runs on CUDA, and
+    raises where there is none; `device: cpu` runs on the CPU."""
+    from graphvite_tpu_torch import cmd
+
+    edges = tmp_path / "edges.txt"
+    edges.write_text("a\tb\nb\tc\nc\ta\n")
+    config = tmp_path / "c.yaml"
+    text = """application: graph
+resource:
+  dim: 4
+%sgraph:
+  file_name: %s
+build:
+  batch_size: 8
+train:
+  model: LINE
+  num_epoch: 1
+  augmentation_step: 1
+"""
+    config.write_text(text % ("", edges))
+    cfg = cmd.load_config(str(config))
+    if torch.cuda.is_available():
+        app, _ = cmd.run_config(cfg)
+        assert app.solver.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cmd.run_config(cfg)
+    config.write_text(text % ("  device: cpu\n", edges))
+    app, _ = cmd.run_config(cmd.load_config(str(config)))
+    assert app.solver.device.type == "cpu"
+
+
 def _imports(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)

@@ -310,8 +310,9 @@ def test_gaps_raise_naming_their_items():
     # visualization is ported (ROADMAP item 13)
     assert type(Application("visualization", dim=2, device="cpu")
                 ).__name__ == "VisualizationApplication"
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Application("word graph", dim=2)
+    # the word graph is ported (ROADMAP item 14)
+    assert type(Application("word graph", dim=2, device="cpu")
+                ).__name__ == "WordGraphApplication"
     with pytest.raises(ValueError, match="application type"):
         Application("nonsense", dim=2)
     assert isinstance(Application("knowledge_graph", dim=2, device="cpu"),
