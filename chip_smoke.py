@@ -115,7 +115,25 @@ Phases, in order (any failure exits non-zero and prints no result line):
             512 queries (>= 0.75, on the raw vectors as the tool scores
             it, and on the normalized ones the search used); 200 Adam
             batches with a trace of 10.
-11. kernel  each kernel against its plain torch version on the card, on the
+11. blocked LINE through GraphApplication at the
+            config/graph/line_friendster-small.yaml hyperparameters (dim
+            128, SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 1,
+            batch 100000, episode 3500) on a power-law graph of
+            friendster-small's 7,944,949 vertices and 32M input edges made
+            from --seed, on blocked episodes with GRAPHVITE_MIN_SWEEPS=1
+            (16 episodes of 64 of 1,024 batches): (a) num_partition=4 with
+            the shards on the card (GRAPHVITE_HOST_MASTER=0); (b) the auto
+            rule under a gpu_memory_limit of 0.9 x the tables' and edges'
+            demand, which must pick P = 4 and the host master, give (a)'s
+            tables and losses bit for bit and keep its peak device memory
+            under the limit; predict on (b)'s host tables (the host-row
+            path) against manual scoring within 1e-4; (c) Adam (lr 1e-6,
+            wd 0) with the host master. Each run: kernel 1 (SGD) or
+            kernel 2 (Adam) exactly twice per batch and nothing else,
+            ms/batch, samples/s, episodes, cache hits and misses, staging
+            bytes and seconds per episode, set-up seconds by stage, peak
+            memory; one more episode of (a) and of (b) traced.
+12. kernel  each kernel against its plain torch version on the card, on the
             ids the main paths drew: scatter_add on the DeepWalk update ids
             (batch 100000 and 250000, with dropped ids added, float32 and
             bfloat16 tables), on the node2vec batch's (float32) and on the
@@ -142,13 +160,18 @@ Phases, in order (any failure exits non-zero and prints no result line):
             renumbered copy of the touched rows. Then 8 columns:
             scatter_add_ on the vis SGD batch's 216,064 update ids and
             scatter_update_ (Adam, the pooled step's touch counts) on
-            the same ids, float32 and bfloat16 tables.
-12. quality  GraphApplication on a small two-block graph on the card:
+            the same ids, float32 and bfloat16 tables. Then the blocked
+            path's shard-local ids (100,000 heads and 200,000 context ids
+            of one batch over a ~1.99M x 128 shard): scatter_add_ float32
+            and bfloat16, scatter_update_ (Adam, one touch per entry).
+13. quality  GraphApplication on a small two-block graph on the card:
             DeepWalk (the unfused trust-clip route), node2vec (p 4, q 2,
-            the same route), the classic step (GRAPHVITE_NEG_SHARING=0) and
+            the same route), the classic step (GRAPHVITE_NEG_SHARING=0),
             LINE on the edge route (the small-table route, the trust clip
-            on the scatter-add): link-prediction AUC > 0.9.
-13. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
+            on the scatter-add) and LINE on blocked episodes (P 4, the
+            host master; evaluated on the tables in host memory):
+            link-prediction AUC > 0.9.
+14. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
             list` in a process of its own (the total of baselines), then
             three shipped configs through cmd.load_config and
             cmd.run_config, each copied with its save: path moved into a
@@ -166,7 +189,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             config/demo/math.yaml cut to dim 128 and 500 epochs (the
             offline math fixture): filtered tail MRR >= 0.60;
             config/word_graph/line_wikipedia.yaml at its 80 epochs on a
-            planted-topic corpus of 10M tokens (this script's
+            planted-topic corpus of 5M tokens (this script's
             copy of tools/word_graph_e2e.py:write_corpus: 50 topics, a
             Zipf vocabulary of 100,000): the word graph's host build,
             LINE on the edge route (kernel 1 on the small-table update),
@@ -178,7 +201,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             kernel 1 against its plain version (and timed, beside
             index_add_ and its bound) on the vertex and the context ids
             of one more batch of each graph config.
-14. summary the card line, the kernels line, and the result line.
+15. summary the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1399,7 +1422,7 @@ def check_update_rows(name, ids, counts, v, d, dtype, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 11: each kernel against its plain version
+# phase 12: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def check_kernel(ids, dtype, gen):
@@ -1690,7 +1713,7 @@ def front_end_breakdown(name, call, calls=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: quality
+# phase 13: quality
 # ---------------------------------------------------------------------------
 
 # ---------------------------------------------------------------------------
@@ -2041,6 +2064,286 @@ def vis_big_phase(seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: blocked episodes and the host master
+# ---------------------------------------------------------------------------
+
+# config/graph/line_friendster-small.yaml: friendster-small's vertex count
+# (SURVEY.md: 7.9M vertices, 447M edges); the edges are cut to what keeps
+# the phase's set-up near a minute
+FRIENDSTER_SMALL_V = 7_944_949
+BLOCKED_E = 32_000_000
+BLOCKED_BATCHES = 1024
+SGD_FRIENDSTER = {"type": "SGD", "lr": 0.025, "weight_decay": 5e-3}
+BUILD_FRIENDSTER = dict(num_negative=1, batch_size=100000, episode_size=3500)
+LINE_FRIENDSTER = dict(model="LINE", augmentation_step=1, negative_weight=5.0,
+                       log_frequency=10**9)
+# kernel 2's path on the shards (not the config's optimizer), with the
+# edge phase's Adam settings
+ADAM_BLOCKED = {"type": "Adam", "lr": 1e-6, "weight_decay": 0.0}
+# what a solver caches of the blocked set-up (partition, block tables,
+# alias arrays on the card): handed on to the next run on the same graph
+BLOCKED_PREP = ("_blocked_key", "_blocked_part", "_blocked_tables",
+                "_blocked_edges", "_blocked_neg", "_blocked_setup_s")
+
+
+def train_blocked(graph, optimizer, app_kw, build_kw, env, per_batch,
+                  prep=None, batches=BLOCKED_BATCHES):
+    """LINE at the line_friendster-small.yaml shape through GraphApplication
+    on blocked episodes, GRAPHVITE_MIN_SWEEPS=1 (episodes of 64 of the 1024
+    batches): the launch counts set to 0 just before train() and read just
+    after, the peak device memory from a reset just before. `prep`: an
+    earlier run's blocked set-up on the same graph. Returns the
+    application, the record and a list of problems."""
+    import torch
+    from graphvite_tpu_torch import GraphApplication
+
+    env = dict(env, GRAPHVITE_MIN_SWEEPS="1")
+    with environ(env):
+        app = GraphApplication(dim=DIM, **app_kw)
+        app.graph = graph
+        app.build(optimizer=optimizer, **BUILD_FRIENDSTER, **build_kw)
+        s = app.solver
+        for name in (BLOCKED_PREP if prep else ()):
+            setattr(s, name, prep[name])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        reset_launches()
+        t0 = time.perf_counter()
+        app.train(num_epoch=batches * s.batch_size / graph.num_edge + 1e-9,
+                  **LINE_FRIENDSTER)
+        elapsed = time.perf_counter() - t0     # train() ends synchronized
+        counts = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = s.blocked_stats
+    run = s.batch_id
+    eps = max(st["episodes"], 1)
+    losses = s.batch_losses.double()
+    k = max(run // 10, 5)
+    tables_finite = all(bool(torch.isfinite(t.float()).all())
+                        for t in s.state["tables"])
+    moment_rows = [int((m != 0).any(dim=1).sum())
+                   for group in s.state["moments"] for m in group]
+    rec = {"optimizer": optimizer["type"], "batches": run,
+           "batch": s.batch_size, "num_partition": st["num_partition"],
+           "host_master": st["host_master"],
+           "master_memory": st.get("master_memory"),
+           "master_gb": st.get("master_gb"), "ep_batches": st["ep_batches"],
+           "episodes": st["episodes"], "hits": st["hits"],
+           "misses": st["misses"], "elapsed_s": elapsed,
+           "split_s": st["split_s"], "loop_s": st["loop_s"],
+           "join_s": st["join_s"],
+           "ms_per_batch": st["loop_s"] / run * 1e3,
+           "samples_per_s": run * s.batch_size / st["loop_s"],
+           "h2d_gb_per_episode": st["h2d_bytes"] / eps / 1e9,
+           "h2d_s_per_episode": st["h2d_s"] / eps,
+           "d2h_gb_per_episode": st["d2h_bytes"] / eps / 1e9,
+           "d2h_s_per_episode": st["d2h_s"] / eps,
+           "launches": counts,
+           "launches_per_batch": {n: c / run for n, c in counts.items() if c},
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": tables_finite,
+           "nonzero_moment_rows": moment_rows,
+           "state_device": s.state["tables"][0].device.type,
+           "base_mem_gb": base_gb, "peak_mem_gb": peak_gb}
+    problems = []
+    want = {name: per_batch.get(name, 0) * run for name in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if run != batches or st["ep_batches"] != 64:
+        problems.append("%d batches in episodes of %d (want %d in 64)"
+                        % (run, st["ep_batches"], batches))
+    if not rec["losses_finite"] or not tables_finite:
+        problems.append("losses or tables not finite")
+    if optimizer["type"] == "Adam" and not all(moment_rows):
+        problems.append("a moment table did not move: %r" % moment_rows)
+    if st["host_master"] and (rec["state_device"] != "cpu" or not
+                              st["misses"] or not st["h2d_bytes"]
+                              or not st["d2h_bytes"]):
+        problems.append("the host master staged nothing or left its state "
+                        "on the card: %r" % rec)
+    return app, rec, problems
+
+
+def trace_blocked_episode(app, ms_per_batch, env):
+    """One more episode of a blocked run (resumed, 68 batches: the
+    episode length of 1,092 batches at GRAPHVITE_MIN_SWEEPS=1) under
+    torch.profiler: kernels (copies not counted) and device time per
+    batch, and their share of the run's unprofiled batch time, with and
+    without the staging copies (a resumed host-master run stages both
+    shards in and out: two misses in 68 batches)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    s = app.solver
+    n0 = s.batch_id
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with environ(dict(env, GRAPHVITE_MIN_SWEEPS="1")):
+        with profile(activities=acts) as prof:
+            app.train(num_epoch=(n0 + 68) * s.batch_size / s.graph.num_edge
+                      + 1e-9, resume=True, **LINE_FRIENDSTER)
+            torch.cuda.synchronize()
+    run = s.batch_id - n0
+    rows = [(ev.self_device_time_total, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total]
+    if not rows:
+        raise AssertionError("the profiler recorded no device time")
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3 / run
+    copy_ms = sum(r[0] for r in rows if r[2].startswith("Memcpy")) / 1e3 / run
+    copies = sum(r[1] for r in rows if r[2].startswith("Memcpy"))
+    return {"batches": run, "episodes": s.blocked_stats["episodes"],
+            "misses": s.blocked_stats["misses"],
+            "device_ms_per_batch": device_ms,
+            "copy_ms_per_batch": copy_ms,
+            "kernels_per_batch": (sum(r[1] for r in rows) - copies) / run,
+            "busy_share": device_ms / ms_per_batch,
+            "kernel_busy_share": (device_ms - copy_ms) / ms_per_batch,
+            "top": [{"kernel": name[:70], "ms_per_batch": us / 1e3 / run,
+                     "calls_per_batch": c / run}
+                    for us, c, name in rows[:12]]}
+
+
+def blocked_batch_ids(solver, seed):
+    """One batch's update ids as the blocked runner draws them, on the
+    block with the most edges: the vertex shard's local heads [B] and the
+    context shard's K negatives and tail per sample [B (K + 1)]."""
+    import torch
+    from graphvite_tpu_torch.ops.blocked import _pick_edges
+
+    dev = solver.device
+    tables = solver._blocked_tables
+    P_ = solver._blocked_part.num_partition
+    counts = np.diff(tables.offsets.astype(np.int64))
+    blk = int(np.argmax(counts))
+    j = blk % P_
+    B, K = solver.batch_size, solver.num_negative
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, int(counts[blk]), (B,), generator=gen, device=dev)
+    u = torch.rand((B,), generator=gen, device=dev)
+    heads, tails = _pick_edges(int(tables.offsets[blk]), idx, u,
+                               *solver._blocked_edges)
+    nprob, nalias, nsizes = (x[j] for x in solver._blocked_neg)
+    u1, u2 = (torch.rand((B, K), generator=gen, device=dev) for _ in range(2))
+    nidx = torch.clamp((u1 * nsizes).long(), max=nsizes - 1)
+    negs = torch.where(u2 < nprob[nidx], nidx, nalias[nidx].long())
+    ctx = torch.cat([negs, tails.long()[:, None]], dim=1).reshape(-1)
+    return {"vertex": heads.long(), "context": ctx,
+            "rows": solver._blocked_part.capacity}
+
+
+def blocked_phase(seed):
+    """Blocked episodes at the line_friendster-small.yaml shape: (a)
+    num_partition=4 with the shards on the card, (b) the auto rule under a
+    gpu_memory_limit below the demand (P = 4 and the host master), which
+    must give (a)'s tables bit for bit inside the limit, (c) Adam with the
+    host master; one episode of (b) traced; predict on (b)'s host tables
+    against manual scoring."""
+    import torch
+
+    if os.environ.get("GRAPHVITE_HBM_BYTES") or os.environ.get(
+            "GRAPHVITE_HOST_MASTER"):
+        raise AssertionError("GRAPHVITE_HBM_BYTES and GRAPHVITE_HOST_MASTER "
+                             "must be unset: the phase sets what it needs")
+    t0 = time.perf_counter()
+    graph = power_law_graph(FRIENDSTER_SMALL_V, BLOCKED_E, seed)
+    graph_s = time.perf_counter() - t0
+    log("graph: %d vertices, %d input edges, %d directed, built in %.1f s"
+        % (graph.num_vertex, graph.num_edge, graph.num_directed_edge,
+           graph_s))
+    from graphvite_tpu_torch.utils.common import hbm_budget_bytes
+
+    # the budget the auto rule reads on this card without a limit
+    out = {"graph_s": graph_s,
+           "card_budget_gb": hbm_budget_bytes(0, "cuda") / 1e9}
+    log("   the card's budget for the auto rule: %.3f GB"
+        % out["card_budget_gb"])
+    problems = []
+    torch.cuda.empty_cache()
+
+    # (a) shards on the card
+    app, rec, bad = train_blocked(graph, SGD_FRIENDSTER, {},
+                                  {"num_partition": 4},
+                                  {"GRAPHVITE_HOST_MASTER": "0"},
+                                  {"scatter_add_": 2})
+    s = app.solver
+    rec["setup_s"] = dict(s.blocked_stats["setup_s"])
+    log("   (a) P 4, shards on the card:", json.dumps(rec))
+    out["a"] = rec
+    problems += ["a: " + p for p in bad]
+    if not rec["loss_last"] < rec["loss_first"]:
+        problems.append("a: losses not falling")
+    want = [t.cpu() for t in s.state["tables"]]
+    want_losses = s.batch_losses.cpu()
+    out["trace_a"] = trace_blocked_episode(app, rec["ms_per_batch"],
+                                           {"GRAPHVITE_HOST_MASTER": "0"})
+    log("   (a) trace of one episode:", json.dumps(out["trace_a"]))
+    prep = {name: getattr(s, name) for name in BLOCKED_PREP}
+    out["ids"] = blocked_batch_ids(s, seed + 1)
+    del app, s
+    torch.cuda.empty_cache()
+
+    # (b) the auto rule below the demand: P = 4 and the host master
+    demand = FRIENDSTER_SMALL_V * DIM * 8 + 16 * graph.num_edge
+    limit = int(0.9 * demand)
+    app, rec, bad = train_blocked(graph, SGD_FRIENDSTER,
+                                  {"gpu_memory_limit": limit}, {}, {},
+                                  {"scatter_add_": 2}, prep)
+    rec["gpu_memory_limit_gb"] = limit / 1e9
+    rec["demand_gb"] = demand / 1e9
+    s = app.solver
+    rec["equal_to_a"] = (all(torch.equal(a, b) for a, b in
+                             zip(want, s.state["tables"]))
+                         and torch.equal(want_losses, s.batch_losses.cpu()))
+    del want
+    # predict through the host-row path against manual host scoring
+    rng = np.random.default_rng(seed)
+    pairs = rng.integers(0, graph.num_vertex, (100000, 2))
+    vertex, context = s.state["tables"]
+    ph, pt = torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1])
+    manual = (vertex[ph].float() * context[pt].float()).sum(-1).numpy()
+    scores = s.predict(pairs)
+    rec["predict_max_abs_diff"] = float(np.abs(scores - manual).max())
+    log("   (b) auto rule, host master:", json.dumps(rec))
+    out["b"] = rec
+    problems += ["b: " + p for p in bad]
+    if (rec["num_partition"], rec["host_master"]) != (4, True):
+        problems.append("b: the auto rule chose P %d, host master %s (want "
+                        "4, True)" % (rec["num_partition"],
+                                      rec["host_master"]))
+    if not rec["equal_to_a"]:
+        problems.append("b: tables or losses differ from (a)'s")
+    if rec["peak_mem_gb"] * 1e9 > limit:
+        problems.append("b: peak device memory %.2f GB above the limit "
+                        "%.2f GB" % (rec["peak_mem_gb"], limit / 1e9))
+    if not np.allclose(scores, manual, rtol=1e-4, atol=1e-4):
+        problems.append("b: host-row predict differs from manual scoring "
+                        "by %g" % rec["predict_max_abs_diff"])
+    out["trace_b"] = trace_blocked_episode(app, rec["ms_per_batch"], {})
+    log("   (b) trace of one episode:", json.dumps(out["trace_b"]))
+    del app, s, vertex, context
+    torch.cuda.empty_cache()
+
+    # (c) Adam with the host master: kernel 2 on the shards
+    app, rec, bad = train_blocked(graph, ADAM_BLOCKED, {},
+                                  {"num_partition": 4},
+                                  {"GRAPHVITE_HOST_MASTER": "1"},
+                                  {"scatter_update_": 2}, prep)
+    log("   (c) Adam, host master:", json.dumps(rec))
+    out["c"] = rec
+    problems += ["c: " + p for p in bad]
+    del app, prep, graph
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def two_blocks(n=60, seed=0):
     """Two dense communities, sparse cross links (tests/test_solver.py)."""
     rng = np.random.default_rng(seed)
@@ -2057,13 +2360,16 @@ def two_blocks(n=60, seed=0):
     return edges
 
 
-def quality(model="DeepWalk", device=None, classic=False):
+def quality(model="DeepWalk", device=None, classic=False, blocked=False):
     """Two-block link prediction and node classification through
     GraphApplication: DeepWalk or node2vec (p 4, q 2; augmentation 2, the
     unfused trust-clip walk route), or LINE (augmentation 1, the edge route
     on a table below the dense-update size: the trust clip on the
     scatter-add), with the protocols of tests/test_solver.py. `classic`:
-    the classic K-draw step (GRAPHVITE_NEG_SHARING=0) on walk pairs."""
+    the classic K-draw step (GRAPHVITE_NEG_SHARING=0) on walk pairs.
+    `blocked` (LINE): blocked episodes over 4 partitions with the host
+    master (GRAPHVITE_HOST_MASTER=1), so evaluation scores the tables in
+    host memory."""
     from graphvite_tpu_torch import GraphApplication
 
     edges = two_blocks()
@@ -2076,10 +2382,14 @@ def quality(model="DeepWalk", device=None, classic=False):
         if model == "node2vec":
             kw.update(p=4.0, q=2.0)
     else:
-        app.build(num_negative=2, batch_size=512, episode_size=8)
+        app.build(num_negative=2, batch_size=512, episode_size=8,
+                  num_partition=4 if blocked else 0)
         kw = dict(num_epoch=1000, augmentation_step=1)
+    env = {"GRAPHVITE_NEG_SHARING": "0"} if classic else {}
+    if blocked:
+        env["GRAPHVITE_HOST_MASTER"] = "1"
     reset_launches()
-    with environ({"GRAPHVITE_NEG_SHARING": "0"} if classic else {}):
+    with environ(env):
         app.train(model=model, negative_weight=1.0, log_frequency=10**9,
                   **kw)
     launches = read_launches()
@@ -2103,11 +2413,13 @@ def quality(model="DeepWalk", device=None, classic=False):
             "micro_f1": nc["micro-F1@50%"], "fused_arena": s._banded_fused,
             "sweeps": [s._sweep_gather, s._sweep_scatter, s._sweep_context],
             "batches": s.batch_id, "micro_steps": s._batch_plan()[2],
+            "blocked": blocked,
+            "state_device": s.state["tables"][0].device.type,
             "launches": launches}
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the command line
+# phase 14: the command line
 # ---------------------------------------------------------------------------
 
 # tools/blogcatalog_clone.py: BlogCatalog's published statistics
@@ -2116,7 +2428,9 @@ BLOGCATALOG_E = 333_983
 BLOGCATALOG_COMMUNITIES = 39
 BLOGCATALOG_MIXING = 0.25     # fraction of stubs wired to the background
 # tools/word_graph_e2e.py: the planted-topic corpus
-CORPUS_TOKENS = 10_000_000
+# 5M tokens (the gate holds at 5M and at 10M): a corpus that keeps the
+# whole smoke, blocked phase included, under 1,000 s on a slow host
+CORPUS_TOKENS = 5_000_000
 CORPUS_VOCAB = 100_000
 CORPUS_TOPICS = 50
 
@@ -2826,7 +3140,11 @@ def run(args):
     phase("vis_big", lambda: vis_big_phase(args.seed))
     torch.cuda.empty_cache()
 
-    # 11. each kernel against its plain version, on the paths' own ids
+    # 11. blocked episodes and the host master (LINE, friendster-small)
+    phase("blocked", lambda: blocked_phase(args.seed))
+    torch.cuda.empty_cache()
+
+    # 12. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         cases = {"scatter_add": [], "gather_sorted": [],
@@ -2923,25 +3241,46 @@ def run(args):
                                     vis["counts"], MNIST_N, 8, dtype, gen)
             log("   scatter_update_ (vis ids, W 8)", json.dumps(rec))
             cases["scatter_update"].append(rec)
+        # the blocked path's shard-local ids: unsorted, over a ~1.99M x 128
+        # shard; kernel 2 with the sharded step's count of 1 per entry
+        blk = results["blocked"]["ids"]
+        for side in ("vertex", "context"):
+            ids = blk[side]
+            name = "blocked %s shard" % side
+            for dtype in (torch.float32, torch.bfloat16):
+                rec = check_add_rows(name, ids, blk["rows"], DIM, dtype, gen)
+                log("   scatter_add_ (%s)" % name, json.dumps(rec))
+                cases["scatter_add"].append(rec)
+            ones = torch.ones(ids.numel(), device="cuda")
+            rec = check_update_rows(name, ids, ones, blk["rows"], DIM,
+                                    torch.float32, gen)
+            log("   scatter_update_ (%s)" % name, json.dumps(rec))
+            cases["scatter_update"].append(rec)
+            torch.cuda.empty_cache()
         return cases
-    needed = ("main", "node2vec", "edge", "kg", "kg_big", "vis")
+    needed = ("main", "node2vec", "edge", "kg", "kg_big", "vis", "blocked")
     if all(name in results for name in needed):
         phase("kernel", kernel)
     else:
         failures.append("kernel (needs the paths' ids)")
 
-    # 12. quality
+    # 13. quality
     def quality_phase():
         out = {}
-        for name, model, classic in (("DeepWalk", "DeepWalk", False),
-                                     ("LINE", "LINE", False),
-                                     ("node2vec", "node2vec", False),
-                                     ("classic", "DeepWalk", True)):
-            q = quality(model, classic=classic)
+        for name, model, classic, blocked in (
+                ("DeepWalk", "DeepWalk", False, False),
+                ("LINE", "LINE", False, False),
+                ("node2vec", "node2vec", False, False),
+                ("classic", "DeepWalk", True, False),
+                ("LINE blocked, host master", "LINE", False, True)):
+            q = quality(model, classic=classic, blocked=blocked)
             log("   two-block %s on the card:" % name, json.dumps(q))
             if not q["auc"] > 0.9:
                 raise AssertionError("%s link-prediction AUC %.4f <= 0.9"
                                      % (name, q["auc"]))
+            if q["state_device"] != ("cpu" if blocked else "cuda"):
+                raise AssertionError("%s: the tables ended on the %s"
+                                     % (name, q["state_device"]))
             others = sum(q["launches"].values()) - q["launches"]["scatter_add_"]
             if (q["launches"]["scatter_add_"]
                     != 2 * q["micro_steps"] * q["batches"] or others
@@ -2953,7 +3292,7 @@ def run(args):
         return out
     phase("quality", quality_phase)
 
-    # 13. the command line: three shipped configs through cmd, in process,
+    # 14. the command line: three shipped configs through cmd, in process,
     # and `cmd list` in a process of its own
     def cli_phase():
         root = os.environ["GRAPHVITE_DATASET_PATH"]
@@ -2993,7 +3332,7 @@ def run(args):
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 14. summary: the card line, the kernels line, the result line
+    # 15. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
@@ -3009,6 +3348,9 @@ def run(args):
     for name in ("float32", "bfloat16"):
         k1["kg_big_" + name] = kg_big[name]["launches"]["scatter_add_"]
     k1["vis_sgd"] = results["vis"]["sgd"]["launches"]["scatter_add_"]
+    blocked = results["blocked"]
+    k1["blocked_a_sgd"] = blocked["a"]["launches"]["scatter_add_"]
+    k1["blocked_b_sgd_host_master"] = blocked["b"]["launches"]["scatter_add_"]
     for name in ("quick_start", "line_wikipedia"):
         k1["cli_" + name] = results["cli"][name]["launches"]["scatter_add_"]
     k2 = {"edge_adam": (edge["adam"]["launches"]["scatter_update_"]
@@ -3017,7 +3359,9 @@ def run(args):
           # the vis tables take the dense moment route
           "vis_adam": results["vis"]["adam"]["launches"]["scatter_update_"],
           "vis_big_adam": (results["vis_big"]["adam"]["launches"]
-                           ["scatter_update_"])}
+                           ["scatter_update_"]),
+          "blocked_c_adam_host_master": (blocked["c"]["launches"]
+                                         ["scatter_update_"])}
     k3 = {"edge_float32": edge["float32"]["launches"]["gather_sorted"]}
     kernels_line = {"kernels": [
         # the DeepWalk batch-100000 update, float32 table

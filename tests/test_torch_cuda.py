@@ -978,3 +978,165 @@ save:
     assert scatter.scatter_add_.launches - before >= app.solver.batch_id
     assert results[0]["AUC"] > 0.9, results
     assert (tmp_path / "line.pkl").is_file()
+
+
+def _two_block_edges(seed=0):
+    """Two communities of 40 vertices (tests/test_blocked.py's graph)."""
+    rng = np.random.default_rng(seed)
+    edges = []
+    for blk in range(2):
+        nodes = np.arange(blk * 40, blk * 40 + 40)
+        for _ in range(500):
+            u, v = rng.choice(nodes, 2, replace=False)
+            edges.append((str(u), str(v)))
+    edges += [(str(rng.integers(0, 40)), str(40 + rng.integers(0, 40)))
+              for _ in range(25)]
+    return edges
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule,float_type", [("SGD", "float32"),
+                                             ("SGD", "bfloat16"),
+                                             ("Adam", "float32")])
+def test_host_master_on_card_matches_device_resident(rule, float_type,
+                                                     monkeypatch):
+    """Blocked episodes on the card (P = 4) with the host master on and
+    off: bit-equal tables, moments and losses. The host master's tables
+    stay in host memory, and predict scores them through the host-row path
+    as manual scoring does. Every batch launches kernel 1 twice (SGD) or,
+    with the dense-update size shrunk below a shard, kernel 2 twice
+    (Adam)."""
+    from graphvite_tpu_torch.graph import Graph
+    from graphvite_tpu_torch.solver import GraphSolver
+
+    _cuda()
+    if rule == "Adam":
+        monkeypatch.setattr(optim_mod, "DENSE_UPDATE_ELEMS", 64)
+    g = Graph().load_edge_list(_two_block_edges())
+    out = {}
+    for hm in ("0", "1"):
+        monkeypatch.setenv("GRAPHVITE_HOST_MASTER", hm)
+        s = GraphSolver(dim=32, seed=0, float_type=float_type)
+        s.build(g, optimizer={"type": rule,
+                              "lr": 0.025 if rule == "SGD" else 1e-3,
+                              "weight_decay": 5e-3 if rule == "SGD" else 0},
+                num_partition=4, num_negative=1, batch_size=512,
+                episode_size=8)
+        before = (scatter.scatter_add_.launches,
+                  scatter.scatter_update_.launches)
+        s.train(model="LINE", num_epoch=200, augmentation_step=1,
+                negative_weight=1.0, log_frequency=10**9)
+        launched = (scatter.scatter_add_.launches - before[0],
+                    scatter.scatter_update_.launches - before[1])
+        assert launched == ((2 * s.batch_id, 0) if rule == "SGD"
+                            else (0, 2 * s.batch_id))
+        where = {t.device.type for t in s.state["tables"]}
+        assert where == ({"cpu"} if hm == "1" else {"cuda"})
+        out[hm] = ([t.float().cpu() for t in s.state["tables"]]
+                   + [m.cpu() for grp in s.state["moments"] for m in grp],
+                   s.batch_losses.cpu())
+        if hm == "1":
+            assert s.blocked_stats["misses"] > 0
+            assert s.blocked_stats["master_memory"] == "pinned"
+            pairs = np.random.default_rng(1).integers(0, g.num_vertex,
+                                                      (500, 2))
+            emb, ctx = s.vertex_embeddings, s.context_embeddings
+            manual = (emb[pairs[:, 0]] * ctx[pairs[:, 1]]).sum(-1)
+            np.testing.assert_allclose(s.predict(pairs), manual, rtol=1e-4,
+                                       atol=1e-4)
+    for a, b in zip(out["0"][0], out["1"][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(out["0"][1], out["1"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["SGD", "Adam"])
+def test_sharded_step_on_card_matches_cpu(rule, monkeypatch):
+    """The per-block step on the card against the CPU from the same
+    shards, batch and draws, at width 128 with the dense-update size
+    shrunk below a shard (Adam on kernel 2). Tolerances of the CPU
+    tests."""
+    from graphvite_tpu_torch.models import GRAPH_MODELS
+    from graphvite_tpu_torch.parallel.mesh import make_sharded_graph_step
+
+    dev = _cuda()
+    monkeypatch.setattr(optim_mod, "DENSE_UPDATE_ELEMS", 1000)
+    rng = np.random.default_rng(8)
+    cap, size, D, B, K = 5000, 4900, 128, 4096, 1
+    opt = Optimizer(type=rule, lr=0.025 if rule == "SGD" else 1e-3,
+                    weight_decay=5e-3 if rule == "SGD" else 0.0)
+    step = make_sharded_graph_step(GRAPH_MODELS["LINE"], opt, K, 5.0)
+    heads = (rng.random(B) ** 2 * size).astype(np.int32)
+    tails = (rng.random(B) ** 2 * size).astype(np.int32)
+    mask = (rng.random(B) > 0.05).astype(np.float32)
+    u1, u2 = rng.random((B, K), np.float32), rng.random((B, K), np.float32)
+    nprob = np.zeros(cap, np.float32)
+    nprob[:size] = rng.random(size)
+    nalias = np.zeros(cap, np.int32)
+    nalias[:size] = rng.integers(0, size, size)
+    tables = [rng.normal(0, 0.1, (cap, D)).astype(np.float32)
+              for _ in range(2)]
+    moms = [[np.abs(rng.normal(0, 1e-3, (cap, D))).astype(np.float32)
+             for _ in range(opt.num_moment)] for _ in range(2)]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        def t(a):
+            return torch.tensor(a, device=d)
+        state = {"tables": tuple(t(x) for x in tables),
+                 "moments": tuple(tuple(t(m) for m in g) for g in moms)}
+        with torch.no_grad():
+            new, loss = step(state, (t(heads), t(tails), t(mask)), opt.lr,
+                             t(nprob), t(nalias), size, draws=(t(u1), t(u2)))
+        _sync(d)
+        out.append(([x.cpu().numpy() for x in new["tables"]]
+                    + [m.cpu().numpy() for g in new["moments"] for m in g],
+                    float(loss)))
+    (gpu, gl), (cpu, cl) = out
+    np.testing.assert_allclose(gl, cl, rtol=2e-5)
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose(a, b, rtol=3e-4, atol=3e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [100_000, 200_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_on_shard_ids(n, dtype):
+    """Kernels 1 and 2 on shard-local ids of the blocked path's shape:
+    unsorted power-law ids over a 1,986,238 x 128 shard (friendster-small's
+    7,944,949 vertices in 4 partitions), 100,000 (vertex side) or 200,000
+    (context side, K = 1) of them, against their plain versions on the
+    touched rows, renumbered."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(n)
+    cap, w = 1_986_238, 128
+    ids = (torch.rand(n, generator=gen, device=dev) ** 2.5 * cap).long()
+    upd = torch.randn((n, w), generator=gen, device=dev) * 1e-2
+    table = (torch.randn((cap, w), generator=gen, device=dev) * 0.1).to(dtype)
+    rows, inv = torch.unique(ids, return_inverse=True)
+    before = table[rows].clone()
+    want = scatter.scatter_add_plain(before.clone(), inv, upd).float()
+    mag = scatter.scatter_add_plain(before.float().abs(), inv, upd.abs())
+    scatter.scatter_add_(table, ids, upd)
+    got = table[rows].float()
+    tol = 1e-6 * mag
+    if dtype == torch.bfloat16:
+        tol = tol + _bf16_ulp(want)
+    assert bool(((got - want).abs() <= tol).all())
+    del table, before, want, mag, got
+    if dtype != torch.float32:
+        return
+    opt = Optimizer(type="Adam", lr=1e-3, weight_decay=0.0)
+    table = torch.randn((cap, w), generator=gen, device=dev) * 0.1
+    moms = tuple(torch.rand((cap, w), generator=gen, device=dev) * 1e-4
+                 for _ in range(2))
+    before = [x[rows].clone() for x in (table,) + moms]
+    counts = torch.ones(n, device=dev)
+    sqs = upd * upd
+    want_t, want_m = scatter.scatter_update_plain(
+        before[0].clone(), tuple(m.clone() for m in before[1:]), inv, upd,
+        opt, 1e-3, counts, sqs)
+    scatter.scatter_update_(table, moms, ids, upd, opt, 1e-3,
+                            entry_counts=counts, entry_sqs=sqs)
+    for got, want in zip((table,) + moms, (want_t,) + want_m):
+        got = got[rows]
+        assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())

@@ -411,11 +411,23 @@ def test_edge_route_default_gate_on_cpu():
     ({}, dict(gpu_memory_limit=1000)),     # the auto overflow rule
 ])
 def test_blocked_episodes_raise(build_kw, init_kw):
+    """The two cases that raised before blocked episodes were ported now
+    train them (tests/test_torch_blocked.py holds them to the reference):
+    an explicit num_partition, and the auto rule's overflow, which also
+    engages the host master."""
     g = _port_graph(two_blocks(40))
     s = GraphSolver(dim=8, device="cpu", **init_kw)
     s.build(g, batch_size=512, **build_kw)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        s.train(model="LINE", num_epoch=1, augmentation_step=1)
+    s.train(model="LINE", num_epoch=1, augmentation_step=1)
+    stats = s.blocked_stats
+    # the auto rule's P (at least 4) is held to the reference's in
+    # tests/test_torch_blocked.py
+    assert (stats["num_partition"] == 2 if build_kw
+            else stats["num_partition"] >= 4)
+    assert stats["host_master"] == (not build_kw)
+    assert stats["episodes"] >= 1 and s.batch_id >= s.num_batch
+    assert np.isfinite(s.vertex_embeddings).all()
+    assert bool(torch.isfinite(s.batch_losses).all())
 
 
 @pytest.mark.parametrize("v,batch,sweep", [

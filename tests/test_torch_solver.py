@@ -244,7 +244,8 @@ def test_linear_classification_matches_reference():
 
 
 @pytest.mark.parametrize("kwargs,env,match", [
-    (dict(augmentation_step=1, num_partition=2), {}, "item 17"),
+    # blocked episodes are ported: this case now trains
+    (dict(augmentation_step=1, num_partition=2), {}, None),
     # the reference's experimental walk opt-ins
     (dict(model="node2vec"), {"GRAPHVITE_BULK_WALKS": "1"}, "item 11"),
     (dict(), {"GRAPHVITE_BF16_BAND": "1"}, "item 11"),
@@ -259,6 +260,11 @@ def test_unported_training_paths_raise(kwargs, env, match, monkeypatch):
               random_walk_length=6, num_partition=0)
     kw.update(kwargs)
     s.build(g, batch_size=512, num_partition=kw.pop("num_partition"))
+    if match is None:
+        s.train(**kw)
+        assert s.blocked_stats["num_partition"] == 2
+        assert np.isfinite(s.vertex_embeddings).all()
+        return
     with pytest.raises(NotImplementedError, match=match):
         s.train(**kw)
 
