@@ -29,7 +29,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             config/graph/node2vec_youtube.yaml hyperparameters (p 4, q 2,
             dim 128, SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5,
             walk 40, batch 100000) on the same graph: the cuckoo table's
-            host build (seconds, bytes), --node2vec-batches measured
+            host build (seconds, bytes), --node2vec-batches (600) measured
             batches (ms/batch, valid pairs/s, one scatter-add launch per
             batch on the fused arena, finite and falling losses, host
             syncs per batch of the loop's body and their call sites by
@@ -133,7 +133,30 @@ Phases, in order (any failure exits non-zero and prints no result line):
             ms/batch, samples/s, episodes, cache hits and misses, staging
             bytes and seconds per episode, set-up seconds by stage, peak
             memory; one more episode of (a) and of (b) traced.
-12. kernel  each kernel against its plain torch version on the card, on the
+12. mesh    the multi-device engines with two workers on the card
+            (GraphApplication / VisualizationApplication with gpus [0, 0])
+            on the graphs the phases above built: (a) LINE in edges mode
+            on the friendster-small clone, SGD (512 worker-batches of
+            99,840) and Adam lr 1e-6 wd 0 (256), the block tables built
+            once; (b) DeepWalk in walks mode on the Youtube clone at the
+            deepwalk_youtube.yaml hyperparameters, SGD (100 of 78,720)
+            and Adam (50), node2vec p 4 q 2 (20), and one worker through
+            the engine (50) against phase main's ms/batch; (c) LargeVis
+            replicas on the MNIST clone, Adam for 20 of the config's 50
+            epochs (10-NN agreement >= 0.95) and SGD (200). Each run:
+            kernel 1 (SGD: twice per worker-batch in edges mode, once on
+            the walks arena and the replicas) or kernel 2 (Adam, twice)
+            and nothing else, ms per worker-batch, samples or valid pairs
+            per second, the drop share (< 1%), set-up seconds, peak
+            memory; two more episodes of 2 batches per worker: host syncs
+            per worker-batch (none allowed) with the update ids of a
+            worker-batch, and a torch.profiler trace (kernels and device
+            time per worker-batch, the collectives' device time). Then
+            two-block LINE and DeepWalk at W = 2 (AUC > 0.9), and each
+            engine with four workers on the card against four on the CPU
+            from the same draws and state (a 20,000-vertex graph, dim 32:
+            tables rtol 3e-4, atol 3e-6, losses rtol 2e-5).
+13. kernel  each kernel against its plain torch version on the card, on the
             ids the main paths drew: scatter_add on the DeepWalk update ids
             (batch 100000 and 250000, with dropped ids added, float32 and
             bfloat16 tables), on the node2vec batch's (float32) and on the
@@ -164,14 +187,19 @@ Phases, in order (any failure exits non-zero and prints no result line):
             path's shard-local ids (100,000 heads and 200,000 context ids
             of one batch over a ~1.99M x 128 shard): scatter_add_ float32
             and bfloat16, scatter_update_ (Adam, one touch per entry).
-13. quality  GraphApplication on a small two-block graph on the card:
+            Then the mesh engines' update ids of one worker-batch:
+            scatter_add_ on the edges engine's vertex and context shards
+            (~3.97M x 128) and the walks engine's fused arena (~569k x
+            256), scatter_update_ (Adam, the engines' counts) on both
+            engines' shards.
+14. quality  GraphApplication on a small two-block graph on the card:
             DeepWalk (the unfused trust-clip route), node2vec (p 4, q 2,
             the same route), the classic step (GRAPHVITE_NEG_SHARING=0),
             LINE on the edge route (the small-table route, the trust clip
             on the scatter-add) and LINE on blocked episodes (P 4, the
             host master; evaluated on the tables in host memory):
             link-prediction AUC > 0.9.
-14. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
+15. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
             list` in a process of its own (the total of baselines), then
             three shipped configs through cmd.load_config and
             cmd.run_config, each copied with its save: path moved into a
@@ -201,7 +229,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             kernel 1 against its plain version (and timed, beside
             index_add_ and its bound) on the vertex and the context ids
             of one more batch of each graph config.
-15. summary the card line, the kernels line, and the result line.
+16. summary the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1330,17 +1358,23 @@ def check_add_rows(name, ids, v, w, dtype, gen):
         table, sid, upd, sort=False, order=order))
     plain_ms = cuda_ms(lambda: scatter.scatter_add_plain(table, ids, upd),
                        reps=5, warmup=1)
-    upd_t = upd.to(dtype)
-    ids64 = ids.long()
+    # index_add_ takes no out-of-range id: the yardstick adds the entries
+    # the kernel keeps (the mesh engines' dropped slots carry id V), and
+    # the bound counts the same work: every entry's id, the kept entries'
+    # update rows and adds, each touched row read and written once
+    keep = (ids >= 0) & (ids < v)
+    upd_t = upd[keep].to(dtype)
+    ids64 = ids[keep].long()
     library_ms = cuda_ms(lambda: table.index_add_(0, ids64, upd_t))
-    uniq = int(rows.numel())
+    uniq, kept = int(rows.numel()), int(ids64.numel())
     bound_ms, bound_by = bytes_bound(
-        n * w * 4 + 2 * uniq * w * table.element_size() + 4 * n, n * w)
+        kept * w * 4 + 2 * uniq * w * table.element_size() + 4 * n,
+        kept * w)
     del table
     return {"entry": "scatter_add_", "case": name, "n": n, "width": w,
             "table_rows": v, "dtype": str(dtype).replace("torch.", ""),
             "tile_rows": scatter.tile_rows(n, w), "unique_rows": uniq,
-            "max_abs_err": max_err, "tolerance": tol, "ms": ms,
+            "kept": kept, "max_abs_err": max_err, "tolerance": tol, "ms": ms,
             "kernel_only_ms": kernel_only_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
@@ -1405,15 +1439,22 @@ def check_update_rows(name, ids, counts, v, d, dtype, gen):
         order=order))
     plain_ms = cuda_ms(lambda: scatter.scatter_update_plain(
         table, moms, ids, grads, opt, 1e-3, counts, sqs), reps=3, warmup=1)
+    # the bound counts every entry's id and the kept (in-range) entries'
+    # counts, gradients and squares (the mesh engines' dropped slots carry
+    # id V), each touched row of the table and its moments read and
+    # written once
     uniq = int(rows.numel())
+    kept = int(((ids >= 0) & (ids < v)).sum())
     s = table.element_size()
     bound_ms, bound_by = bytes_bound(
-        n * d * 8 + 8 * n + 2 * uniq * d * (s + 8), n * d * 3 + uniq * d * 20)
+        kept * d * 8 + 4 * n + 4 * kept + 2 * uniq * d * (s + 8),
+        kept * d * 3 + uniq * d * 20)
     del table, moms
     return {"entry": "scatter_update_", "case": name, "n": n, "width": d,
             "table_rows": v, "sorted": False,
             "tile_rows": scatter.tile_rows(n, d), "optimizer": "Adam",
             "dtype": str(dtype).replace("torch.", ""), "unique_rows": uniq,
+            "kept": kept,
             "max_abs_err": max_err,
             "tolerance": "|err| <= 2e-5 + 2e-5 |want| (+ 1 bf16 ulp of the "
             "result and 1 of the old row)",
@@ -1422,7 +1463,7 @@ def check_update_rows(name, ids, counts, v, d, dtype, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: each kernel against its plain version
+# phase 13: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def check_kernel(ids, dtype, gen):
@@ -1713,10 +1754,6 @@ def front_end_breakdown(name, call, calls=20):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: quality
-# ---------------------------------------------------------------------------
-
-# ---------------------------------------------------------------------------
 # phases 9 and 10 (vis, vis_big): LargeVis
 # ---------------------------------------------------------------------------
 
@@ -1960,8 +1997,9 @@ def replay_vis_batch(solver, seed):
     return rec, {"ids": ids, "counts": counts}, problems
 
 
-def vis_phase(seed):
-    """LargeVis at the largevis_mnist_2d.yaml shape, full depth."""
+def vis_phase(seed, shared=None):
+    """LargeVis at the largevis_mnist_2d.yaml shape, full depth. The KNN
+    graph and the labels are left in `shared` for the mesh phase."""
     import torch
     from graphvite_tpu_torch import VisualizationApplication
 
@@ -2006,6 +2044,8 @@ def vis_phase(seed):
                                          LARGEVIS, batches=20)
             log("   trace:", json.dumps(out["trace"]))
         del app
+    if shared is not None:
+        shared["mnist"] = (graph, labels)
     del graph
     torch.cuda.empty_cache()
     if problems:
@@ -2237,8 +2277,9 @@ def blocked_batch_ids(solver, seed):
             "rows": solver._blocked_part.capacity}
 
 
-def blocked_phase(seed):
-    """Blocked episodes at the line_friendster-small.yaml shape: (a)
+def blocked_phase(seed, shared=None):
+    """Blocked episodes at the line_friendster-small.yaml shape (the graph
+    is left in `shared` for the mesh phase): (a)
     num_partition=4 with the shards on the card, (b) the auto rule under a
     gpu_memory_limit below the demand (P = 4 and the host master), which
     must give (a)'s tables bit for bit inside the limit, (c) Adam with the
@@ -2337,12 +2378,586 @@ def blocked_phase(seed):
     log("   (c) Adam, host master:", json.dumps(rec))
     out["c"] = rec
     problems += ["c: " + p for p in bad]
+    if shared is not None:
+        shared["friendster"] = graph
     del app, prep, graph
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError("; ".join(problems))
     return out
 
+
+# ---------------------------------------------------------------------------
+# phase 12: the multi-device engines, W workers on one card
+# ---------------------------------------------------------------------------
+
+MESH_IDS = [0, 0]              # device_ids: two workers on cuda:0
+MESH_EDGE_BATCH = 99840        # per worker: 100000 in whole units of 256
+MESH_WALK_BATCH = 78720        # per worker: 192 walks of 41 x 10 slots
+MESH_EDGE_RUNS = (("sgd", SGD_FRIENDSTER, 512, {"scatter_add_": 2}),
+                  ("adam", ADAM_BLOCKED, 256, {"scatter_update_": 2}))
+MESH_WALK_RUNS = (("sgd", "DeepWalk", SGD_YOUTUBE, 100, {"scatter_add_": 1}),
+                  ("adam", "DeepWalk", ADAM_FLICKR, 50,
+                   {"scatter_update_": 2}),
+                  ("node2vec", "node2vec", SGD_YOUTUBE, 20,
+                   {"scatter_add_": 1}))
+MESH_W1_BATCHES = 50
+MESH_CHECK_BATCHES = 2         # per worker, in the sync and traced episodes
+MESH_VIS_EPOCHS = 20           # of the config's 50: a depth cut
+MESH_VIS_SGD_BATCHES = 200
+MESH_REPLAY_W = 4
+
+
+@contextlib.contextmanager
+def recording_updates(calls):
+    """Record the (entry, table rows, width, ids, counts) of every table
+    update the engines make while the block runs: the port's modules call
+    the kernel wrappers through their own names, so those names are
+    wrapped, and restored after."""
+    import graphvite_tpu_torch.optim as optim_mod
+    import graphvite_tpu_torch.parallel.mesh as mesh_mod
+
+    saved = []
+
+    def wrap(mod, name):
+        fn = getattr(mod, name)
+
+        def rec(table, *args, **kw):
+            ids = args[1] if name == "scatter_update_" else args[0]
+            calls.append({"entry": name, "rows": table.shape[0],
+                          "width": table.shape[1], "ids": ids.clone(),
+                          "counts": (kw.get("entry_counts").clone()
+                                     if kw.get("entry_counts") is not None
+                                     else None)})
+            return fn(table, *args, **kw)
+        saved.append((mod, name, fn))
+        setattr(mod, name, rec)
+
+    wrap(optim_mod, "scatter_add_")
+    wrap(optim_mod, "scatter_update_")
+    wrap(mesh_mod, "scatter_add_")
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def mesh_episode_checks(solver, seed):
+    """Two more episodes of MESH_CHECK_BATCHES batches per worker of a
+    mesh run's engine from its gathered state: host syncs per
+    worker-batch (torch's sync debug mode) and the update ids of its
+    first worker-batch (kernel cases); then a traced one."""
+    import torch
+
+    tr = solver._mesh_trainer
+    # two batches per worker: the sync debug mode and the profiler cost
+    # host time per launch, and node2vec launches ~10,000 per batch
+    ep_batches, tr.ep_batches = tr.ep_batches, MESH_CHECK_BATCHES
+    state = tr.init_state(*solver.state["tables"],
+                          moments=solver.state["moments"])
+    neg = tr.init_negative_state(np.asarray(solver.graph.vertex_weights))
+    sample = solver._mesh_sample_state
+    calls = []
+
+    def episode():
+        with recording_updates(calls):
+            tr.run_episode(state, sample, neg, 0, solver.num_batch, seed)
+
+    per_episode, sites = syncs_per_call(episode, calls=1)
+    torch.cuda.synchronize()
+    per_batch = per_episode / (tr.ep_batches * tr.num_partition)
+    trace = trace_mesh_episode(
+        lambda: tr.run_episode(state, sample, neg, 0, solver.num_batch,
+                               seed), tr.ep_batches * tr.num_partition)
+    tr.ep_batches = ep_batches
+    del state
+    return per_batch, sites, calls, trace
+
+
+def trace_mesh_episode(episode, worker_batches):
+    """One engine episode under torch.profiler: kernels and device time
+    per worker-batch, and the collectives' device time (their mesh::
+    ranges: the copies of all_to_all, ring_shift and sum) per episode."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        episode()
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    rows, ranges = [], {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("mesh::"):
+            ranges[ev.key] = {"calls": ev.count,
+                              "device_s": ev.device_time_total / 1e6,
+                              "host_s": ev.cpu_time_total / 1e6}
+        elif (ev.device_type == DeviceType.CUDA
+              and ev.self_device_time_total):
+            rows.append((ev.self_device_time_total, ev.count, ev.key))
+    if not rows:
+        raise AssertionError("the profiler recorded no device time")
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows) / 1e3 / worker_batches
+    return {"worker_batches": worker_batches, "wall_s_profiled": wall_s,
+            "device_ms_per_worker_batch": device_ms,
+            "kernels_per_worker_batch": sum(r[1] for r in rows)
+            / worker_batches,
+            "collectives_per_episode": ranges,
+            "top": [{"kernel": name[:70],
+                     "ms_per_worker_batch": us / 1e3 / worker_batches,
+                     "calls_per_worker_batch": c / worker_batches}
+                    for us, c, name in rows[:8]]}
+
+
+def train_mesh_graph(graph, model, optimizer, batches, build_kw, train_kw,
+                     per_batch, env, eff, seed, blocks=None):
+    """Node embedding through GraphApplication with `gpus` = MESH_IDS (two
+    workers on one card): the launch counts set to 0 just before train()
+    and read just after, the peak device memory from a reset just before;
+    then one more episode for host syncs and update ids. `blocks`: an
+    earlier run's block tables on this graph (the solver's
+    `_mesh_blocks`). Returns the application, the record, the recorded
+    updates and a list of problems."""
+    import torch
+    from graphvite_tpu_torch import GraphApplication
+
+    with environ(env):
+        app = GraphApplication(dim=DIM, gpus=MESH_IDS)
+        app.graph = graph
+        app.build(optimizer=optimizer, **build_kw)
+        s = app.solver
+        if blocks is not None:
+            s._mesh_blocks = blocks
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        app.train(model=model, num_epoch=batches * eff / graph.num_edge
+                  + 1e-9, log_frequency=10**9, **train_kw)
+        elapsed = time.perf_counter() - t0     # train() ends synchronized
+        counts = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        syncs, sites, calls, trace = mesh_episode_checks(s, seed)
+    st = s.mesh_stats
+    run = s.batch_id
+    losses = s.batch_losses.double()
+    k = max(run // 10, 5)
+    rec = {"model": model, "optimizer": optimizer["type"],
+           "workers": st["workers"], "device_ids": MESH_IDS,
+           "batches": run, "batch": s.effective_batch,
+           "ep_batches": st["ep_batches"], "episodes": st["episodes"],
+           "elapsed_s": elapsed, "loop_s": st["loop_s"],
+           "setup_s": st["setup_s"],
+           "ms_per_worker_batch": st["loop_s"] / run * 1e3,
+           "samples_per_s": run * s.effective_batch / st["loop_s"],
+           "launches": counts,
+           "launches_per_worker_batch": {n: c / run for n, c in
+                                         counts.items() if c},
+           "host_syncs_per_worker_batch": syncs, "sync_sites": sites,
+           "trace": trace,
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": all(bool(torch.isfinite(t.float()).all())
+                                for t in s.state["tables"]),
+           "peak_mem_gb": peak_gb}
+    if st["requests"]:
+        rec.update(requests=st["requests"], dropped=st["dropped"],
+                   drop_share=st["dropped"] / st["requests"],
+                   valid_pairs_per_s=st["valid_pairs"] / st["loop_s"])
+    problems = []
+    want = {name: per_batch.get(name, 0) * run for name in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if s.effective_batch != eff:
+        problems.append("batch %d per worker, want %d"
+                        % (s.effective_batch, eff))
+    if not rec["losses_finite"] or not rec["tables_finite"]:
+        problems.append("losses or tables not finite")
+    if syncs:
+        problems.append("%g host syncs per worker-batch: %r"
+                        % (syncs, sites))
+    trace["busy_share"] = (trace["device_ms_per_worker_batch"]
+                           / rec["ms_per_worker_batch"])
+    if st["requests"] and not rec["drop_share"] < 0.01:
+        problems.append("drop share %.4f >= 1%%" % rec["drop_share"])
+    return app, rec, calls, problems
+
+
+def mesh_w1_walks(graph, batches, seed):
+    """DeepWalk at the deepwalk_youtube.yaml shape through the walks
+    engine with ONE worker (the solver routes W = 1 to the flat path, so
+    its mesh loop is called directly): the engine's overhead against the
+    flat route's ms/batch of phase main."""
+    from graphvite_tpu_torch.solver import GraphSolver
+
+    s = GraphSolver(dim=DIM)
+    s.build(graph, optimizer=SGD_YOUTUBE, num_negative=1,
+            batch_size=100000, episode_size=25)
+    s.worker_devices = [s.device]
+    s.model = "DeepWalk"
+    s.init_embeddings()
+    s.batch_id = 0
+    reset_launches()
+    s._train_loop_mesh("DeepWalk", batches * MESH_WALK_BATCH
+                       / graph.num_edge + 1e-9, 5, 40, 1.0, 1.0, 5.0, 0.75,
+                       10**9)
+    counts = read_launches()
+    st = s.mesh_stats
+    run = s.batch_id
+    return {"workers": 1, "batches": run, "batch": s.effective_batch,
+            "ms_per_batch": st["loop_s"] / run * 1e3,
+            "valid_pairs_per_s": st["valid_pairs"] / st["loop_s"],
+            "launches": counts}
+
+
+def sink_graph(num_vertex):
+    """Directed edges of `num_vertex` sources into one sink, and a third of
+    them on to the next source: most walks reach the sink and stay there
+    (a dead end repeats its vertex), so its owner gets most row requests
+    while its degree share (no out-edges) sizes the routing capacity
+    small. Anonymous and unweighted, as power_law_graph."""
+    from graphvite_tpu_torch.graph import Graph
+
+    src = np.arange(num_vertex, dtype=np.int64)
+    g = Graph()
+    g.num_vertex = num_vertex + 1
+    g.edge_heads = np.concatenate([src, src[::3]])
+    g.edge_tails = np.concatenate([np.full(num_vertex, num_vertex),
+                                   (src[::3] + 1) % num_vertex])
+    g.num_edge = int(g.edge_heads.size)
+    g.id2name = g.name2id = None
+    g.as_undirected = False
+    g.edge_weights = np.ones(g.edge_heads.size, dtype=np.float32)
+    g._finalize(normalization=False)
+    return g
+
+
+def replay_mesh_engines(seed, W=MESH_REPLAY_W, device="cuda"):
+    """Each engine with W workers on the card and W on the CPU from the
+    same draws and state at a small size (a power-law graph of 20,000
+    vertices, dim 32): edges (SGD and Adam), walks (SGD on the arena,
+    Adam, and SGD at route slack 0.3 on a 20,000-source sink graph, where
+    about 40% of the row requests overflow the capacity and are dropped),
+    LargeVis replicas (SGD with the trust clip; Adam at lr 0.5 from warm
+    moments, as the CPU test against the reference starts it). Tolerance,
+    as the steps' replays: rtol 3e-4, atol 3e-6 of the gathered tables
+    (replicas: of each row's largest magnitude); the graph engines' losses
+    rtol 2e-5; the drop counts equal."""
+    import torch
+    from graphvite_tpu_torch.models import GRAPH_MODELS
+    from graphvite_tpu_torch.ops import steps
+    from graphvite_tpu_torch.optim import Optimizer
+    from graphvite_tpu_torch.parallel import mesh
+
+    graph = power_law_graph(20000, 150000, seed)
+    sink = sink_graph(20000)
+    dim = 32
+    gen = torch.Generator().manual_seed(seed)
+    groups = {"cuda": mesh.DeviceGroup([torch.device(device)] * W),
+              "cpu": mesh.DeviceGroup(["cpu"] * W)}
+    out, problems = {}, []
+    cases = (("edges_sgd", "edges", "SGD"), ("edges_adam", "edges", "Adam"),
+             ("walks_sgd", "walks", "SGD"), ("walks_adam", "walks", "Adam"),
+             ("walks_drop", "walks", "SGD"))
+    for name, mode, rule in cases:
+        g = sink if name == "walks_drop" else graph
+        vertex = (torch.rand((g.num_vertex, dim), generator=gen) - 0.5) / dim
+        context = torch.randn((g.num_vertex, dim), generator=gen) * 0.05
+        part = mesh.VertexPartition(np.asarray(g.degrees), W)
+        opt = Optimizer(type=rule, lr=0.025 if rule == "SGD" else 1e-3,
+                        weight_decay=5e-3, beta2=0.999)
+        walk_cfg = dict(augmentation_step=2, walk_length=10, bidir=True,
+                        pool_size=64)
+        if name == "walks_drop":
+            walk_cfg["route_slack"] = 0.3
+        tables, trainers, drops = {}, {}, {}
+        for where, group in groups.items():
+            tr = mesh.ShardedGraphTrainer(
+                group, part, dim, GRAPH_MODELS["LINE"], opt,
+                num_negative=1, negative_weight=5.0,
+                batch_size=4096 if mode == "edges" else 4 * 22 * 64,
+                ep_batches=3, sampler_mode=mode, walk_cfg=dict(walk_cfg))
+            sample = tr.build_sample_state(g)
+            state = tr.init_state(vertex, context)
+            neg = tr.init_negative_state(np.asarray(g.vertex_weights))
+            trainers[where] = (tr, sample, state, neg)
+        losses = {"cuda": [], "cpu": []}
+        for e in range(2):
+            draws = trainers["cpu"][0].episode_draws(gen)
+            for where, (tr, sample, state, neg) in trainers.items():
+                d = mesh.draws_to(draws, tr.group.devices)
+                state, neg, ls = tr.run_episode(state, sample, neg, 6 * e,
+                                                1000, seed, draws=d)
+                losses[where] += [l.cpu() for l in ls]
+                trainers[where] = (tr, sample, state, neg)
+        for where, (tr, _, state, _) in trainers.items():
+            tables[where] = [t.cpu().float() for t in tr.gather_tables(state)]
+            drops[where] = tr.drop_counts()
+        lc, lp = (torch.cat(losses[k]).double() for k in ("cuda", "cpu"))
+        if not bool(((lc - lp).abs() <= 2e-5 * lp.abs()).all()):
+            problems.append("%s: card and CPU losses differ: %r against %r"
+                            % (name, lc.tolist(), lp.tolist()))
+        err = max(float((a - b).abs().max()) for a, b in
+                  zip(tables["cuda"], tables["cpu"]))
+        ok = all(bool(((a - b).abs() <= 3e-6 + 3e-4 * b.abs()).all())
+                 for a, b in zip(tables["cuda"], tables["cpu"]))
+        moved = float((tables["cpu"][1] - context).abs().max())
+        out[name] = {"workers": W, "max_abs_err": err, "moved": moved}
+        if not ok or not moved > 0:
+            problems.append("%s: card and CPU disagree (max |err| %g) or "
+                            "nothing moved" % (name, err))
+        if mode == "walks":
+            out[name]["drops"] = list(drops["cuda"])
+            if drops["cuda"] != drops["cpu"]:
+                problems.append("%s: card drops %r, CPU drops %r"
+                                % (name, drops["cuda"], drops["cpu"]))
+            if name == "walks_drop" and not drops["cuda"][0] > 0:
+                problems.append("walks_drop: no request was dropped (%r)"
+                                % (drops["cuda"],))
+        del trainers, tables
+    # LargeVis replicas, the pooled step: SGD with the trust clip (kernel
+    # 1 at 8 columns); Adam from warm moments in the live columns (the
+    # dense route), as tests/test_torch_mesh.py starts it against the
+    # reference
+    w = np.maximum(np.asarray(graph.vertex_weights, np.float64), 1e-12) ** 0.75
+    from graphvite_tpu_torch.ops.alias import AliasTable, device_alias_arrays
+    neg_np = device_alias_arrays(AliasTable(w))
+    coord = torch.zeros((graph.num_vertex, 8))
+    coord[:, :2] = torch.randn((graph.num_vertex, 2), generator=gen) * 3
+    warm = tuple(torch.zeros((graph.num_vertex, 8)) for _ in range(2))
+    for m in warm:
+        m[:, :2] = torch.randn((graph.num_vertex, 2),
+                               generator=gen).abs() * 1e-2 + 1e-3
+    nudged = coord.clone()
+    nudged[:, :2] = torch.nextafter(coord[:, :2],
+                                    torch.full_like(coord[:, :2], 1e9))
+    for rule in ("SGD", "Adam"):
+        name = "vis_" + rule.lower()
+        opt = Optimizer(type=rule, lr=0.5, weight_decay=1e-5)
+        res = {}
+        draws = None
+        # the CPU once more from coordinates one ulp above: how far the
+        # episode itself carries a last-bit difference
+        for where, group, start in (("cuda", groups["cuda"], coord),
+                                    ("cpu", groups["cpu"], coord),
+                                    ("cpu_nudged", groups["cpu"], nudged)):
+            step = steps.make_vis_pool_step(opt, 5, 3.0, pool_size=64,
+                                            pool_groups=8)
+            tr = mesh.ReplicatedEdgeTrainer(group, step, opt, 4096, 3)
+            if draws is None:
+                draws = tr.episode_draws(gen)
+            tabs, moms = tr.init_state((start,),
+                                       (warm,) if rule == "Adam" else None)
+            edges = tr.init_edges(graph)
+            neg = tuple(torch.from_numpy(a) for a in neg_np)
+            tabs, moms, _ = tr.run_episode(
+                tabs, moms, edges, neg, 0, 1000, seed,
+                draws=mesh.draws_to(draws, group.devices))
+            res[where] = tabs[0][0].cpu()
+        scale = res["cpu"].abs().amax(dim=1, keepdim=True)
+        diff = (res["cuda"] - res["cpu"]).abs()
+        err = float(diff.max())
+        tol = 3e-6 + 3e-4 * scale
+        out[name] = {"workers": W, "max_abs_err": err,
+                     "worst_err_over_tol": float((diff / tol).max()),
+                     "cpu_ulp_over_tol": float(
+                         ((res["cpu_nudged"] - res["cpu"]).abs()
+                          / tol).max()),
+                     "moved": float((res["cpu"] - coord).abs().max())}
+        if not bool((diff <= tol).all()):
+            problems.append("%s: card and CPU disagree (max |err| %g)"
+                            % (name, err))
+    return out, problems
+
+
+def mesh_quality(model):
+    """quality()'s two-block graph through GraphApplication with gpus
+    [0, 0]: two workers on the card."""
+    from graphvite_tpu_torch import GraphApplication
+
+    app = GraphApplication(dim=16, gpus=MESH_IDS)
+    app.load(edge_list=two_blocks())
+    if model == "DeepWalk":
+        app.build(optimizer={"type": "SGD", "lr": 0.1, "weight_decay": 5e-3},
+                  num_negative=1, batch_size=2048, episode_size=8)
+        kw = dict(num_epoch=2000, augmentation_step=2, random_walk_length=8)
+    else:
+        app.build(num_negative=2, batch_size=512, episode_size=8)
+        kw = dict(num_epoch=1000, augmentation_step=1)
+    app.train(model=model, negative_weight=1.0, log_frequency=10**9, **kw)
+    g = app.graph
+    rng = np.random.default_rng(1)
+    half = g.num_vertex // 2
+    k = 300
+    sel = rng.choice(g.num_directed_edge, size=k, replace=False)
+    H = [g.id2name[i] for i in g.edge_heads[sel]]
+    T = [g.id2name[i] for i in g.edge_tails[sel]]
+    H += [str(x) for x in rng.integers(half, size=k)]
+    T += [str(x) for x in rng.integers(half, size=k) + half]
+    auc = app.evaluate("link prediction", H=H, T=T, Y=[1] * k + [0] * k)
+    return {"model": model, "workers": app.solver.num_worker,
+            "batches": app.solver.batch_id, "auc": auc["AUC"]}
+
+
+def mesh_phase(seed, shared):
+    """The multi-device engines at W = 2 on the one card (device_ids
+    [0, 0]), on the graphs earlier phases built: (a) LINE in edges mode at
+    the line_friendster-small.yaml shape (SGD at the config's
+    hyperparameters, Adam lr 1e-6 wd 0); (b) DeepWalk in walks mode at the
+    deepwalk_youtube.yaml shape (SGD, Adam, a short node2vec p 4 q 2), and
+    W = 1 through the engine against the flat route; (c) LargeVis
+    replicas at the largevis_mnist_2d.yaml shape (Adam, 10-NN agreement
+    >= 0.95; SGD); two-block LINE and DeepWalk AUC > 0.9; each engine at
+    W = 4 on the card against the CPU from the same draws."""
+    import torch
+
+    out, problems = {"ids": {}}, []
+
+    def keep_ids(tag, calls):
+        """The first worker-batch's update ids of a run's extra episode."""
+        n = {"edges": 2, "walks": 1}[tag.split("_")[0]]
+        if tag.endswith("adam"):
+            n = 2
+        out["ids"][tag] = calls[:n]
+
+    # (a) edges mode
+    graph = shared["friendster"]
+    blocks = None
+    for name, opt, batches, per_batch in MESH_EDGE_RUNS:
+        app, rec, calls, bad = train_mesh_graph(
+            graph, "LINE", opt, batches, BUILD_FRIENDSTER,
+            dict(augmentation_step=1, negative_weight=5.0), per_batch,
+            {"GRAPHVITE_MIN_SWEEPS": "1"}, MESH_EDGE_BATCH, seed,
+            blocks=blocks)
+        blocks = app.solver._mesh_blocks
+        log("   (a) LINE edges %s:" % name, json.dumps(rec))
+        out["edges_" + name] = rec
+        problems += ["edges %s: %s" % (name, p) for p in bad]
+        if name == "sgd" and not rec["loss_last"] < rec["loss_first"]:
+            problems.append("edges sgd: losses not falling")
+        keep_ids("edges_" + name, calls)
+        del app, calls
+        torch.cuda.empty_cache()
+    del blocks
+
+    # (b) walks mode
+    graph = shared["youtube"]
+    build = dict(num_negative=1, batch_size=100000, episode_size=25)
+    walk_kw = dict(augmentation_step=5, random_walk_length=40,
+                   negative_weight=5.0)
+    for name, model, opt, batches, per_batch in MESH_WALK_RUNS:
+        kw = dict(walk_kw, **({"p": 4.0, "q": 2.0} if model == "node2vec"
+                              else {}))
+        app, rec, calls, bad = train_mesh_graph(
+            graph, model, opt, batches, build, kw, per_batch, {},
+            MESH_WALK_BATCH, seed)
+        log("   (b) %s walks %s:" % (model, name), json.dumps(rec))
+        out["walks_" + name] = rec
+        problems += ["walks %s: %s" % (name, p) for p in bad]
+        if name != "node2vec":
+            keep_ids("walks_" + name, calls)
+        del app, calls
+        torch.cuda.empty_cache()
+    rec = mesh_w1_walks(graph, MESH_W1_BATCHES, seed)
+    flat = shared.get("main_ms_per_batch")
+    rec["flat_ms_per_batch"] = flat
+    rec["overhead_vs_flat"] = rec["ms_per_batch"] / flat if flat else None
+    log("   (b) DeepWalk walks, W = 1 through the engine:", json.dumps(rec))
+    out["walks_w1"] = rec
+    if rec["launches"]["scatter_add_"] != rec["batches"]:
+        problems.append("walks W 1: %r launches" % rec["launches"])
+    torch.cuda.empty_cache()
+
+    # (c) LargeVis replicas
+    graph, labels = shared["mnist"]
+    for name, opt, batches, per_batch in (
+            ("adam", ADAM_VIS, None, {}),
+            ("sgd", SGD_VIS, MESH_VIS_SGD_BATCHES, {"scatter_add_": 1})):
+        rec, bad = train_mesh_vis(graph, opt, batches, labels, per_batch)
+        log("   (c) LargeVis %s:" % name, json.dumps(rec))
+        out["vis_" + name] = rec
+        problems += ["vis %s: %s" % (name, p) for p in bad]
+        torch.cuda.empty_cache()
+    if not out["vis_adam"]["agreement_10nn"] >= 0.95:
+        problems.append("vis adam: 10-NN label agreement %.4f < 0.95"
+                        % out["vis_adam"]["agreement_10nn"])
+
+    # quality on the card, and the replays
+    for model in ("LINE", "DeepWalk"):
+        q = mesh_quality(model)
+        log("   two-block %s at W = 2 on the card:" % model, json.dumps(q))
+        out["quality_" + model] = q
+        if not q["auc"] > 0.9:
+            problems.append("two-block %s AUC %.4f <= 0.9" % (model,
+                                                               q["auc"]))
+    rec, bad = replay_mesh_engines(seed)
+    log("   replays, W = %d on the card vs the CPU:" % MESH_REPLAY_W,
+        json.dumps(rec))
+    out["replays"] = rec
+    problems += bad
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def train_mesh_vis(graph, optimizer, batches, labels, per_batch):
+    """LargeVis through VisualizationApplication with gpus [0, 0] on the
+    MNIST clone's KNN graph: MESH_VIS_EPOCHS of the config's 50 (Adam) or
+    `batches` batches, the launch counts set to 0 just before train() and
+    read just after."""
+    import torch
+    from graphvite_tpu_torch import VisualizationApplication
+
+    app = VisualizationApplication(dim=2, gpus=MESH_IDS)
+    app.graph = graph
+    app.build(optimizer=optimizer, **BUILD_VIS)
+    s = app.solver
+    epochs = (MESH_VIS_EPOCHS if batches is None
+              else batches * VIS_PLAN[0] / graph.num_edge + 1e-9)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    app.train(num_epoch=epochs, **LARGEVIS)
+    elapsed = time.perf_counter() - t0
+    counts = read_launches()
+    st = s.mesh_stats
+    run = s.batch_id
+    losses = s.batch_losses.double()
+    k = max(run // 10, 5)
+    table = s.state["tables"][0]
+    rec = {"optimizer": optimizer["type"], "workers": st["workers"],
+           "batches": run, "batch": s.effective_batch,
+           "ep_batches": st["ep_batches"], "elapsed_s": elapsed,
+           "loop_s": st["loop_s"],
+           "ms_per_worker_batch": st["loop_s"] / run * 1e3,
+           "samples_per_s": run * s.effective_batch / st["loop_s"],
+           "launches": counts,
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "pad_columns_zero": bool((table[:, 2:] == 0).all()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    problems = []
+    if optimizer["type"] == "Adam":
+        rec["agreement_10nn"] = layout_agreement(s.coordinates, labels)
+    want = {name: per_batch.get(name, 0) * run for name in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if not bool(torch.isfinite(losses).all()) or not bool(
+            torch.isfinite(table).all()):
+        problems.append("losses or coordinates not finite")
+    if not rec["pad_columns_zero"]:
+        problems.append("the pad columns moved")
+    return rec, problems
+
+
+# ---------------------------------------------------------------------------
+# phase 14: quality
+# ---------------------------------------------------------------------------
 
 def two_blocks(n=60, seed=0):
     """Two dense communities, sparse cross links (tests/test_solver.py)."""
@@ -2419,7 +3034,7 @@ def quality(model="DeepWalk", device=None, classic=False, blocked=False):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the command line
+# phase 15: the command line
 # ---------------------------------------------------------------------------
 
 # tools/blogcatalog_clone.py: BlogCatalog's published statistics
@@ -2818,7 +3433,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--main-batches", type=int, default=1000)
-    ap.add_argument("--node2vec-batches", type=int, default=1000)
+    ap.add_argument("--node2vec-batches", type=int, default=600)
     ap.add_argument("--layout-batches", type=int, default=50)
     ap.add_argument("--edge-batches", type=int, default=1000)
     ap.add_argument("--kg-batches", type=int, default=100)
@@ -2992,7 +3607,9 @@ def run(args):
             raise AssertionError("; ".join(problems))
         return out
     phase("layouts", layouts_phase)
-    shared.clear()
+    if "main" in results:
+        shared["main_ms_per_batch"] = results["main"]["float32"][
+            "ms_per_batch"]
 
     # 6. the edge route (LINE)
     def edge_path():
@@ -3133,7 +3750,7 @@ def run(args):
     torch.cuda.empty_cache()
 
     # 9. LargeVis at the largevis_mnist_2d.yaml shape (exact KNN)
-    phase("vis", lambda: vis_phase(args.seed))
+    phase("vis", lambda: vis_phase(args.seed, shared))
     torch.cuda.empty_cache()
 
     # 10. LargeVis at the largevis_imagenet.yaml shape (IVF KNN)
@@ -3141,10 +3758,16 @@ def run(args):
     torch.cuda.empty_cache()
 
     # 11. blocked episodes and the host master (LINE, friendster-small)
-    phase("blocked", lambda: blocked_phase(args.seed))
+    phase("blocked", lambda: blocked_phase(args.seed, shared))
     torch.cuda.empty_cache()
 
-    # 12. each kernel against its plain version, on the paths' own ids
+    # 12. the multi-device engines, two workers on the card, on the
+    # graphs of main, vis and blocked
+    phase("mesh", lambda: mesh_phase(args.seed, shared))
+    shared.clear()
+    torch.cuda.empty_cache()
+
+    # 13. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         cases = {"scatter_add": [], "gather_sorted": [],
@@ -3257,14 +3880,35 @@ def run(args):
             log("   scatter_update_ (%s)" % name, json.dumps(rec))
             cases["scatter_update"].append(rec)
             torch.cuda.empty_cache()
+        # the mesh engines' updates, as one worker made them in its first
+        # batch of an extra episode: the edges engine's vertex and context
+        # shards (~3.97M x 128), the walks engine's fused arena (~569k x
+        # 256, requests of both workers, dropped slots at id cap) and its
+        # Adam shards (~569k x 128), with the counts the engines passed
+        for tag, calls in sorted(results["mesh"]["ids"].items()):
+            for side, c in zip(("vertex", "context"), calls):
+                name = "mesh %s %s" % (tag, side if c["width"] == DIM
+                                       else "arena")
+                if c["entry"] == "scatter_add_":
+                    rec = check_add_rows(name, c["ids"], c["rows"],
+                                         c["width"], torch.float32, gen)
+                    cases["scatter_add"].append(rec)
+                else:
+                    rec = check_update_rows(name, c["ids"], c["counts"],
+                                            c["rows"], c["width"],
+                                            torch.float32, gen)
+                    cases["scatter_update"].append(rec)
+                log("   %s (%s)" % (c["entry"], name), json.dumps(rec))
+                torch.cuda.empty_cache()
         return cases
-    needed = ("main", "node2vec", "edge", "kg", "kg_big", "vis", "blocked")
+    needed = ("main", "node2vec", "edge", "kg", "kg_big", "vis", "blocked",
+              "mesh")
     if all(name in results for name in needed):
         phase("kernel", kernel)
     else:
         failures.append("kernel (needs the paths' ids)")
 
-    # 13. quality
+    # 14. quality
     def quality_phase():
         out = {}
         for name, model, classic, blocked in (
@@ -3292,7 +3936,7 @@ def run(args):
         return out
     phase("quality", quality_phase)
 
-    # 14. the command line: three shipped configs through cmd, in process,
+    # 15. the command line: three shipped configs through cmd, in process,
     # and `cmd list` in a process of its own
     def cli_phase():
         root = os.environ["GRAPHVITE_DATASET_PATH"]
@@ -3332,7 +3976,7 @@ def run(args):
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 15. summary: the card line, the kernels line, the result line
+    # 16. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
@@ -3353,6 +3997,10 @@ def run(args):
     k1["blocked_b_sgd_host_master"] = blocked["b"]["launches"]["scatter_add_"]
     for name in ("quick_start", "line_wikipedia"):
         k1["cli_" + name] = results["cli"][name]["launches"]["scatter_add_"]
+    mesh = results["mesh"]
+    for name in ("edges_sgd", "walks_sgd", "walks_node2vec", "vis_sgd"):
+        k1["mesh_" + name] = mesh[name]["launches"]["scatter_add_"]
+    k1["mesh_walks_w1"] = mesh["walks_w1"]["launches"]["scatter_add_"]
     k2 = {"edge_adam": (edge["adam"]["launches"]["scatter_update_"]
                         + edge["adam"]["launches"]["scatter_update_sorted_"]),
           "kg_big_adam": kg_big["adam"]["launches"]["scatter_update_"],
@@ -3361,7 +4009,11 @@ def run(args):
           "vis_big_adam": (results["vis_big"]["adam"]["launches"]
                            ["scatter_update_"]),
           "blocked_c_adam_host_master": (blocked["c"]["launches"]
-                                         ["scatter_update_"])}
+                                         ["scatter_update_"]),
+          "mesh_edges_adam": mesh["edges_adam"]["launches"]["scatter_update_"],
+          "mesh_walks_adam": mesh["walks_adam"]["launches"]["scatter_update_"],
+          # the replicas' tables take the dense moment route
+          "mesh_vis_adam": mesh["vis_adam"]["launches"]["scatter_update_"]}
     k3 = {"edge_float32": edge["float32"]["launches"]["gather_sorted"]}
     kernels_line = {"kernels": [
         # the DeepWalk batch-100000 update, float32 table

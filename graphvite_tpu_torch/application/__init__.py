@@ -150,6 +150,7 @@ class GraphApplication(ApplicationMixin):
                                       self.index_type,
                                       gpu_memory_limit=self.gpu_memory_limit,
                                       num_worker=max(len(self.gpus), 1),
+                                      device_ids=self.gpus or None,
                                       device=self.device)
 
     def _load_dispatch(self, edge_list=None, **kwargs):
@@ -275,7 +276,8 @@ class KnowledgeGraphApplication(ApplicationMixin):
         return solver_mod.KnowledgeGraphSolver(
             self.dim, self.float_type, self.index_type,
             gpu_memory_limit=self.gpu_memory_limit,
-            num_worker=max(len(self.gpus), 1), device=self.device)
+            num_worker=max(len(self.gpus), 1),
+            device_ids=self.gpus or None, device=self.device)
 
     def _load_dispatch(self, triplet_list=None, **kwargs):
         if triplet_list is None:
@@ -430,7 +432,8 @@ class VisualizationApplication(ApplicationMixin):
         return solver_mod.VisualizationSolver(
             self.dim, self.float_type, self.index_type,
             gpu_memory_limit=self.gpu_memory_limit,
-            num_worker=max(len(self.gpus), 1), device=self.device)
+            num_worker=max(len(self.gpus), 1),
+            device_ids=self.gpus or None, device=self.device)
 
     def load(self, vectors=None, file_name=None, **kwargs):
         with self.monitor.stage("load"):

@@ -68,8 +68,10 @@ def load_config(config_file):
 def run_config(cfg, do_eval=True, num_epoch=None):
     """Execute a loaded config end-to-end (ref cmd.py run/baseline body).
     The `resource` section goes to the application: `dim`, the types,
-    `device` (CUDA when absent) and `gpus` (more than one device needs the
-    multi-device engines, which are not ported yet)."""
+    `device` (CUDA when absent) and `gpus` (more than one trains on the
+    multi-device engines, one worker per entry, worker i on cuda:gpus[i]:
+    `gpus: [0, 0]` puts two workers on one card; knowledge graphs are
+    not ported to them yet)."""
     from graphvite_tpu_torch.application import Application
 
     resource = dict(cfg.get("resource", {}))

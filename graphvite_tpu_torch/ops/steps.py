@@ -227,7 +227,7 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
             n_active = mask.sum()
         else:
             m2 = None
-            n_active = torch.tensor(float(b), device=vertex.device)
+            n_active = torch.full((), float(b), device=vertex.device)
         # reported loss on the K-draw scale
         loss_terms = (F.softplus(-pos_logit)
                       + neg_w * F.softplus(neg_logits).sum(dim=-1))
@@ -446,8 +446,10 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
     the shared negative pool rows P [G, M, D] and the pair-validity mask
     [B, L1, T], compute every gradient/count/square the banded step needs.
 
-    Returns (core, (k, M, G, T, neg_w)); core(v, c, P, mask, lr) returns a
-    dict: dv [B,L1,D], dc [B,L1,D], dP [G,M,D] (trust-clipped), cnt/cntc
+    Returns (core, (k, M, G, T, neg_w)); core(v, c, P, mask, lr,
+    pool_mask=None) returns a dict (`pool_mask` [G, M] zeroes the pool
+    slots whose rows could not be fetched, as the multi-device engine's
+    dropped requests): dv [B,L1,D], dc [B,L1,D], dP [G,M,D] (trust-clipped), cnt/cntc
     [B,L1] head/context touch counts, loss_sum, n_active, and (moment rules
     only) v_counts/v_sqs, c_counts_main/c_sqs_main, p_counts/p_sqs."""
     k = num_negative
@@ -457,7 +459,7 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
     T = len(offs)
     neg_w = float(negative_weight) * k / M
 
-    def core(v, c, P, mask, lr):
+    def core(v, c, P, mask, lr, pool_mask=None):
         B, L1 = v.shape[0], v.shape[1]
         if B % G:
             raise ValueError("walk batch %d must divide into %d pool groups"
@@ -481,10 +483,14 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
         v4 = v.reshape(G, bg * L1, D)
         neg_logits = torch.bmm(v4, P.transpose(1, 2))        # [G, Pg, M]
         gneg_u = torch.sigmoid(neg_logits) * neg_w
+        if pool_mask is not None:
+            gneg_u = gneg_u * pool_mask[:, None, :]
         cnt_g = cnt.reshape(G, bg * L1)
         gneg = gneg_u * cnt_g[..., None]
         n_active = mask.sum()
         sp = F.softplus(neg_logits)
+        if pool_mask is not None:
+            sp = sp * pool_mask[:, None, :]
         neg_loss = (cnt_g * (neg_w * sp.sum(dim=-1))).sum()
 
         wd = opt.weight_decay
@@ -520,8 +526,10 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
                 + sq_scale * cnt[..., None]
                 * torch.bmm(gneg_u ** 2, P ** 2).reshape(B, L1, D)
             ).reshape(npos, D)
-            outs["p_counts"] = (cnt_g.sum(dim=1)[:, None]
-                                * (k / M)).expand(G, M)
+            p_counts = (cnt_g.sum(dim=1)[:, None] * (k / M)).expand(G, M)
+            if pool_mask is not None:
+                p_counts = p_counts * pool_mask
+            outs["p_counts"] = p_counts
             # per-touch tail sq (g v + wd c)^2 summed over valid touches:
             # sum(g^2 v^2) + 2 wd c . sum(g v) + cntc (wd c)^2
             s2 = sum(walk_shift_fwd(gv * gv, -kk)
@@ -1291,7 +1299,7 @@ def make_vis_pool_step(opt: Optimizer, num_negative: int,
             n_active = mask.sum()
         else:
             m2 = None
-            n_active = torch.tensor(float(b), device=dev)
+            n_active = torch.full((), float(b), device=dev)
 
         # loss on the K-draw scale (as make_vis_train_step reports it)
         loss_terms = (torch.log1p(x_pos)

@@ -177,7 +177,7 @@ def moment_delta(opt: Optimizer, lr, g, moments, c=1.0, gsq=None):
     c:   touch count (a number or a tensor broadcastable to g)
     gsq: summed per-touch SQUARED gradients (defaults to g*g/c)."""
     if not torch.is_tensor(c):
-        c = torch.tensor(float(c), dtype=torch.float32, device=g.device)
+        c = torch.full((), float(c), dtype=torch.float32, device=g.device)
     if opt.type == "SGD":
         return _sgd_delta(opt, lr, g, c)
     if opt.type == "Momentum":

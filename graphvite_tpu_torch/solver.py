@@ -18,11 +18,15 @@ graphs: the classic per-draw step and the shared-candidate-pool step
 over a tied entity table and a relation table,
 positives from the relation-carrying edge sampler. LargeVis: the classic
 K-draw step and the shared-pool step over one padded coordinate table,
-positives from the alias-weighted edge sampler over a KNN graph. What
-later slices port raises NotImplementedError naming its ROADMAP item: the
-host sampler backend and the reference's experimental walk opt-ins, and
-the multi-device engines (num_worker > 1). Tables that the host master
-leaves in host memory are scored by `predict` in chunks of touched rows.
+positives from the alias-weighted edge sampler over a KNN graph. With
+num_worker > 1, node embedding trains on the sharded multi-device engine
+(edges or banded walks) and LargeVis on the replicated one
+(parallel/mesh.py), worker i on cuda:device_ids[i] or, for device="cpu",
+on the CPU. What later slices port raises NotImplementedError naming its
+ROADMAP item: the host sampler backend, the reference's experimental walk
+opt-ins and the knowledge-graph multi-device engines. Tables that the
+host master leaves in host memory are scored by `predict` in chunks of
+touched rows.
 """
 from __future__ import annotations
 
@@ -43,7 +47,11 @@ from graphvite_tpu_torch.ops.alias import AliasTable, device_alias_arrays
 from graphvite_tpu_torch.ops.device_sampler import (DeviceEdgeSampler,
                                                     DeviceWalkSampler)
 from graphvite_tpu_torch.optim import Optimizer, make_optimizer
-from graphvite_tpu_torch.parallel.mesh import (VertexPartition,
+from graphvite_tpu_torch.parallel.mesh import (BlockEdgeTables,
+                                               DeviceGroup,
+                                               ReplicatedEdgeTrainer,
+                                               ShardedGraphTrainer,
+                                               VertexPartition,
                                                make_sharded_graph_step)
 from graphvite_tpu_torch.utils.common import auto, hbm_budget_bytes, logger
 
@@ -126,26 +134,29 @@ class SolverBase:
                  device_ids=None, num_sampler_per_worker=auto,
                  gpu_memory_limit=auto, seed=1024, sampler_backend="device",
                  num_worker=1, device=None):
-        # device_ids and num_sampler_per_worker are accepted for API parity
-        # with the reference; `device` picks the card (default "cuda").
-        # gpu_memory_limit bounds the device memory budget of the overflow
-        # rules (bytes or "4G"-style; auto = query the device): blocked
-        # episodes and the host master on the edge route, a warning on the
-        # walk route.
+        # `device` picks the card (default "cuda"). num_worker > 1 trains
+        # with the multi-device engines (parallel/mesh.py), worker i on
+        # cuda:device_ids[i] (default range(num_worker); repeated ids put
+        # several workers on one card), or on the CPU for device="cpu";
+        # device_ids are read only then. num_sampler_per_worker is accepted
+        # for API parity with the reference. gpu_memory_limit bounds the
+        # device memory budget of the overflow rules (bytes or "4G"-style;
+        # auto = query the device): blocked episodes and the host master on
+        # the edge route, a warning on the walk route.
         if sampler_backend != "device":
             raise NotImplementedError(
                 "sampler_backend=%r: the host sampler backend is not ported "
                 "yet (ROADMAP queue 1, item 11)" % (sampler_backend,))
         if num_worker in (auto, None):
             num_worker = 1
-        if int(num_worker) > 1:
-            raise NotImplementedError(
-                "num_worker=%d: the multi-device engines are not ported yet "
-                "(ROADMAP queue 1, item 16)" % int(num_worker))
+        self.num_worker = int(num_worker)
         self.device = resolve_device(device)
+        self.worker_devices = [self.device]
+        if self.num_worker > 1:
+            self.worker_devices = self._place_workers(device_ids)
+            self.device = self.worker_devices[0]
         self.sampler_backend = sampler_backend
         self.gpu_memory_limit = gpu_memory_limit
-        self.num_worker = 1
         self.dim = int(dim)
         self.float_type = base.torch_float_type(float_type)
         self.index_type = index_type
@@ -162,6 +173,32 @@ class SolverBase:
         self.effective_batch = self.batch_size
         self.batch_losses = None
         self._rng = np.random.default_rng(seed)
+
+    def _place_workers(self, device_ids):
+        """The devices of the num_worker workers: the CPU for each on a CPU
+        solver; else cuda:device_ids[i], device_ids defaulting to
+        range(num_worker), each id a visible card (as the reference
+        checks its mesh, solver.py:61-64)."""
+        W = self.num_worker
+        if self.device.type == "cpu":
+            return [torch.device("cpu")] * W
+        visible = torch.cuda.device_count()
+        if device_ids in (auto, None):
+            if W > visible:
+                raise ValueError(
+                    "num_worker=%d but only %d devices visible (pass "
+                    "device_ids to place several workers on one card)"
+                    % (W, visible))
+            device_ids = range(W)
+        device_ids = [int(i) for i in device_ids]
+        if len(device_ids) != W:
+            raise ValueError("num_worker=%d but %d device_ids"
+                             % (W, len(device_ids)))
+        bad = [i for i in device_ids if not 0 <= i < visible]
+        if bad:
+            raise ValueError("device_ids %r: only %d devices visible"
+                             % (bad, visible))
+        return [torch.device("cuda", i) for i in device_ids]
 
     # -- per-application hooks ---------------------------------------------
     def get_default_optimizer(self) -> Optimizer:
@@ -478,6 +515,18 @@ class GraphSolver(SolverBase):
         if augmentation_step > random_walk_length:
             raise ValueError("`random_walk_length` must be >= `augmentation_step`")
         self.model = model
+        if self.num_worker > 1:
+            # the multi-device engines (reference solver.py:819-827)
+            if not resume or self.state is None or self.batch_id == 0:
+                self.init_embeddings()
+                self.batch_id = 0
+            self.augmentation_step = augmentation_step
+            self._train_loop_mesh(model, num_epoch, augmentation_step,
+                                  random_walk_length, p, q,
+                                  float(negative_weight),
+                                  float(negative_sample_exponent),
+                                  log_frequency)
+            return
         # the edge route trains blocked episodes for num_partition > 1 or
         # tables that overflow the device, from host masters where the
         # loop's demand does: decided first, so that such tables are made
@@ -651,6 +700,187 @@ class GraphSolver(SolverBase):
             log_frequency,
             state_pack=_steps.banded_fused_pack if fused else None,
             state_unpack=_steps.banded_fused_unpack if fused else None)
+
+    def _train_loop_mesh(self, model_name, num_epoch, augmentation_step,
+                         random_walk_length, p, q, negative_weight,
+                         negative_sample_exponent, log_frequency):
+        """The multi-device engine (reference solver.py:639-793): one
+        vertex partition per worker, on-worker block or walk sampling
+        (parallel/mesh.py:ShardedGraphTrainer). Edges mode (augmentation
+        step 1) trains the shared-pool step on the resident (head, tail)
+        block and rotates the context shards around the ring; walks mode
+        trains the banded step with rows fetched from and updated on their
+        owners. GRAPHVITE_NEG_SHARING=0 takes the classic per-draw step in
+        edges mode; walks mode is banded only.
+
+        The batch plan: GRAPHVITE_STEP_BYTES of step intermediates, the
+        staleness touch cap over a worker's V / P rows, and for walks
+        whole walks times a power-of-2 factor. Episodes: edges mode
+        revisits every block GRAPHVITE_MIN_SWEEPS times (many short
+        residencies), walks mode has no residency. The state comes back
+        in canonical order on the first worker's device (the context
+        shards and their moments rolled back by the rotation), so
+        resume=True continues from the gathered moments. Per-batch losses
+        stay on the device (`batch_losses`); the walks engine's dropped
+        requests are in `mesh_stats`."""
+        env = os.environ.get
+        P_ = self.num_worker
+        walks = int(augmentation_step) > 1
+        negative_sharing = env("GRAPHVITE_NEG_SHARING", "1") != "0" or walks
+        self._pooled_step = negative_sharing
+        budget = float(env("GRAPHVITE_STEP_BYTES", 2e9))
+        live_bytes = (16 * self.dim * 4 if negative_sharing
+                      else (self.num_negative + 2) * self.dim * 4 * 8)
+        mem_cap = max(int(budget / max(live_bytes, 1)), 512)
+        tau = float(env("GRAPHVITE_MAX_TOUCH", 64))
+        cap_rows = max(self.graph.num_vertex // P_, 1)
+        touch_cap = max(int(tau * cap_rows / (self.num_negative + 2)), 512)
+        batch_size = min(self.batch_size, mem_cap, touch_cap)
+        pool_size = int(env("GRAPHVITE_POOL_SIZE", 64 if walks else 128))
+        trust = float(env("GRAPHVITE_TRUST", 0.25)) or None
+        if walks:
+            bidir = (bool(self.graph.as_undirected)
+                     and env("GRAPHVITE_WALK_BIDIR", "1") != "0")
+            T = int(augmentation_step) * (2 if bidir else 1)
+            slot_unit = T * (int(random_walk_length) + 1)
+            mult = 64
+            while mult > 1 and slot_unit * mult > batch_size:
+                mult //= 2
+            unit = slot_unit * mult
+        else:
+            bidir = False
+            unit = 256 if batch_size >= 256 else 8
+        batch_size = max(batch_size // unit * unit, unit)
+        if batch_size < self.batch_size:
+            logger.info("batch_size %d -> %d per worker (%d workers)",
+                        self.batch_size, batch_size, P_)
+        self.effective_batch = batch_size
+        self.num_batch = max(int(num_epoch * self.graph.num_edge
+                                 // batch_size), 1)
+        min_sweeps = int(env("GRAPHVITE_MIN_SWEEPS", 16))
+        if walks:
+            ep_batches = max(min(self._episode_batches(),
+                                 max(self.num_batch // P_, 1)), 1)
+        else:
+            sweep_cap = max(self.num_batch // (P_ * P_ * min_sweeps), 1)
+            ep_batches = max(min(self._episode_batches(), sweep_cap,
+                                 max(self.num_batch // P_, 1)), 1)
+
+        key = (id(self.graph), "mesh", model_name, self.optimizer,
+               self.num_negative, float(negative_weight),
+               tuple(self.worker_devices), batch_size, ep_batches,
+               int(augmentation_step), int(random_walk_length), float(p),
+               float(q), float(negative_sample_exponent), negative_sharing,
+               pool_size, bidir, trust, env("GRAPHVITE_WALK_ROUTE_SLACK", ""))
+        setup = {}
+        if getattr(self, "_mesh_key", None) != key:
+            t0 = time.perf_counter()
+            part = VertexPartition(np.asarray(self.graph.degrees), P_)
+            setup["partition_s"] = time.perf_counter() - t0
+            group = DeviceGroup(self.worker_devices)
+            common = dict(num_negative=self.num_negative,
+                          negative_weight=float(negative_weight),
+                          batch_size=batch_size, ep_batches=ep_batches,
+                          trust=trust)
+            if walks:
+                walk_cfg = dict(
+                    augmentation_step=int(augmentation_step),
+                    walk_length=int(random_walk_length),
+                    batch_walks=max(batch_size // slot_unit, 1),
+                    bidir=bidir, pool_size=pool_size,
+                    biased=(model_name == "node2vec"), p=float(p),
+                    q=float(q))
+                trainer = ShardedGraphTrainer(
+                    group, part, self.dim, GRAPH_MODELS[model_name],
+                    self.optimizer, sampler_mode="walks", walk_cfg=walk_cfg,
+                    **common)
+            else:
+                trainer = ShardedGraphTrainer(
+                    group, part, self.dim, GRAPH_MODELS[model_name],
+                    self.optimizer, sampler_mode="edges",
+                    negative_sharing=negative_sharing, pool_size=pool_size,
+                    **common)
+            self._mesh_trainer = None      # free the old engine's arrays
+            self._mesh_sample_state = None
+            t0 = time.perf_counter()
+            if walks:
+                self._mesh_sample_state = trainer.build_sample_state(
+                    self.graph)
+            else:
+                # the block tables depend on the graph and P alone: kept
+                # for the next engine on them (another optimizer or step)
+                blocks_key = (id(self.graph), P_)
+                cached = getattr(self, "_mesh_blocks", None)
+                if cached is None or cached[0] != blocks_key:
+                    self._mesh_blocks = None
+                    self._mesh_blocks = (blocks_key,
+                                         BlockEdgeTables(self.graph, part))
+                self._mesh_sample_state = trainer.build_blocks(
+                    self.graph, self._mesh_blocks[1])
+            setup["sample_state_s"] = time.perf_counter() - t0
+            self._mesh_trainer = trainer
+            self._mesh_key = key
+        trainer = self._mesh_trainer
+        group = trainer.group
+        t0 = time.perf_counter()
+        neg_state = trainer.init_negative_state(
+            np.asarray(self.graph.vertex_weights), negative_sample_exponent)
+        setup["negative_alias_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st = self.state
+        self.state = None       # the shards replace the tables
+        state = trainer.init_state(st["tables"][0], st["tables"][1],
+                                   moments=st["moments"])
+        del st
+        setup["split_s"] = time.perf_counter() - t0
+        logger.info("training %s on %d workers: %d batches of %d "
+                    "(episodes of %d)", model_name, P_, self.num_batch,
+                    batch_size, ep_batches)
+        trainer.reset_drop_counts()
+        next_log = log_frequency
+        losses_acc, all_losses = [], []
+        episodes = 0
+        t0 = time.perf_counter()
+        while self.batch_id < self.num_batch:
+            state, neg_state, losses = trainer.run_episode(
+                state, self._mesh_sample_state, neg_state, self.batch_id,
+                self.num_batch, self.seed)
+            self.batch_id += ep_batches * P_
+            episodes += 1
+            # [EP, P]: batch i of every worker, in the order they train
+            losses = torch.stack([l.to(self.device) for l in losses], dim=1)
+            losses_acc.append(losses.reshape(-1))
+            all_losses.append(losses.reshape(-1))
+            if self.batch_id >= next_log or self.batch_id >= self.num_batch:
+                l = torch.cat(losses_acc)
+                # zero-loss batches come only from empty blocks
+                l = l[l > 0]
+                logger.info("Batch id: %d / %d, loss = %.6g",
+                            min(self.batch_id, self.num_batch),
+                            self.num_batch,
+                            float(l.mean()) if l.numel() else 0.0)
+                losses_acc = []
+                next_log = self.batch_id + log_frequency
+        for d in group.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        loop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tables = trainer.gather_tables(state, self.device)
+        moments = trainer.gather_moments(state, self.device)
+        del state
+        self.state = {"tables": tables, "moments": moments}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        setup["join_s"] = time.perf_counter() - t0
+        self.batch_losses = torch.cat(all_losses)
+        drops, emitted = (trainer.check_drops() if walks else (0, 0))
+        self.mesh_stats = {"workers": P_, "ep_batches": ep_batches,
+                           "episodes": episodes, "batch_size": batch_size,
+                           "loop_s": loop_s, "setup_s": setup,
+                           "dropped": drops, "requests": emitted,
+                           "valid_pairs": (trainer.valid_pairs() if walks
+                                           else None)}
 
     def _allocation_device(self):
         """Tables over the device budget are allocated in host memory:
@@ -1066,6 +1296,14 @@ class KnowledgeGraphSolver(SolverBase):
     table is shared between head and tail roles (tied weights); relations
     are a separate table."""
 
+    def __init__(self, dim, *args, num_worker=1, **kwargs):
+        if num_worker not in (auto, None) and int(num_worker) > 1:
+            raise NotImplementedError(
+                "num_worker=%d: the multi-device engines for knowledge "
+                "graphs are not ported yet (ROADMAP queue 1, item 16, the "
+                "KG engines)" % int(num_worker))
+        super().__init__(dim, *args, num_worker=num_worker, **kwargs)
+
     def get_default_optimizer(self):
         # ref knowledge_graph.cuh:556-558
         return Optimizer(type="Adam", lr=5e-5, weight_decay=0.0,
@@ -1316,8 +1554,83 @@ class VisualizationSolver(SolverBase):
             step_fn = _steps.make_vis_train_step(
                 LargeVis, self.optimizer, self.num_negative,
                 float(negative_weight), trust=trust)
+        if self.num_worker > 1:
+            self._train_loop_mesh_vis(step_fn, neg_state, num_epoch,
+                                      log_frequency, positive_reuse)
+            return
         sampler = self._get_sampler(
             ("edge", str(self.device)),
             lambda: DeviceEdgeSampler.build(self.graph, device=self.device))
         self._train_loop_device(step_fn, sampler, neg_state, num_epoch,
                                 positive_reuse, log_frequency)
+
+    def _train_loop_mesh_vis(self, step_fn, neg_state, num_epoch,
+                             log_frequency, positive_reuse=1):
+        """Multi-device LargeVis (reference solver.py:1659-1730): the
+        coordinate table is small, so every worker keeps a full replica,
+        trains its own positive stream, and the replicas merge their
+        episode deltas (parallel/mesh.py:ReplicatedEdgeTrainer). Episodes
+        are short (GRAPHVITE_VIS_MESH_EP, default 4 batches): a layout is
+        symmetric under rotation and reflection, so replicas that drift
+        apart for long would settle on differently oriented layouts whose
+        deltas cancel. The moments stay per worker; worker 0's become the
+        state."""
+        W = self.num_worker
+        batch_size, _, _ = self._batch_plan()
+        self.effective_batch = batch_size
+        self.num_batch = max(int(num_epoch * self.graph.num_edge
+                                 // batch_size), 1)
+        ep_cap = int(os.environ.get("GRAPHVITE_VIS_MESH_EP", 4))
+        ep_batches = max(min(self._episode_batches(), ep_cap,
+                             max(self.num_batch // W, 1)), 1)
+        R = max(int(positive_reuse), 1)
+        key = (id(self.graph), "vismesh", self.optimizer, self.num_negative,
+               tuple(self.worker_devices), batch_size, ep_batches, R,
+               getattr(step_fn, "pool_shape", None))
+        if getattr(self, "_vismesh_key", None) != key:
+            group = DeviceGroup(self.worker_devices)
+            self._vismesh_trainer = ReplicatedEdgeTrainer(
+                group, step_fn, self.optimizer, batch_size, ep_batches,
+                positive_reuse=R)
+            self._vismesh_edges = None
+            self._vismesh_edges = self._vismesh_trainer.init_edges(
+                self.graph)
+            self._vismesh_key = key
+        trainer = self._vismesh_trainer
+        trainer.step_fn = step_fn
+        group = trainer.group
+        tables, moments = trainer.init_state(self.state["tables"],
+                                             self.state["moments"])
+        logger.info("training LargeVis on %d workers: %d batches of %d "
+                    "(episodes of %d)", W, self.num_batch, batch_size,
+                    ep_batches)
+        next_log = log_frequency
+        losses_acc, all_losses = [], []
+        t0 = time.perf_counter()
+        while self.batch_id < self.num_batch:
+            tables, moments, losses = trainer.run_episode(
+                tables, moments, self._vismesh_edges, neg_state,
+                self.batch_id, self.num_batch, self.seed + self.batch_id)
+            self.batch_id += ep_batches * R * W
+            losses = torch.stack([l.to(self.device) for l in losses], dim=1)
+            losses_acc.append(losses.reshape(-1))
+            all_losses.append(losses.reshape(-1))
+            if self.batch_id >= next_log or self.batch_id >= self.num_batch:
+                logger.info("Batch id: %d / %d, loss = %.6g",
+                            min(self.batch_id, self.num_batch),
+                            self.num_batch,
+                            float(torch.cat(losses_acc).mean()))
+                losses_acc = []
+                next_log = self.batch_id + log_frequency
+        for d in group.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        self.mesh_stats = {"workers": W, "ep_batches": ep_batches,
+                           "batch_size": batch_size,
+                           "loop_s": time.perf_counter() - t0}
+        # every replica holds the merged table; the per-worker moments
+        # are never merged (the reference's per-GPU moment caches)
+        self.state = {"tables": tuple(t.to(self.device) for t in tables[0]),
+                      "moments": tuple(tuple(m.to(self.device) for m in g)
+                                       for g in moments[0])}
+        self.batch_losses = torch.cat(all_losses)

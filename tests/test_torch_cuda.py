@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU (marked `cuda`; each skips
-where torch sees no card), and two CPU tests of what they rest on: the
-tile size rule, and the plain scatter-add on the run layouts the kernels
-are held to it on. This file imports neither JAX nor the JAX package, so
+where torch sees no card), and three CPU tests of what they rest on: the
+tile size rule, the plain scatter-add on the run layouts the kernels
+are held to it on, and the horizon within which LargeVis Adam's replicas
+can be held card against CPU. This file imports neither JAX nor the JAX package, so
 it also runs on a host without them:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -1140,3 +1141,184 @@ def test_kernels_on_shard_ids(n, dtype):
     for got, want in zip((table,) + moms, (want_t,) + want_m):
         got = got[rows]
         assert bool(((got - want).abs() <= 2e-5 + 2e-5 * want.abs()).all())
+
+
+def _mesh_engine_run(kind, devices, graph, draws, episodes=2, nudge=False):
+    """One of the multi-device engines on `devices` (a worker per entry)
+    over `graph` at dim 32: gathered tables (each replica) after
+    `episodes` episodes, and the kernel launches of the run. `draws`: a
+    list of per-episode draws, made on the CPU by the first call and
+    reused by the next. `nudge`: LargeVis starts from coordinates one ulp
+    above the usual ones."""
+    from graphvite_tpu_torch.models import GRAPH_MODELS
+    from graphvite_tpu_torch.ops.alias import AliasTable, device_alias_arrays
+    from graphvite_tpu_torch.parallel import mesh
+
+    dim, W = 32, len(devices)
+    group = mesh.DeviceGroup(devices)
+    gen = torch.Generator().manual_seed(5)
+
+    def draws_gen(tr, e):
+        if len(draws) <= e:
+            draws.append(tr.episode_draws(torch.Generator().manual_seed(e)))
+        return mesh.draws_to(draws[e], group.devices)
+    before = (scatter.scatter_add_.launches, scatter.scatter_update_.launches)
+    if kind.startswith("vis"):
+        rule = "SGD" if kind == "vis_sgd" else "Adam"
+        opt = Optimizer(type=rule, lr=0.5, weight_decay=1e-5)
+        step = steps.make_vis_pool_step(opt, 5, 3.0, pool_size=64,
+                                        pool_groups=8)
+        tr = mesh.ReplicatedEdgeTrainer(group, step, opt, 4096, 3)
+        coord = torch.zeros((graph.num_vertex, 8))
+        coord[:, :2] = torch.randn((graph.num_vertex, 2), generator=gen) * 3
+        if nudge:
+            coord[:, :2] = torch.nextafter(coord[:, :2],
+                                           torch.full_like(coord[:, :2], 1e9))
+        w = np.maximum(np.asarray(graph.vertex_weights), 1e-12) ** 0.75
+        neg = tuple(torch.from_numpy(a) for a in
+                    device_alias_arrays(AliasTable(w)))
+        warm = None
+        if rule == "Adam":
+            # warm moments in the live columns, zero in the pad columns,
+            # as tests/test_torch_mesh.py starts Adam against the reference
+            warm = tuple(torch.zeros((graph.num_vertex, 8)) for _ in range(2))
+            for m in warm:
+                m[:, :2] = torch.randn((graph.num_vertex, 2),
+                                       generator=gen).abs() * 1e-2 + 1e-3
+            warm = (warm,)
+        tabs, moms = tr.init_state((coord,), warm)
+        edges = tr.init_edges(graph)
+        for e in range(episodes):
+            tabs, moms, _ = tr.run_episode(tabs, moms, edges, neg, 3 * e,
+                                           1000, 1, draws=draws_gen(tr, e))
+        out = [tabs[i][0].cpu() for i in range(W)]
+    else:
+        mode, rule = kind.split("_")
+        opt = Optimizer(type=rule.upper() if rule == "sgd" else "Adam",
+                        lr=0.025 if rule == "sgd" else 1e-3,
+                        weight_decay=5e-3, beta2=0.999)
+        part = mesh.VertexPartition(np.asarray(graph.degrees), W)
+        tr = mesh.ShardedGraphTrainer(
+            group, part, dim, GRAPH_MODELS["LINE"], opt, num_negative=1,
+            negative_weight=5.0,
+            batch_size=4096 if mode == "edges" else 44 * 64, ep_batches=3,
+            sampler_mode=mode, walk_cfg=dict(augmentation_step=2,
+                                             walk_length=10, pool_size=64))
+        sample = tr.build_sample_state(graph)
+        vertex = (torch.rand((graph.num_vertex, dim), generator=gen)
+                  - 0.5) / dim
+        state = tr.init_state(vertex, torch.randn(
+            (graph.num_vertex, dim), generator=gen) * 0.05)
+        neg = tr.init_negative_state(np.asarray(graph.vertex_weights))
+        losses = []
+        for e in range(episodes):
+            state, neg, ls = tr.run_episode(state, sample, neg, 6 * e, 1000,
+                                            1, draws=draws_gen(tr, e))
+            losses += [l.cpu() for l in ls]
+        out = [t.cpu() for t in tr.gather_tables(state)]
+        out.append(torch.stack(losses))
+    for d in group.distinct:
+        _sync(d)
+    return out, (scatter.scatter_add_.launches - before[0],
+                 scatter.scatter_update_.launches - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["edges_sgd", "edges_adam", "walks_sgd",
+                                  "walks_adam", "vis_sgd", "vis_adam"])
+def test_mesh_engine_two_workers_on_card_match_cpu(kind, monkeypatch):
+    """Each multi-device engine with two workers on cuda:0 (device_ids
+    [0, 0]) against two CPU workers from the same state and draws, over
+    two episodes (the ring, the row routing and the replica merge on the
+    card), at the steps' card-vs-CPU tolerance; the dense-update size
+    shrunk for the graph engines and LargeVis Adam so their moment
+    updates take kernel 2. The launches counted on the card: kernel 1
+    twice per worker-batch on the edges engine's SGD, once on the walks
+    engine's arena and on the LargeVis SGD replicas (the trust clip's
+    accumulate); kernel 2 twice on both graph engines' Adam, once on
+    LargeVis Adam. LargeVis Adam (lr 0.5, from warm moments) runs one
+    episode: on this graph its hubs take hundreds of touches a batch,
+    and on the CPU alone a 1-ulp change of the start coordinates grows
+    to 0.012 of the tolerance after one episode and to 1.19 times it
+    after two (test_replicated_adam_horizon_on_cpu), so two summation
+    orders need not agree within it past one."""
+    dev = _cuda()
+    if kind != "vis_sgd":
+        # LargeVis SGD keeps the trust clip of its small table: without
+        # it lr 0.5 makes the layout chaotic within the few batches
+        monkeypatch.setattr(optim_mod, "DENSE_UPDATE_ELEMS", 1000)
+    graph = _power_law_graph(3000, 30000, 2)
+    draws = []
+    episodes = 1 if kind == "vis_adam" else 2
+    gpu, launches = _mesh_engine_run(kind, [dev, dev], graph, draws,
+                                     episodes)
+    cpu, _ = _mesh_engine_run(kind, ["cpu", "cpu"], graph, draws, episodes)
+    worker_batches = 2 * episodes * 3
+    want = {"edges_sgd": (2, 0), "edges_adam": (0, 2), "walks_sgd": (1, 0),
+            "walks_adam": (0, 2), "vis_sgd": (1, 0), "vis_adam": (0, 1)}[kind]
+    assert launches == tuple(n * worker_batches for n in want)
+    if not kind.startswith("vis"):
+        # the per-batch losses, as the workers' streams computed them
+        np.testing.assert_allclose(gpu.pop().numpy(), cpu.pop().numpy(),
+                                   rtol=2e-5)
+    for a, b in zip(gpu, cpu):
+        if kind.startswith("vis"):
+            scale = b.abs().amax(dim=1, keepdim=True)
+            assert bool(((a - b).abs() <= 3e-6 + 3e-4 * scale).all())
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=3e-4,
+                                       atol=3e-6)
+    if kind.startswith("vis"):
+        assert torch.equal(gpu[0], gpu[1])     # one merged replica
+
+
+def test_replicated_adam_horizon_on_cpu(monkeypatch):
+    """What the card test of LargeVis Adam rests on, on two CPU workers:
+    from its state and draws, a 1-ulp change of the start coordinates
+    stays below half its tolerance after one episode. Prints the worst
+    |difference| over the tolerance after one and after two episodes
+    (the hubs' Adam steps amplify it: 0.012 and 1.19 here)."""
+    monkeypatch.setattr(optim_mod, "DENSE_UPDATE_ELEMS", 1000)
+    graph = _power_law_graph(3000, 30000, 2)
+    ratios = []
+    for episodes in (1, 2):
+        draws = []
+        a, _ = _mesh_engine_run("vis_adam", ["cpu", "cpu"], graph, draws,
+                                episodes)
+        b, _ = _mesh_engine_run("vis_adam", ["cpu", "cpu"], graph, draws,
+                                episodes, nudge=True)
+        scale = a[0].abs().amax(dim=1, keepdim=True)
+        ratios.append(float(((b[0] - a[0]).abs()
+                             / (3e-6 + 3e-4 * scale)).max()))
+    print("1-ulp start change over the tolerance, after 1 and 2 episodes:",
+          ratios)
+    assert ratios[0] < 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["edges_sgd", "walks_adam", "vis_sgd"])
+def test_mesh_engine_across_cards_matches_cpu(kind, monkeypatch):
+    """The same engines with one worker on each visible card (up to four):
+    the collectives' peer copies between cards, against as many CPU
+    workers from the same draws. Skips on a host with one card."""
+    _cuda()
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    if kind != "vis_sgd":
+        monkeypatch.setattr(optim_mod, "DENSE_UPDATE_ELEMS", 1000)
+    graph = _power_law_graph(3000, 30000, 2)
+    draws = []
+    gpu, _ = _mesh_engine_run(kind, [torch.device("cuda", i)
+                                     for i in range(n)], graph, draws)
+    cpu, _ = _mesh_engine_run(kind, ["cpu"] * n, graph, draws)
+    if kind != "vis_sgd":
+        np.testing.assert_allclose(gpu.pop().numpy(), cpu.pop().numpy(),
+                                   rtol=2e-5)
+    for a, b in zip(gpu, cpu):
+        if kind == "vis_sgd":
+            scale = b.abs().amax(dim=1, keepdim=True)
+            assert bool(((a - b).abs() <= 3e-6 + 3e-4 * scale).all())
+        else:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=3e-4,
+                                       atol=3e-6)

@@ -294,9 +294,9 @@ def test_predict_in_chunks():
 
 
 def test_gaps_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 16, the KG engines"):
         KnowledgeGraphSolver(dim=8, num_worker=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="item 16, the KG engines"):
         KnowledgeGraphApplication(dim=8, gpus=[0, 1], device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         KnowledgeGraphSolver(dim=8, sampler_backend="host", device="cpu")

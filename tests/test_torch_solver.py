@@ -270,12 +270,19 @@ def test_unported_training_paths_raise(kwargs, env, match, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(num_worker=2), "item 16"),
+    # more workers than visible cards, without device_ids (the multi-device
+    # engines are ported: tests/test_torch_mesh.py)
+    (dict(num_worker=2, device=None), "devices visible"),
     (dict(sampler_backend="host"), "item 11"),
 ])
-def test_unported_solver_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        GraphSolver(dim=8, device="cpu", **kwargs)
+def test_unported_solver_options_raise(kwargs, match, monkeypatch):
+    kwargs = dict(dict(device="cpu"), **kwargs)
+    if kwargs["device"] is None:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    exc = ValueError if "num_worker" in kwargs else NotImplementedError
+    with pytest.raises(exc, match=match):
+        GraphSolver(dim=8, **kwargs)
 
 
 @pytest.mark.parametrize("v,batch,dim,k,slot,max_touch,step_bytes", [

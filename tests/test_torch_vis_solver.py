@@ -160,12 +160,22 @@ def test_resume_continues_without_reinit():
 
 
 def test_parts_left_out_raise():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        VisualizationSolver(dim=2, num_worker=2, device="cpu")
+    """The host sampler backend still raises; the multi-device engine is
+    ported (tests/test_torch_mesh.py): the application takes `gpus` as
+    two CPU workers and trains on the replicated engine."""
     with pytest.raises(NotImplementedError, match="item 11"):
         VisualizationSolver(dim=2, sampler_backend="host", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        VisualizationApplication(dim=2, gpus=[0, 1], device="cpu")
+    s = VisualizationSolver(dim=2, num_worker=2, device="cpu")
+    assert s.worker_devices == [torch.device("cpu")] * 2
+    x, _ = _clusters(n=200, c=2, seed=4)
+    app = VisualizationApplication(dim=2, gpus=[0, 1], device="cpu")
+    app.load(vectors=x, num_neighbor=10, perplexity=5)
+    app.build(num_negative=5, batch_size=512, episode_size=4)
+    app.train(num_epoch=20, log_frequency=10**9)
+    assert app.solver.mesh_stats["workers"] == 2
+    coords = app.solver.coordinates
+    assert coords.shape == (200, 2) and np.isfinite(coords).all()
+    assert not np.allclose(coords, 0)
 
 
 def _both_apps(dim, coords):
