@@ -65,7 +65,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
             margin 24, adversarial temperature 2, episode 1) on a graph of
             FB15k's published size made from --seed (14,951 entities,
             1,345 relations, 483,142 / 50,000 / 59,071 triplets;
-            deterministic maps mod the prime 14,951). The pooled step,
+            deterministic maps mod the prime 14,951). --kg-batches (50)
+            measured batches. The pooled step,
             batch 14,848 as 2 micro-steps of 7,424, 16 groups of 464
             sharing 128 candidates, the RotatE isometry body, the dense
             moment route (so no kernel of the port is on this path, and
@@ -80,7 +81,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
             margin 6, adversarial temperature 0.2, episode 200) on a
             graph of Wikidata5m's published size made from --seed
             (4,594,485 power-law entities, 822 relations, 20,614,279
-            triplets). The pooled step, batch 60,928, 128 groups of 476.
+            triplets), --kg-big-batches (50) measured float32 batches
+            (half as many bfloat16, a quarter Adam, at least 10). The
+            pooled step, batch 60,928, 128 groups of 476.
             float32 and bfloat16 SGD: every batch ends in scatter_add_ on
             the entity table (138,240 unsorted ids x 512) and on the
             relation table (60,928 ids over 822 rows); then a float32
@@ -156,7 +159,46 @@ Phases, in order (any failure exits non-zero and prints no result line):
             engine with four workers on the card against four on the CPU
             from the same draws and state (a 20,000-vertex graph, dim 32:
             tables rtol 3e-4, atol 3e-6, losses rtol 2e-5).
-13. kernel  each kernel against its plain torch version on the card, on the
+13. kg_mesh the knowledge-graph engines with two workers on the card
+            (KnowledgeGraphApplication with gpus [0, 0], GRAPHVITE_MIN_SWEEPS=1)
+            on kg_big's Wikidata5m-shaped graph at the
+            rotate_wikidata5m.yaml hyperparameters (dim 512, K 64, margin
+            6, adversarial temperature 0.2) with episodes of 16: (a)
+            pooled negatives by the auto rule, SGD lr 0.01, 192
+            worker-batches of 60,928 (two sweeps of three rounds); (b)
+            pooled, Adam lr 1e-6 wd 0, 96; (c) global negatives
+            (GRAPHVITE_KG_NEG_POOL=global), SGD, 48 of 1,792; (d) resident
+            negatives, SGD, 48. Each run: kernel 1 twice per worker-batch
+            (SGD; four times with the global pool's sum and owner update)
+            or kernel 2 once (Adam) and nothing else, ms per
+            worker-batch, triplets/s over both workers, set-up seconds,
+            peak memory; two more rounds of 2 batches per worker: host
+            syncs per worker-batch (none allowed) with the update ids of
+            a worker-batch, and a torch.profiler trace (kernels, device
+            time and busy share per worker-batch, the collectives'
+            device time). Then on a 2,000-entity power-law KG at dim 32:
+            five rounds at lr 0 give back the tables bit for bit (W 2
+            and 4, each mode), and each mode with SGD and Adam at W 2
+            and 4 on the card against as many CPU workers from the same
+            draws (tables rtol 3e-4, atol 3e-6, losses rtol 2e-5); then
+            config/demo/math.yaml with gpus [0, 0] at dim 128, 500
+            epochs through the CLI (global negatives by the auto rule):
+            filtered tail MRR >= the JAX package's at W = 2 on the CPU
+            less 0.05 (KG_MESH_MATH_GATE).
+14. host    sampler_backend="host" (the host samplers' pools from a
+            background thread, uploaded from pinned memory; episodes of
+            8): LINE at the line_flickr.yaml shape (100 batches of
+            100,000; the pair pool step, kernel 1 on each table),
+            DeepWalk at the deepwalk_youtube.yaml shape (24; the pair
+            step, kernel 1 twice), RotatE at the rotate_wikidata5m.yaml
+            shape (SGD, 24 of 100,000; kernel 1 twice; Adam lr 1e-6 wd
+            0, 8: kernel 2 once), LargeVis on the MNIST clone (Adam, 100;
+            the dense route): ms/batch, the
+            seconds the sampler thread spent making pools against the
+            loop's, the wait share on PrefetchingPool.next, launches per
+            batch; node2vec's second-order entries at the Youtube shape,
+            counted (the table is not built).
+15. kernel  each kernel against its plain torch version on the card, on the
             ids the main paths drew: scatter_add on the DeepWalk update ids
             (batch 100000 and 250000, with dropped ids added, float32 and
             bfloat16 tables), on the node2vec batch's (float32) and on the
@@ -191,15 +233,25 @@ Phases, in order (any failure exits non-zero and prints no result line):
             scatter_add_ on the edges engine's vertex and context shards
             (~3.97M x 128) and the walks engine's fused arena (~569k x
             256), scatter_update_ (Adam, the engines' counts) on both
-            engines' shards.
-14. quality  GraphApplication on a small two-block graph on the card:
+            engines' shards. Then the KG engines' worker-batch:
+            scatter_add_ on the entity arena (2,297,244 x 512) and the
+            relations (822 x 512), scatter_update_ (Adam, the pooled
+            step's counts) on the arena; the global pool's pool-space
+            sum (8,192 x 512 + counts) and owner update. Then the host
+            backend's first batch: scatter_add_ on LINE's vertex and
+            context tables (1,715,256 x 128, unsorted) and RotatE's
+            entity and relation tables, scatter_update_ on RotatE
+            Adam's entity table.
+16. quality  GraphApplication on a small two-block graph on the card:
             DeepWalk (the unfused trust-clip route), node2vec (p 4, q 2,
             the same route), the classic step (GRAPHVITE_NEG_SHARING=0),
             LINE on the edge route (the small-table route, the trust clip
             on the scatter-add) and LINE on blocked episodes (P 4, the
-            host master; evaluated on the tables in host memory):
+            host master; evaluated on the tables in host memory), and
+            LINE, DeepWalk and node2vec (its second-order table built on
+            the host, the entries counted) on sampler_backend="host":
             link-prediction AUC > 0.9.
-15. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
+17. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
             list` in a process of its own (the total of baselines), then
             three shipped configs through cmd.load_config and
             cmd.run_config, each copied with its save: path moved into a
@@ -229,7 +281,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             kernel 1 against its plain version (and timed, beside
             index_add_ and its bound) on the vertex and the context ids
             of one more batch of each graph config.
-16. summary the card line, the kernels line, and the result line.
+18. summary the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1463,7 +1515,7 @@ def check_update_rows(name, ids, counts, v, d, dtype, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: each kernel against its plain version
+# phase 15: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def check_kernel(ids, dtype, gen):
@@ -2409,12 +2461,13 @@ MESH_REPLAY_W = 4
 
 
 @contextlib.contextmanager
-def recording_updates(calls):
+def recording_updates(calls, limit=None):
     """Record the (entry, table rows, width, ids, counts) of every table
-    update the engines make while the block runs: the port's modules call
-    the kernel wrappers through their own names, so those names are
-    wrapped, and restored after."""
+    update the engines make while the block runs (the first `limit`):
+    the port's modules call the kernel wrappers through their own names,
+    so those names are wrapped, and restored after."""
     import graphvite_tpu_torch.optim as optim_mod
+    import graphvite_tpu_torch.parallel.kg as kg_mod
     import graphvite_tpu_torch.parallel.mesh as mesh_mod
 
     saved = []
@@ -2423,6 +2476,8 @@ def recording_updates(calls):
         fn = getattr(mod, name)
 
         def rec(table, *args, **kw):
+            if limit is not None and len(calls) >= limit:
+                return fn(table, *args, **kw)
             ids = args[1] if name == "scatter_update_" else args[0]
             calls.append({"entry": name, "rows": table.shape[0],
                           "width": table.shape[1], "ids": ids.clone(),
@@ -2436,6 +2491,7 @@ def recording_updates(calls):
     wrap(optim_mod, "scatter_add_")
     wrap(optim_mod, "scatter_update_")
     wrap(mesh_mod, "scatter_add_")
+    wrap(kg_mod, "scatter_add_")
     try:
         yield calls
     finally:
@@ -2956,7 +3012,469 @@ def train_mesh_vis(graph, optimizer, batches, labels, per_batch):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: quality
+# phase 13: the knowledge-graph engines on several workers
+# ---------------------------------------------------------------------------
+
+# config/knowledge_graph/rotate_wikidata5m.yaml's build, episodes of 16
+BUILD_KG_MESH = dict(num_negative=64, batch_size=100000, episode_size=16)
+# (case, GRAPHVITE_KG_NEG_POOL or None for the auto rule, optimizer,
+# worker-batches, batch per worker, launches per worker-batch): kernel 1
+# twice (entity arena, relations) on SGD, kernel 2 once (the arena; the
+# 822 x 512 relation table takes the dense route) on Adam; the global
+# pool adds the pool-space sum and the owners' update, kernel 1 each
+KG_MESH_RUNS = (("a_pooled_sgd", None, SGD_WIKIDATA5M, 192, 60928,
+                 {"scatter_add_": 2}),
+                ("b_pooled_adam", "pooled", ADAM_WIKIDATA5M, 96, 60928,
+                 {"scatter_update_": 1}),
+                ("c_global_sgd", "global", SGD_WIKIDATA5M, 48, 1792,
+                 {"scatter_add_": 4}),
+                ("d_resident_sgd", "resident", SGD_WIKIDATA5M, 48, 1792,
+                 {"scatter_add_": 2}))
+KG_MESH_REPLAY = dict(entities=2000, relations=20, triplets=20000, dim=32)
+# the JAX package's filtered tail MRR on math.yaml at dim 128, 500 epochs,
+# W = 2 on the CPU (tools/kg_mesh_math_gate.py: 0.4810), less 0.05
+KG_MESH_MATH_GATE = 0.4810 - 0.05
+
+
+def kg_mesh_episode_checks(solver, seed):
+    """Two more rounds of MESH_CHECK_BATCHES batches per worker of a KG
+    mesh run's engine from its gathered state: host syncs per
+    worker-batch (torch's sync debug mode) with the update ids of the
+    first round's first worker-batch (kernel cases), then a traced one."""
+    import torch
+
+    tr = solver._kgmesh_trainer
+    blocks = solver._kgmesh_prep[2]
+    ep_batches, tr.ep_batches = tr.ep_batches, MESH_CHECK_BATCHES
+    state = tr.init_state(*solver.state["tables"],
+                          moments=solver.state["moments"])
+    calls = []
+    box = [state]
+
+    def episode():
+        with recording_updates(calls):
+            box[0], _ = tr.run_episode(box[0], blocks, 0, solver.num_batch,
+                                       seed)
+
+    per_episode, sites = syncs_per_call(episode, calls=1)
+    torch.cuda.synchronize()
+    worker_batches = tr.ep_batches * tr.num_worker
+
+    def traced():
+        box[0], _ = tr.run_episode(box[0], blocks, 0, solver.num_batch,
+                                   seed)
+
+    trace = trace_mesh_episode(traced, worker_batches)
+    tr.ep_batches = ep_batches
+    del box, state
+    return per_episode / worker_batches, sites, calls, trace
+
+
+def train_kg_mesh(graph, name, neg_pool, optimizer, batches, eff, per_batch,
+                  seed, prep=None):
+    """RotatE at the rotate_wikidata5m.yaml shape through
+    KnowledgeGraphApplication with `gpus` = MESH_IDS (two workers on one
+    card), GRAPHVITE_MIN_SWEEPS=1 (rounds of 16 batches per worker), the
+    launch counts set to 0 just before train() and read just after, the
+    peak device memory from a reset just before; then the episode checks.
+    `prep`: an earlier run's partition and block-sorted triplets on this
+    graph. Returns the solver's prep, the record, the recorded updates
+    and a list of problems."""
+    import torch
+    from graphvite_tpu_torch import KnowledgeGraphApplication
+
+    env = {"GRAPHVITE_MIN_SWEEPS": "1"}
+    if neg_pool:
+        env["GRAPHVITE_KG_NEG_POOL"] = neg_pool
+    with environ(env):
+        app = KnowledgeGraphApplication(dim=KG_BIG_DIM, gpus=MESH_IDS)
+        app.graph = graph
+        app.build(optimizer=optimizer, **BUILD_KG_MESH)
+        s = app.solver
+        if prep is not None:
+            s._kgmesh_prep = prep
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        app.train(num_epoch=batches * eff / graph.num_edge + 1e-9,
+                  **ROTATE_WIKIDATA5M)
+        elapsed = time.perf_counter() - t0     # train() ends synchronized
+        counts = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        syncs, sites, calls, trace = kg_mesh_episode_checks(s, seed)
+    st = s.mesh_stats
+    run = s.batch_id
+    losses = s.batch_losses.double()
+    k = max(run // 10, 5)
+    extremes = [float(x) for t in s.state["tables"] for x in t.aminmax()]
+    rec = {"case": name, "negative_pool": st["negative_pool"],
+           "optimizer": optimizer["type"], "workers": st["workers"],
+           "device_ids": MESH_IDS, "batches": run,
+           "batch": s.effective_batch, "ep_batches": st["ep_batches"],
+           "episodes": st["episodes"], "elapsed_s": elapsed,
+           "loop_s": st["loop_s"], "setup_s": st["setup_s"],
+           "ms_per_worker_batch": st["loop_s"] / run * 1e3,
+           "triplets_per_s": run * s.effective_batch / st["loop_s"],
+           "launches": counts,
+           "launches_per_worker_batch": {n: c / run for n, c in
+                                         counts.items() if c},
+           "host_syncs_per_worker_batch": syncs, "sync_sites": sites,
+           "trace": trace,
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": all(np.isfinite(x) for x in extremes),
+           "peak_mem_gb": peak_gb}
+    trace["busy_share"] = (trace["device_ms_per_worker_batch"]
+                           / rec["ms_per_worker_batch"])
+    problems = []
+    want = {n: per_batch.get(n, 0) * run for n in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if s.effective_batch != eff or run != batches:
+        problems.append("%d worker-batches of %d, want %d of %d"
+                        % (run, s.effective_batch, batches, eff))
+    if st["negative_pool"] != (neg_pool or "pooled"):
+        problems.append("negative pool %r" % st["negative_pool"])
+    if not rec["losses_finite"] or not rec["tables_finite"]:
+        problems.append("losses or tables not finite")
+    if syncs:
+        problems.append("%g host syncs per worker-batch: %r"
+                        % (syncs, sites))
+    return s._kgmesh_prep, rec, calls, problems
+
+
+@contextlib.contextmanager
+def dense_update_elems(n):
+    """optim.DENSE_UPDATE_ELEMS set to n while the block runs."""
+    import graphvite_tpu_torch.optim as optim_mod
+
+    saved = optim_mod.DENSE_UPDATE_ELEMS
+    optim_mod.DENSE_UPDATE_ELEMS = n
+    try:
+        yield
+    finally:
+        optim_mod.DENSE_UPDATE_ELEMS = saved
+
+
+def kg_mesh_engine_run(kg, mode, rule, devices, draws, episodes, lr=None):
+    """ShardedKGTrainer on `devices` (a worker per entry) over the small
+    KG at KG_MESH_REPLAY's dim (RotatE, K 8, batch 512, rounds of 3):
+    the gathered entity table and moments, every worker's relations and
+    the losses. `draws`: per-round draws made on the CPU by the first
+    call and reused by the next (None: the workers' own generators)."""
+    import torch
+    from graphvite_tpu_torch.models import KG_MODELS
+    from graphvite_tpu_torch.optim import Optimizer
+    from graphvite_tpu_torch.parallel import kg as kg_mod
+    from graphvite_tpu_torch.parallel import mesh
+
+    dim = KG_MESH_REPLAY["dim"]
+    W = len(devices)
+    group = mesh.DeviceGroup(devices)
+    part = mesh.VertexPartition(np.asarray(kg.degrees), 2 * W)
+    if lr is None:
+        lr = 0.01 if rule == "SGD" else 1e-4
+    opt = Optimizer(type=rule, lr=lr, weight_decay=0.0)
+    tr = kg_mod.ShardedKGTrainer(
+        group, part, dim, KG_MODELS["RotatE"], opt, num_negative=8,
+        margin_or_l3=6.0, adversarial_temperature=0.2, batch_size=512,
+        ep_batches=3, negative_pool=mode)
+    gen = torch.Generator().manual_seed(5)
+    ent = (torch.rand((kg.num_vertex, dim), generator=gen) - 0.5) * 0.1
+    rel = torch.rand((kg.num_relation, dim), generator=gen) * 6 - 3
+    state = tr.init_state(ent, rel)
+    blocks = tr.init_triplets(kg)
+    losses = []
+    for e in range(episodes):
+        d = None
+        if draws is not None:
+            if len(draws) <= e:
+                draws.append(tr.episode_draws(
+                    torch.Generator().manual_seed(e)))
+            d = mesh.draws_to(draws[e], group.devices)
+        state, ls = tr.run_episode(state, blocks, 6 * e, 1000, 1, draws=d)
+        losses += [l.cpu() for l in ls]
+    out = {"entity": tr.gather_entities(state).cpu(),
+           "relations": [r.cpu() for r in state["rel"]],
+           "moments": [m.cpu() for m in tr.gather_entity_moments(state)],
+           "losses": torch.stack(losses)}
+    return out, (ent, rel)
+
+
+def kg_mesh_replays(seed, device="cuda"):
+    """On a small power-law KG (KG_MESH_REPLAY): (1) lr = 0, five rounds at
+    W = 2 and W = 4 on `device`, each mode: the entity and relation tables
+    come back bit for bit; (2) each mode with SGD and Adam at W = 2 and
+    W = 4 on `device` against as many CPU workers from the same state and
+    draws over two rounds, the dense-update size shrunk so the arenas
+    take kernel 2: tables, moments and relations within rtol 3e-4, atol
+    3e-6, losses rtol 2e-5 (the steps' card-vs-CPU tolerance)."""
+    import torch
+    from graphvite_tpu_torch.graph import KnowledgeGraph
+
+    kg = fill_power_law_kg(KnowledgeGraph(), KG_MESH_REPLAY["entities"],
+                           KG_MESH_REPLAY["relations"],
+                           KG_MESH_REPLAY["triplets"], seed)
+    out, problems = {"roundtrip": {}, "replays": {}}, []
+    for W in (2, 4):
+        for mode in ("pooled", "global", "resident"):
+            got, (ent, rel) = kg_mesh_engine_run(
+                kg, mode, "SGD", [torch.device(device)] * W, None, 5,
+                lr=0.0)
+            same = (torch.equal(got["entity"], ent)
+                    and all(torch.equal(r, rel) for r in got["relations"]))
+            out["roundtrip"]["%s_w%d" % (mode, W)] = same
+            if not same:
+                problems.append("lr 0, %s, W %d: the tables changed"
+                                % (mode, W))
+    with dense_update_elems(1000):
+        for W in (2, 4):
+            for mode in ("pooled", "global", "resident"):
+                for rule in ("SGD", "Adam"):
+                    draws = []
+                    card, (ent, _) = kg_mesh_engine_run(
+                        kg, mode, rule, [torch.device(device)] * W, draws, 2)
+                    cpu, _ = kg_mesh_engine_run(kg, mode, rule, ["cpu"] * W,
+                                                draws, 2)
+                    pairs = ([(card["entity"], cpu["entity"])]
+                             + list(zip(card["relations"],
+                                        cpu["relations"]))
+                             + list(zip(card["moments"], cpu["moments"])))
+                    err = max(float((a - b).abs().max()) for a, b in pairs)
+                    ok = all(bool(((a - b).abs()
+                                   <= 3e-6 + 3e-4 * b.abs()).all())
+                             for a, b in pairs)
+                    lc, lp = card["losses"].double(), cpu["losses"].double()
+                    lerr = float(((lc - lp).abs() / lp.abs()).max())
+                    name = "%s_%s_w%d" % (mode, rule.lower(), W)
+                    out["replays"][name] = {
+                        "max_abs_err": err, "loss_rel_err": lerr,
+                        "moved": float((cpu["entity"] - ent).abs().max())}
+                    if not ok or not lerr <= 2e-5:
+                        problems.append("%s: card and CPU disagree (max "
+                                        "|err| %g, loss %g)"
+                                        % (name, err, lerr))
+                    if not out["replays"][name]["moved"] > 0:
+                        problems.append("%s: nothing moved" % name)
+    return out, problems
+
+
+def kg_mesh_math_cli(root):
+    """config/demo/math.yaml through the CLI with `gpus: [0, 0]` (two
+    workers on the card; global negatives by the auto rule at this
+    shape), cut to dim 128 and 500 epochs: filtered tail MRR against
+    KG_MESH_MATH_GATE."""
+    cfg, app, results, rec, problems = run_cli(cli_config(
+        "demo/math.yaml", root, (("dim: 512", "dim: 128\n  gpus: [0, 0]"),
+                                 ("num_epoch: 2000", "num_epoch: 500"))))
+    s = app.solver
+    st = s.mesh_stats
+    rec.update({"model": s.model, "dim": s.dim, "workers": st["workers"],
+                "negative_pool": st["negative_pool"],
+                "batch": s.effective_batch, "ep_batches": st["ep_batches"],
+                "ms_per_worker_batch": st["loop_s"] / s.batch_id * 1e3,
+                "gate": KG_MESH_MATH_GATE, **results[0]})
+    if st["workers"] != 2 or st["negative_pool"] != "global":
+        problems.append("trained on %d workers with %s negatives, want 2, "
+                        "global" % (st["workers"], st["negative_pool"]))
+    if not rec["MRR"] >= KG_MESH_MATH_GATE:
+        problems.append("filtered tail MRR %.4f < %.4f"
+                        % (rec["MRR"], KG_MESH_MATH_GATE))
+    return rec, problems
+
+
+def kg_mesh_phase(seed, shared):
+    """The KG engines at W = 2 on the one card (device_ids [0, 0]) on
+    kg_big's Wikidata5m-shaped graph: (a) pooled by the auto rule, SGD,
+    192 worker-batches (two sweeps of three rounds); (b) pooled, Adam (lr
+    1e-6, wd 0), one sweep; (c) global and (d) resident negatives, SGD,
+    48 each. Then the lr = 0 round trips and the card-vs-CPU replays at
+    W = 2 and 4 on a small KG, and math.yaml through the CLI at W = 2."""
+    import torch
+
+    graph = shared["wikidata5m"]
+    out, problems = {"ids": {}}, []
+    prep = None
+    for name, neg_pool, opt, batches, eff, per_batch in KG_MESH_RUNS:
+        prep, rec, calls, bad = train_kg_mesh(graph, name, neg_pool, opt,
+                                              batches, eff, per_batch, seed,
+                                              prep)
+        log("   (%s):" % name, json.dumps(rec))
+        out[name] = rec
+        problems += ["%s: %s" % (name, p) for p in bad]
+        if name.startswith("a") and not rec["loss_last"] < rec["loss_first"]:
+            problems.append("%s: losses not falling" % name)
+        if name.startswith(("a", "b")):
+            # worker 0's first batch: the arena's and (SGD) the relations'
+            # updates
+            whats = ("arena", "relation")[:2 if opt["type"] == "SGD"
+                                          else 1]
+            out["ids"][name] = list(zip(whats, calls))
+        elif name.startswith("c"):
+            # the global pool's first batch: worker 0's pool-space sum
+            # (after its step's two updates) and its owner update (after
+            # both workers' steps and sums, and the reduce_scatter)
+            W = len(MESH_IDS)
+            out["ids"][name] = [("pool sum", calls[2]),
+                                ("owner update", calls[3 * W])]
+        del calls
+        torch.cuda.empty_cache()
+    del prep
+    torch.cuda.empty_cache()
+    rec, bad = kg_mesh_replays(seed)
+    log("   lr 0 round trips and replays, card vs CPU:", json.dumps(rec))
+    out["replays"] = rec
+    problems += bad
+    with no_downloads():
+        rec, bad = kg_mesh_math_cli(os.environ["GRAPHVITE_DATASET_PATH"])
+    log("   math.yaml, gpus [0, 0]:", json.dumps(rec))
+    out["math"] = rec
+    problems += ["math: " + p for p in bad]
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the host sampler backend
+# ---------------------------------------------------------------------------
+
+HOST_EPISODE = 8
+
+
+def train_host(app_cls, graph, app_kw, build_kw, train_kw, batches, eff,
+               per_batch, record=0):
+    """`batches` batches of a solver on sampler_backend="host" (episodes
+    of HOST_EPISODE), the launch counts set to 0 just before train() and
+    read just after: ms/batch, the seconds the sampler thread spent making
+    pools against the loop's, the share of the loop spent waiting on
+    PrefetchingPool.next, kernel launches per batch against `per_batch`
+    (the step family the reference's host route trains); the first
+    `record` table updates of the run (kernel cases)."""
+    import torch
+
+    app = app_cls(**app_kw)
+    app.solver.sampler_backend = "host"
+    app.graph = graph
+    app.build(episode_size=HOST_EPISODE, **build_kw)
+    s = app.solver
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    calls = []
+    t0 = time.perf_counter()
+    with recording_updates(calls, limit=record):
+        app.train(num_epoch=batches * eff / graph.num_edge + 1e-9,
+                  **train_kw)
+    elapsed = time.perf_counter() - t0
+    counts = read_launches()
+    st = s.host_stats
+    run = s.batch_id
+    losses = s.batch_losses.double()
+    rec = {"batches": run, "batch": s.effective_batch,
+           "ep_batches": st["ep_batches"], "pools": st["pools"],
+           "elapsed_s": elapsed, "loop_s": st["loop_s"],
+           "ms_per_batch": st["loop_s"] / run * 1e3,
+           "samples_per_s": run * s.effective_batch / st["loop_s"],
+           "pool_produce_s": st["produce_s"], "wait_s": st["wait_s"],
+           "wait_share": st["wait_s"] / st["loop_s"],
+           "launches": counts,
+           "launches_per_batch": {n: c / run for n, c in counts.items()
+                                  if c},
+           "loss_first": float(losses[:3].mean()),
+           "loss_last": float(losses[-3:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_on": str(s.state["tables"][0].device),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # the device's share: the loop less what it waited for pools
+    rec["device_s"] = rec["loop_s"] - rec["wait_s"]
+    rec["host_bound"] = rec["pool_produce_s"] > rec["device_s"]
+    problems = []
+    want = {n: per_batch.get(n, 0) * run for n in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if s.effective_batch != eff or run < batches:
+        problems.append("%d batches of %d, want %d of %d"
+                        % (run, s.effective_batch, batches, eff))
+    if not rec["losses_finite"] or rec["tables_on"] != "cuda:0":
+        problems.append("losses not finite, or tables on %s"
+                        % rec["tables_on"])
+    return app, rec, calls, problems
+
+
+def host_phase(seed, shared):
+    """sampler_backend="host" (episodes of HOST_EPISODE batches) on the
+    graphs earlier phases built: LINE at the line_flickr.yaml shape (100
+    batches), DeepWalk at the deepwalk_youtube.yaml shape (24), RotatE at
+    the rotate_wikidata5m.yaml shape (SGD, 24; and Adam lr 1e-6 wd 0, 8:
+    kernel 2's path), LargeVis on the MNIST clone (100). Each on the step
+    family of the reference's host route: the pair pool step (kernel 1
+    on each table, no sweeps), the KG pooled step (kernel 1 twice, or
+    kernel 2 once with the relations on the dense route), the LargeVis
+    pooled step (Adam: the dense route). The first batch's updates of
+    LINE and RotatE are kept for the kernel phase. node2vec's
+    second-order table at the Youtube shape is only counted: it has one
+    entry per (edge, neighbour of the tail)."""
+    from graphvite_tpu_torch import (GraphApplication,
+                                     KnowledgeGraphApplication,
+                                     VisualizationApplication)
+    from graphvite_tpu_torch.sampler import second_order_entries
+
+    import torch
+
+    out, problems = {"ids": {}}, []
+    runs = (
+        ("line_flickr", GraphApplication, shared["flickr"], dict(dim=DIM),
+         dict(optimizer=SGD_FLICKR, num_negative=1, batch_size=100000),
+         dict(model="LINE", augmentation_step=1, negative_weight=5.0,
+              log_frequency=10**9), 100, 100000, {"scatter_add_": 2},
+         ("vertex", "context")),
+        ("deepwalk_youtube", GraphApplication, shared["youtube"],
+         dict(dim=DIM), dict(optimizer=SGD_YOUTUBE, num_negative=1,
+                             batch_size=100000),
+         dict(model="DeepWalk", augmentation_step=5, random_walk_length=40,
+              negative_weight=5.0, log_frequency=10**9), 24, 100000,
+         {"scatter_add_": 2}, ()),
+        ("rotate_wikidata5m", KnowledgeGraphApplication,
+         shared["wikidata5m"], dict(dim=KG_BIG_DIM),
+         dict(optimizer=SGD_WIKIDATA5M, num_negative=64,
+              batch_size=100000), ROTATE_WIKIDATA5M, 24, 100000,
+         {"scatter_add_": 2}, ("entity", "relation")),
+        ("rotate_wikidata5m_adam", KnowledgeGraphApplication,
+         shared["wikidata5m"], dict(dim=KG_BIG_DIM),
+         dict(optimizer=ADAM_WIKIDATA5M, num_negative=64,
+              batch_size=100000), ROTATE_WIKIDATA5M, 8, 100000,
+         {"scatter_update_": 1}, ("entity",)),
+        ("largevis_mnist", VisualizationApplication, shared["mnist"][0],
+         dict(dim=2), dict(optimizer=ADAM_VIS, num_negative=5,
+                           batch_size=100000),
+         dict(LARGEVIS), 100, 100000, {}, ()))
+    for (name, cls, graph, app_kw, build_kw, train_kw, n, eff, per,
+         keep) in runs:
+        app, rec, calls, bad = train_host(cls, graph, app_kw, build_kw,
+                                          train_kw, n, eff, per,
+                                          record=len(keep))
+        log("   %s:" % name, json.dumps(rec))
+        out[name] = rec
+        problems += ["%s: %s" % (name, p) for p in bad]
+        if keep:
+            out["ids"]["host " + name] = list(zip(keep, calls))
+        del app, calls
+        torch.cuda.empty_cache()
+    entries = second_order_entries(shared["youtube"])
+    out["node2vec_youtube_second_order_entries"] = entries
+    log("   node2vec at the Youtube shape: %d second-order entries (%.1f GB "
+        "of float64 weights and int64 aliases): not built"
+        % (entries, entries * 16 / 1e9))
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: quality
 # ---------------------------------------------------------------------------
 
 def two_blocks(n=60, seed=0):
@@ -2975,7 +3493,8 @@ def two_blocks(n=60, seed=0):
     return edges
 
 
-def quality(model="DeepWalk", device=None, classic=False, blocked=False):
+def quality(model="DeepWalk", device=None, classic=False, blocked=False,
+            host=False):
     """Two-block link prediction and node classification through
     GraphApplication: DeepWalk or node2vec (p 4, q 2; augmentation 2, the
     unfused trust-clip walk route), or LINE (augmentation 1, the edge route
@@ -2984,11 +3503,16 @@ def quality(model="DeepWalk", device=None, classic=False, blocked=False):
     the classic K-draw step (GRAPHVITE_NEG_SHARING=0) on walk pairs.
     `blocked` (LINE): blocked episodes over 4 partitions with the host
     master (GRAPHVITE_HOST_MASTER=1), so evaluation scores the tables in
-    host memory."""
+    host memory. `host`: sampler_backend="host" (the pair step over
+    batch_size, no micro-steps; node2vec's second-order table built on
+    the host, its entries counted)."""
     from graphvite_tpu_torch import GraphApplication
+    from graphvite_tpu_torch.sampler import second_order_entries
 
     edges = two_blocks()
     app = GraphApplication(dim=16, device=device)
+    if host:
+        app.solver.sampler_backend = "host"
     app.load(edge_list=edges)
     if model in ("DeepWalk", "node2vec"):
         app.build(optimizer={"type": "SGD", "lr": 0.1, "weight_decay": 5e-3},
@@ -3027,14 +3551,18 @@ def quality(model="DeepWalk", device=None, classic=False, blocked=False):
     return {"model": model, "classic": classic, "auc": auc,
             "micro_f1": nc["micro-F1@50%"], "fused_arena": s._banded_fused,
             "sweeps": [s._sweep_gather, s._sweep_scatter, s._sweep_context],
-            "batches": s.batch_id, "micro_steps": s._batch_plan()[2],
-            "blocked": blocked,
+            "batches": s.batch_id,
+            "micro_steps": 1 if host else s._batch_plan()[2],
+            "blocked": blocked, "host": host,
+            "second_order_entries": (second_order_entries(g)
+                                     if host and model == "node2vec"
+                                     else None),
             "state_device": s.state["tables"][0].device.type,
             "launches": launches}
 
 
 # ---------------------------------------------------------------------------
-# phase 15: the command line
+# phase 17: the command line
 # ---------------------------------------------------------------------------
 
 # tools/blogcatalog_clone.py: BlogCatalog's published statistics
@@ -3436,8 +3964,8 @@ def main():
     ap.add_argument("--node2vec-batches", type=int, default=600)
     ap.add_argument("--layout-batches", type=int, default=50)
     ap.add_argument("--edge-batches", type=int, default=1000)
-    ap.add_argument("--kg-batches", type=int, default=100)
-    ap.add_argument("--kg-big-batches", type=int, default=100)
+    ap.add_argument("--kg-batches", type=int, default=50)
+    ap.add_argument("--kg-big-batches", type=int, default=50)
     args = ap.parse_args()
 
     try:
@@ -3618,6 +4146,7 @@ def run(args):
         log("graph: %d vertices, %d input edges, %d directed, built in %.1f s"
             % (graph.num_vertex, graph.num_edge, graph.num_directed_edge,
                time.perf_counter() - t0))
+        shared["flickr"] = graph            # for phase host
         torch.cuda.reset_peak_memory_stats()
         out = {}
         problems = []
@@ -3721,6 +4250,7 @@ def run(args):
                 log("graph: %d entities, %d relations, %d triplets, built "
                     "in %.1f s" % (graph.num_vertex, graph.num_relation,
                                    graph.num_edge, time.perf_counter() - t0))
+                shared["wikidata5m"] = graph    # for kg_mesh and host
             app.graph = graph
             app.build(optimizer=opt, **BUILD_WIKIDATA5M)
             rec, bad = train_kg_path(app, ROTATE_WIKIDATA5M, batches,
@@ -3764,10 +4294,19 @@ def run(args):
     # 12. the multi-device engines, two workers on the card, on the
     # graphs of main, vis and blocked
     phase("mesh", lambda: mesh_phase(args.seed, shared))
+    torch.cuda.empty_cache()
+
+    # 13. the KG engines, two workers on the card, on kg_big's graph
+    phase("kg_mesh", lambda: kg_mesh_phase(args.seed, shared))
+    torch.cuda.empty_cache()
+
+    # 14. the host sampler backend on the graphs of edge, main, kg_big
+    # and vis
+    phase("host", lambda: host_phase(args.seed, shared))
     shared.clear()
     torch.cuda.empty_cache()
 
-    # 13. each kernel against its plain version, on the paths' own ids
+    # 15. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         cases = {"scatter_add": [], "gather_sorted": [],
@@ -3900,24 +4439,52 @@ def run(args):
                     cases["scatter_update"].append(rec)
                 log("   %s (%s)" % (c["entry"], name), json.dumps(rec))
                 torch.cuda.empty_cache()
+        # the KG engines' updates in worker 0's first batch of an extra
+        # round: the entity arena (2 cap = 2,297,244 x 512; kernel 1 on
+        # SGD, kernel 2 with the pooled step's counts on Adam), the
+        # relations (822 x 512, SGD), the global pool's pool-space sum
+        # (W Q = 8,192 rows) and its owner update (Q ids over the arena);
+        # then the host backend's first batch: LINE's vertex and context
+        # tables (1,715,256 x 128), RotatE's entity (4,594,485 x 512)
+        # and relation tables, and RotatE Adam's entity table
+        kg_calls = [("kg_mesh " + tag, calls) for tag, calls
+                    in sorted(results["kg_mesh"]["ids"].items())]
+        kg_calls += sorted(results["host"]["ids"].items())
+        for tag, calls in kg_calls:
+            for what, c in calls:
+                name = "%s %s" % (tag, what)
+                if c["entry"] == "scatter_add_":
+                    rec = check_add_rows(name, c["ids"], c["rows"],
+                                         c["width"], torch.float32, gen)
+                    cases["scatter_add"].append(rec)
+                else:
+                    rec = check_update_rows(name, c["ids"], c["counts"],
+                                            c["rows"], c["width"],
+                                            torch.float32, gen)
+                    cases["scatter_update"].append(rec)
+                log("   %s (%s)" % (c["entry"], name), json.dumps(rec))
+                torch.cuda.empty_cache()
         return cases
     needed = ("main", "node2vec", "edge", "kg", "kg_big", "vis", "blocked",
-              "mesh")
+              "mesh", "kg_mesh", "host")
     if all(name in results for name in needed):
         phase("kernel", kernel)
     else:
         failures.append("kernel (needs the paths' ids)")
 
-    # 14. quality
+    # 16. quality
     def quality_phase():
         out = {}
-        for name, model, classic, blocked in (
-                ("DeepWalk", "DeepWalk", False, False),
-                ("LINE", "LINE", False, False),
-                ("node2vec", "node2vec", False, False),
-                ("classic", "DeepWalk", True, False),
-                ("LINE blocked, host master", "LINE", False, True)):
-            q = quality(model, classic=classic, blocked=blocked)
+        for name, model, classic, blocked, host in (
+                ("DeepWalk", "DeepWalk", False, False, False),
+                ("LINE", "LINE", False, False, False),
+                ("node2vec", "node2vec", False, False, False),
+                ("classic", "DeepWalk", True, False, False),
+                ("LINE blocked, host master", "LINE", False, True, False),
+                ("LINE, host sampler", "LINE", False, False, True),
+                ("DeepWalk, host sampler", "DeepWalk", False, False, True),
+                ("node2vec, host sampler", "node2vec", False, False, True)):
+            q = quality(model, classic=classic, blocked=blocked, host=host)
             log("   two-block %s on the card:" % name, json.dumps(q))
             if not q["auc"] > 0.9:
                 raise AssertionError("%s link-prediction AUC %.4f <= 0.9"
@@ -3936,7 +4503,7 @@ def run(args):
         return out
     phase("quality", quality_phase)
 
-    # 15. the command line: three shipped configs through cmd, in process,
+    # 17. the command line: three shipped configs through cmd, in process,
     # and `cmd list` in a process of its own
     def cli_phase():
         root = os.environ["GRAPHVITE_DATASET_PATH"]
@@ -3976,7 +4543,7 @@ def run(args):
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 16. summary: the card line, the kernels line, the result line
+    # 18. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
@@ -4001,6 +4568,14 @@ def run(args):
     for name in ("edges_sgd", "walks_sgd", "walks_node2vec", "vis_sgd"):
         k1["mesh_" + name] = mesh[name]["launches"]["scatter_add_"]
     k1["mesh_walks_w1"] = mesh["walks_w1"]["launches"]["scatter_add_"]
+    kg_mesh = results["kg_mesh"]
+    for name in ("a_pooled_sgd", "c_global_sgd", "d_resident_sgd"):
+        k1["kg_mesh_" + name] = kg_mesh[name]["launches"]["scatter_add_"]
+    host = results["host"]
+    for name in ("line_flickr", "deepwalk_youtube", "rotate_wikidata5m"):
+        k1["host_" + name] = host[name]["launches"]["scatter_add_"]
+    k1["host_largevis_mnist"] = host["largevis_mnist"]["launches"][
+        "scatter_add_"]
     k2 = {"edge_adam": (edge["adam"]["launches"]["scatter_update_"]
                         + edge["adam"]["launches"]["scatter_update_sorted_"]),
           "kg_big_adam": kg_big["adam"]["launches"]["scatter_update_"],
@@ -4013,7 +4588,14 @@ def run(args):
           "mesh_edges_adam": mesh["edges_adam"]["launches"]["scatter_update_"],
           "mesh_walks_adam": mesh["walks_adam"]["launches"]["scatter_update_"],
           # the replicas' tables take the dense moment route
-          "mesh_vis_adam": mesh["vis_adam"]["launches"]["scatter_update_"]}
+          "mesh_vis_adam": mesh["vis_adam"]["launches"]["scatter_update_"],
+          "kg_mesh_b_pooled_adam": (kg_mesh["b_pooled_adam"]["launches"]
+                                    ["scatter_update_"]),
+          "host_rotate_wikidata5m_adam": (
+              host["rotate_wikidata5m_adam"]["launches"]["scatter_update_"]),
+          # the MNIST table takes the dense moment route
+          "host_largevis_mnist": (host["largevis_mnist"]["launches"]
+                                  ["scatter_update_"])}
     k3 = {"edge_float32": edge["float32"]["launches"]["gather_sorted"]}
     kernels_line = {"kernels": [
         # the DeepWalk batch-100000 update, float32 table

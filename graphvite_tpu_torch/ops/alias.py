@@ -2,8 +2,9 @@
 graphvite_tpu/ops/alias.py).
 
 Tables are built on the host (native ctypes code, numpy fallback) and
-sampled on the device with two uniforms -> gather -> select, the decision
-rule of the reference's alias_table.cuh:148-152.
+sampled with two uniforms -> gather -> select, the decision rule of the
+reference's alias_table.cuh:148-152: on the device, or on the host for
+the host samplers (sampler.py).
 """
 from __future__ import annotations
 
@@ -56,21 +57,41 @@ def _build_alias_numpy(scaled: np.ndarray):
 
 
 class AliasTable:
-    """Host-built alias table over `weights` (sampled on the device)."""
+    """Host-built alias table over `weights`, sampled on the device
+    (`device_sample`) or, for the host samplers, on the host in numpy."""
 
     def __init__(self, weights: np.ndarray):
         self.count = int(np.asarray(weights).size)
         self.prob, self.alias = build_alias(np.asarray(weights))
 
+    def sample(self, rng: np.random.Generator, size) -> np.ndarray:
+        u1 = rng.random(size)
+        u2 = rng.random(size)
+        return self.sample_with(u1, u2)
+
+    def sample_with(self, u1: np.ndarray, u2: np.ndarray) -> np.ndarray:
+        idx = (u1 * self.count).astype(np.int64)
+        np.clip(idx, 0, self.count - 1, out=idx)
+        keep = u2 < self.prob[idx]
+        return np.where(keep, idx, self.alias[idx])
+
 
 class PackedAliasTables:
     """Many small alias tables packed into flat arrays (per-vertex neighbor
     tables for random walks). offsets[i]:offsets[i+1] delimits table i;
-    the walk chain samples them on the device."""
+    the walk chain samples them on the device, the host walk sampler in
+    numpy (`sample`, vectorized across a batch of table ids).
+    `uniform_tables` makes uniform tables over the same offsets with no
+    alias arrays."""
 
-    def __init__(self, weights_flat: np.ndarray, offsets: np.ndarray):
+    def __init__(self, weights_flat: np.ndarray, offsets: np.ndarray,
+                 uniform: bool = False):
         self.offsets = np.ascontiguousarray(offsets, dtype=np.int64)
         self.sizes = np.diff(self.offsets)
+        self.uniform = uniform
+        if uniform:
+            self.prob = self.alias = None
+            return
         weights_flat = np.ascontiguousarray(weights_flat, dtype=np.float64)
         if _native.load() is not None and weights_flat.size:
             self.prob, self.alias = _native.build_alias_packed(weights_flat, self.offsets)
@@ -85,6 +106,22 @@ class PackedAliasTables:
                 alias[lo:hi] = a
         self.prob = prob
         self.alias = alias
+
+    @classmethod
+    def uniform_tables(cls, offsets: np.ndarray):
+        return cls(np.zeros(0), offsets, uniform=True)
+
+    def sample(self, table_ids: np.ndarray, u1: np.ndarray,
+               u2: np.ndarray) -> np.ndarray:
+        """The *local* index drawn within each table id."""
+        sizes = self.sizes[table_ids]
+        idx = (u1 * sizes).astype(np.int64)
+        np.clip(idx, 0, np.maximum(sizes - 1, 0), out=idx)
+        if self.uniform:
+            return idx
+        flat = self.offsets[table_ids] + idx
+        keep = u2 < self.prob[flat]
+        return np.where(keep, idx, self.alias[flat])
 
 
 def device_alias_arrays(table: AliasTable, dtype=np.float32):

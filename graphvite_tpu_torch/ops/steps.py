@@ -703,20 +703,26 @@ def make_kg_train_step(model, opt: Optimizer, num_negative: int,
 
     step(state, heads [B], tails [B], rels [B], lr, mask=None,
     negatives=None, generator=None) -> (state, loss); `negatives` =
-    (cand_ids [B, K], corrupt_head [B, K] bool) replaces the draw."""
-    if external_pool:
-        raise NotImplementedError(
-            "external_pool=True (candidate rows from the sharded trainer's "
-            "global pool) is not ported yet (ROADMAP queue 1, item 16)")
+    (cand_ids [B, K], corrupt_head [B, K] bool) replaces the draw.
+
+    With `external_pool=True` the candidate ROWS come from a caller-owned
+    negative pool (the sharded trainer's global pool): step(...,
+    pool=(pool_rows [N, D], pool_idx [B, K], corrupt_head [B, K])) ->
+    (state, loss, cand_grad), the candidates left out of the entity
+    update and their [B, K, D] regularized gradients returned for the
+    caller to route back to the rows' owners."""
     k = num_negative
 
     def step(state, heads, tails, rels, lr, mask=None, negatives=None,
-             generator=None):
+             generator=None, pool=None):
         entity, relation = state["tables"]
         e_moms, r_moms = state["moments"]
         b = heads.shape[0]
         num_entity = entity.shape[0]
-        if negatives is None:
+        if external_pool:
+            pool_rows, pool_idx, corrupt_head = pool
+            cand_ids = None
+        elif negatives is None:
             neg_ids = torch.randint(0, 2 * num_entity, (b, k),
                                     generator=generator,
                                     device=entity.device)
@@ -731,7 +737,10 @@ def make_kg_train_step(model, opt: Optimizer, num_negative: int,
         # candidate row, the other side the positive row
         h_pos = entity[heads][:, None, :].float()            # [B, 1, D]
         t_pos = entity[tails][:, None, :].float()
-        cand = entity[cand_ids].float()                      # [B, K, D]
+        if external_pool:
+            cand = pool_rows[pool_idx].float()               # [B, K, D]
+        else:
+            cand = entity[cand_ids].float()
         ch = corrupt_head[..., None]
         h = torch.cat([torch.where(ch, cand, h_pos), h_pos], dim=1)
         t = torch.cat([torch.where(ch, t_pos, cand), t_pos], dim=1)
@@ -774,22 +783,27 @@ def make_kg_train_step(model, opt: Optimizer, num_negative: int,
         tail_touch = reg_t[:, :k] * chf
         head_grad = reg_h[:, k] + head_touch.sum(dim=1)
         tail_grad = reg_t[:, k] + tail_touch.sum(dim=1)
-        ent_ids = torch.cat([
-            _mask_ids(heads, mask, num_entity).long(),
-            _mask_ids(tails, mask, num_entity).long(),
-            _mask_ids(cand_ids, mask, num_entity).reshape(-1).long()])
-        ent_grads = torch.cat([head_grad, tail_grad,
-                               cand_grad.reshape(b * k, -1)])
+        ent_ids = [_mask_ids(heads, mask, num_entity).long(),
+                   _mask_ids(tails, mask, num_entity).long()]
+        ent_grads = [head_grad, tail_grad]
+        if not external_pool:
+            ent_ids.append(
+                _mask_ids(cand_ids, mask, num_entity).reshape(-1).long())
+            ent_grads.append(cand_grad.reshape(b * k, -1))
+        ent_ids = torch.cat(ent_ids)
+        ent_grads = torch.cat(ent_grads)
         ent_counts = ent_sqs = r_counts = r_sqs = None
         if opt.num_moment > 0:
             chn = corrupt_head.float()                       # [B, K]
-            ent_counts = torch.cat([
-                1 + (1 - chn).sum(dim=1), 1 + chn.sum(dim=1),
-                torch.ones(b * k, device=entity.device)])
-            ent_sqs = torch.cat([
+            ent_counts = [1 + (1 - chn).sum(dim=1), 1 + chn.sum(dim=1)]
+            ent_sqs = [
                 reg_h[:, k] ** 2 + (head_touch * head_touch).sum(dim=1),
-                reg_t[:, k] ** 2 + (tail_touch * tail_touch).sum(dim=1),
-                (cand_grad * cand_grad).reshape(b * k, -1)])
+                reg_t[:, k] ** 2 + (tail_touch * tail_touch).sum(dim=1)]
+            if not external_pool:
+                ent_counts.append(torch.ones(b * k, device=entity.device))
+                ent_sqs.append((cand_grad * cand_grad).reshape(b * k, -1))
+            ent_counts = torch.cat(ent_counts)
+            ent_sqs = torch.cat(ent_sqs)
             r_counts = torch.full((b,), k + 1.0, device=entity.device)
             r_sqs = (per_touch_r * per_touch_r).sum(dim=1)
         new_entity, new_e_moms = apply_row_updates(
@@ -801,8 +815,11 @@ def make_kg_train_step(model, opt: Optimizer, num_negative: int,
             entry_counts=r_counts, entry_sqs=r_sqs)
         new_state = {"tables": (new_entity, new_relation),
                      "moments": (new_e_moms, new_r_moms)}
+        if external_pool:
+            return new_state, _mean_sample_loss(sample_loss, mask), cand_grad
         return new_state, _mean_sample_loss(sample_loss, mask)
 
+    step.num_negative = k
     return step
 
 
@@ -1425,6 +1442,38 @@ def make_fused_runner(step_fn, sample_fn, opt: Optimizer, ep_groups: int,
                     losses.append(loss)
             if state_unpack is not None:
                 state = state_unpack(state)
+            return state, torch.stack(losses)
+
+    return run
+
+
+def make_pool_runner(step_fn, num_batch_total: int, opt: Optimizer,
+                     has_relation: bool = False):
+    """Runner over a pool of stacked batches (the host sampler backend;
+    the reference's scan over a pool, steps.py:1730).
+
+    run(state, pool, batch_id0, generator, *neg_state, draws=None) ->
+    (state, losses [N]): `pool` = (heads, tails) or (heads, tails, rels),
+    each [N, B] on the device; batch i trains at lr = schedule(batch_id0
+    + i, num_batch_total) with no mask. `draws`: per batch, the step's own
+    draws (a KG step's `negatives`, otherwise its `draws`), or None for
+    draws from `generator`. Losses stay on the device."""
+
+    def run(state, pool, batch_id0, generator, *neg_state, draws=None):
+        with torch.no_grad():
+            losses = []
+            for i in range(pool[0].shape[0]):
+                lr = opt.schedule_lr(batch_id0 + i, num_batch_total)
+                d = None if draws is None else draws[i]
+                if has_relation:
+                    state, loss = step_fn(state, pool[0][i], pool[1][i],
+                                          pool[2][i], lr, negatives=d,
+                                          generator=generator)
+                else:
+                    state, loss = step_fn(state, pool[0][i], pool[1][i], lr,
+                                          *neg_state, generator=generator,
+                                          draws=d)
+                losses.append(loss)
             return state, torch.stack(losses)
 
     return run

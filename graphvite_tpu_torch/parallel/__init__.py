@@ -1,5 +1,5 @@
 """Vertex partitions, the worker group and the multi-device engines (the
-port of graphvite_tpu/parallel/ for node embedding and LargeVis).
+port of graphvite_tpu/parallel/).
 
 The reference scales by staging (head partition x tail partition) blocks
 of the embedding tables under an orthogonal episode schedule
@@ -10,14 +10,18 @@ generator per worker) `ShardedGraphTrainer` keeps partition p's vertex
 shard on worker p and rotates the context shards around the ring (edges
 mode), or fetches and updates rows on their owners (banded walks);
 `ReplicatedEdgeTrainer` trains LargeVis replicas and merges their deltas.
-The knowledge-graph engines are a later slice.
+For knowledge graphs (parallel/kg.py) `ShardedKGTrainer` holds two of 2W
+entity partitions per worker under a tournament rotation, and
+`ReplicatedKGTrainer` trains replicas and sums their deltas.
 """
 from graphvite_tpu_torch.parallel.mesh import (BlockEdgeTables, DeviceGroup,
                                                ReplicatedEdgeTrainer,
                                                ShardedGraphTrainer,
                                                VertexPartition,
                                                make_sharded_graph_step)
+from graphvite_tpu_torch.parallel.kg import (ReplicatedKGTrainer,
+                                             ShardedKGTrainer)
 
 __all__ = ["BlockEdgeTables", "DeviceGroup", "ReplicatedEdgeTrainer",
-           "ShardedGraphTrainer", "VertexPartition",
-           "make_sharded_graph_step"]
+           "ReplicatedKGTrainer", "ShardedGraphTrainer", "ShardedKGTrainer",
+           "VertexPartition", "make_sharded_graph_step"]

@@ -3,12 +3,14 @@ collectives, and the episode engines (the port of
 graphvite_tpu/parallel/mesh.py).
 
 The reference drives a `jax.sharding.Mesh` from one controller; its
-collectives are `ppermute` (the ring), `all_to_all` (the walk engine's row
-routing) and `psum` (the replicated merge). The port keeps that design:
-one Python process holds W workers (`DeviceGroup`), each with its own
-`torch.device`, on CUDA its own stream, and its own `torch.Generator`;
-the collectives are three functions over lists of per-worker tensors
-(`ring_shift`, `all_to_all`, `sum`), narrow enough that a
+collectives are `ppermute` (the ring, the KG seat rotation), `all_to_all`
+(the walk engine's row routing), `psum` (the replicated merge) and
+`all_gather` / `psum_scatter` (the KG engine's global negative pool). The
+port keeps that design: one Python process holds W workers
+(`DeviceGroup`), each with its own `torch.device`, on CUDA its own stream,
+and its own `torch.Generator`; the collectives are functions over lists
+of per-worker tensors (`ring_shift`, `permute`, `all_to_all`, `sum`,
+`all_gather`, `reduce_scatter`), narrow enough that a
 `torch.distributed` backend can stand behind the same interface for the
 multi-host path. Workers may share a device (`device_ids=[0, 0]`): the
 ring then renames list entries and copies nothing.
@@ -200,7 +202,14 @@ class DeviceGroup:
       receives [P, C, ...] whose row i is chunks[i][j]; the identity for
       one worker;
     * sum(xs): every worker receives the sum over workers, added in worker
-      order on each (so every worker holds the same bits).
+      order on each (so every worker holds the same bits);
+    * permute(xs, pairs): ppermute with the (source, destination) `pairs`;
+      a worker that receives nothing gets zeros (a broadcast view);
+    * all_gather(xs): every worker receives the workers' tensors
+      concatenated along dim 0 in worker order (all_gather, tiled);
+    * reduce_scatter(xs): xs[i] is [P * C, ...]; worker j receives the sum
+      over workers of chunk j, xs[i][j C:(j + 1) C], added in worker order
+      (psum_scatter, tiled).
     """
 
     def __init__(self, devices):
@@ -310,6 +319,55 @@ class DeviceGroup:
             out = []
             for j in range(P):
                 parts = [self._fetch(xs[i], i, j, ev) for i in range(P)]
+                with self.worker(j):
+                    acc = parts[0].clone()
+                    for p in parts[1:]:
+                        acc += p
+                out.append(acc)
+            return out
+
+    def permute(self, xs, pairs):
+        P = self.size
+        src_of = {int(j): int(i) for i, j in pairs}
+        if P == 1:
+            return [xs[0] if 0 in src_of else xs[0].new_zeros(()).expand_as(
+                xs[0])]
+        with record_function("mesh::permute"):
+            ev = self._events()
+            out = []
+            for j in range(P):
+                if j in src_of:
+                    i = src_of[j]
+                    out.append(self._fetch(xs[i], i, j, ev))
+                else:
+                    with self.worker(j):
+                        out.append(xs[j].new_zeros(()).expand_as(xs[j]))
+            return out
+
+    def all_gather(self, xs):
+        P = self.size
+        if P == 1:
+            return list(xs)
+        with record_function("mesh::all_gather"):
+            ev = self._events()
+            out = []
+            for j in range(P):
+                parts = [self._fetch(xs[i], i, j, ev) for i in range(P)]
+                with self.worker(j):
+                    out.append(torch.cat(parts))
+            return out
+
+    def reduce_scatter(self, xs):
+        P = self.size
+        if P == 1:
+            return list(xs)
+        with record_function("mesh::reduce_scatter"):
+            ev = self._events()
+            C = xs[0].shape[0] // P
+            out = []
+            for j in range(P):
+                parts = [self._fetch(xs[i][j * C:(j + 1) * C], i, j, ev)
+                         for i in range(P)]
                 with self.worker(j):
                     acc = parts[0].clone()
                     for p in parts[1:]:

@@ -20,13 +20,14 @@ positives from the relation-carrying edge sampler. LargeVis: the classic
 K-draw step and the shared-pool step over one padded coordinate table,
 positives from the alias-weighted edge sampler over a KNN graph. With
 num_worker > 1, node embedding trains on the sharded multi-device engine
-(edges or banded walks) and LargeVis on the replicated one
-(parallel/mesh.py), worker i on cuda:device_ids[i] or, for device="cpu",
-on the CPU. What later slices port raises NotImplementedError naming its
-ROADMAP item: the host sampler backend, the reference's experimental walk
-opt-ins and the knowledge-graph multi-device engines. Tables that the
-host master leaves in host memory are scored by `predict` in chunks of
-touched rows.
+(edges or banded walks), LargeVis on the replicated one
+(parallel/mesh.py) and knowledge graphs on the tied-weights sharded one
+(parallel/kg.py), worker i on cuda:device_ids[i] or, for device="cpu",
+on the CPU. sampler_backend="host" trains every solver on pools from the
+host samplers (sampler.py, `_train_loop`). What later slices port raises
+NotImplementedError naming its ROADMAP item: the reference's
+experimental walk opt-ins. Tables that the host master leaves in host
+memory are scored by `predict` in chunks of touched rows.
 """
 from __future__ import annotations
 
@@ -47,12 +48,15 @@ from graphvite_tpu_torch.ops.alias import AliasTable, device_alias_arrays
 from graphvite_tpu_torch.ops.device_sampler import (DeviceEdgeSampler,
                                                     DeviceWalkSampler)
 from graphvite_tpu_torch.optim import Optimizer, make_optimizer
+from graphvite_tpu_torch.parallel.kg import ShardedKGTrainer, TripletBlocks
 from graphvite_tpu_torch.parallel.mesh import (BlockEdgeTables,
                                                DeviceGroup,
                                                ReplicatedEdgeTrainer,
                                                ShardedGraphTrainer,
                                                VertexPartition,
                                                make_sharded_graph_step)
+from graphvite_tpu_torch.sampler import (EdgeSampler, PrefetchingPool,
+                                         RandomWalkSampler)
 from graphvite_tpu_torch.utils.common import auto, hbm_budget_bytes, logger
 
 EXPECTED_DEGREE = 1600  # graph.cuh:55, used by the augmentation auto-rule
@@ -143,10 +147,10 @@ class SolverBase:
         # device memory budget of the overflow rules (bytes or "4G"-style;
         # auto = query the device): blocked episodes and the host master on
         # the edge route, a warning on the walk route.
-        if sampler_backend != "device":
-            raise NotImplementedError(
-                "sampler_backend=%r: the host sampler backend is not ported "
-                "yet (ROADMAP queue 1, item 11)" % (sampler_backend,))
+        # sampler_backend: "device" draws positives on the device inside
+        # the runner; any other value ("host") makes pools of them in numpy
+        # on a background thread (sampler.py) for the pool runner, as the
+        # reference reads it
         if num_worker in (auto, None):
             num_worker = 1
         self.num_worker = int(num_worker)
@@ -376,6 +380,69 @@ class SolverBase:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _train_loop(self, step_fn, sampler, has_relation, neg_state,
+                    num_epoch, positive_reuse, log_frequency):
+        """The host sampler backend (reference solver.py:514-557): a
+        background thread makes pools of `episode batches x batch_size`
+        positives in numpy (sampler.py, PrefetchingPool), each is copied
+        from pinned host memory to the device without blocking, and the
+        pool runner trains its batches, each `positive_reuse` times, with
+        the step's own negatives. The batch is batch_size: no memory or
+        staleness plan, as in the reference. `host_stats` holds the pools'
+        production and wait seconds."""
+        num_edge = self.graph.num_edge
+        self._state_to_device()
+        B = self.batch_size
+        self.num_batch = max(int(num_epoch * num_edge // B), 1)
+        self.effective_batch = B
+        ep_batches = self._episode_batches()
+        R = max(int(positive_reuse), 1)
+        runner = _steps.make_pool_runner(step_fn, self.num_batch,
+                                         self.optimizer, has_relation)
+        self._active_step_fn = step_fn
+        self._active_neg_state = neg_state
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.seed + self.batch_id)
+        pin = self.device.type == "cuda"
+        logger.info("training %s: %d batches of %d (host pools of %d "
+                    "batches)", self.model, self.num_batch, B, ep_batches)
+        prefetch = PrefetchingPool(sampler, ep_batches * B)
+        next_log = log_frequency
+        losses_acc, all_losses = [], []
+        t0 = time.perf_counter()
+        try:
+            while self.batch_id < self.num_batch:
+                pool = []
+                for a in prefetch.next():
+                    t = torch.from_numpy(a.reshape(ep_batches, B))
+                    if pin:
+                        t = t.pin_memory()
+                    t = t.to(self.device, non_blocking=True)
+                    pool.append(t.repeat_interleave(R, dim=0) if R > 1
+                                else t)
+                self.state, losses = runner(self.state, pool, self.batch_id,
+                                            generator, *neg_state)
+                self.batch_id += ep_batches * R
+                losses_acc.append(losses)
+                all_losses.append(losses)
+                if (self.batch_id >= next_log
+                        or self.batch_id >= self.num_batch):
+                    logger.info("Batch id: %d / %d, loss = %.6g",
+                                min(self.batch_id, self.num_batch),
+                                self.num_batch,
+                                float(torch.cat(losses_acc).mean()))
+                    losses_acc = []
+                    next_log = self.batch_id + log_frequency
+        finally:
+            prefetch.close()
+        self.batch_losses = torch.cat(all_losses)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.host_stats = {"pools": prefetch.pools, "ep_batches": ep_batches,
+                           "produce_s": prefetch.produce_s,
+                           "wait_s": prefetch.wait_s,
+                           "loop_s": time.perf_counter() - t0}
+
     def clear(self):
         """Drop the state (tables and moments), freeing their device
         memory."""
@@ -500,9 +567,9 @@ class GraphSolver(SolverBase):
         (`negative_sharing` is read as auto for every value a caller can
         pass equal to 0, False included, as the reference reads it). The
         pooled walk layout: banded, or GRAPHVITE_WALK_STEP=multitail|pair
-        (GRAPHVITE_MULTITAIL=0: pair). `random_walk_batch_size` and
-        `shuffle_base` serve the host sampler only, and are accepted for
-        parity."""
+        (GRAPHVITE_MULTITAIL=0: pair). `sampler_backend="host"` trains
+        the host samplers' pools (`_train_host`); `random_walk_batch_size`
+        and `shuffle_base` serve them only."""
         if model not in self.get_available_models():
             raise ValueError("unknown model `%s`" % model)
         num_vertex = self.graph.num_vertex
@@ -515,6 +582,10 @@ class GraphSolver(SolverBase):
         if augmentation_step > random_walk_length:
             raise ValueError("`random_walk_length` must be >= `augmentation_step`")
         self.model = model
+        if shuffle_base in (auto, None):
+            shuffle_base = augmentation_step
+        if model in ("DeepWalk", "node2vec"):
+            shuffle_base = 1  # graph.cuh:784-786
         if self.num_worker > 1:
             # the multi-device engines (reference solver.py:819-827)
             if not resume or self.state is None or self.batch_id == 0:
@@ -526,6 +597,13 @@ class GraphSolver(SolverBase):
                                   float(negative_weight),
                                   float(negative_sample_exponent),
                                   log_frequency)
+            return
+        if self.sampler_backend != "device":
+            self._train_host(model, num_epoch, resume, augmentation_step,
+                             random_walk_length, random_walk_batch_size,
+                             shuffle_base, p, q, positive_reuse,
+                             negative_sample_exponent, negative_weight,
+                             negative_sharing, log_frequency)
             return
         # the edge route trains blocked episodes for num_partition > 1 or
         # tables that overflow the device, from host masters where the
@@ -700,6 +778,55 @@ class GraphSolver(SolverBase):
             log_frequency,
             state_pack=_steps.banded_fused_pack if fused else None,
             state_unpack=_steps.banded_fused_unpack if fused else None)
+
+    def _train_host(self, model, num_epoch, resume, augmentation_step,
+                    random_walk_length, random_walk_batch_size, shuffle_base,
+                    p, q, positive_reuse, negative_sample_exponent,
+                    negative_weight, negative_sharing, log_frequency):
+        """The host sampler backend (reference solver.py:1154-1162): flat
+        tables on the device, positives from EdgeSampler (augmentation
+        step 1) or RandomWalkSampler (above; biased for node2vec). The
+        reference's device-only gates hold: no sweep routes, no blocked
+        episodes, no grouped walk layouts, so the pooled step is the pair
+        step over batch_size (its groups from batch_size) with 128 pool
+        rows, or the classic step for GRAPHVITE_NEG_SHARING=0."""
+        env = os.environ.get
+        if not resume or self.state is None or self.batch_id == 0:
+            self.init_embeddings()
+            self.batch_id = 0
+        self.augmentation_step = augmentation_step
+        weights = np.maximum(
+            np.asarray(self.graph.vertex_weights, dtype=np.float64),
+            1e-12) ** negative_sample_exponent
+        neg_state = tuple(torch.as_tensor(a, device=self.device)
+                          for a in device_alias_arrays(AliasTable(weights)))
+        if negative_sharing in (auto, None):
+            negative_sharing = env("GRAPHVITE_NEG_SHARING", "1") != "0"
+        self._pooled_step = negative_sharing = bool(negative_sharing)
+        trust = float(env("GRAPHVITE_TRUST", 0.25)) or None
+        self._sweep_scatter = self._sweep_gather = False
+        self._sweep_context = self._banded_fused = False
+        self._multitail_T = self._walk_slot_unit = 0
+        if negative_sharing:
+            step_fn = _steps.make_graph_pool_step(
+                self.optimizer, self.num_negative, float(negative_weight),
+                pool_size=int(env("GRAPHVITE_POOL_SIZE", 128)),
+                pool_groups=_steps.graph_pool_groups(self.batch_size),
+                trust=trust)
+        else:
+            step_fn = _steps.make_graph_train_step(
+                GRAPH_MODELS[model], self.optimizer, self.num_negative,
+                float(negative_weight), trust=trust)
+        seed = int(self._rng.integers(2**31))
+        if augmentation_step == 1:
+            sampler = EdgeSampler(self.graph, seed=seed)
+        else:
+            sampler = RandomWalkSampler(
+                self.graph, augmentation_step, random_walk_length,
+                random_walk_batch_size, shuffle_base, seed=seed,
+                biased=(model == "node2vec"), p=p, q=q)
+        self._train_loop(step_fn, sampler, False, neg_state, num_epoch,
+                         positive_reuse, log_frequency)
 
     def _train_loop_mesh(self, model_name, num_epoch, augmentation_step,
                          random_walk_length, p, q, negative_weight,
@@ -1296,14 +1423,6 @@ class KnowledgeGraphSolver(SolverBase):
     table is shared between head and tail roles (tied weights); relations
     are a separate table."""
 
-    def __init__(self, dim, *args, num_worker=1, **kwargs):
-        if num_worker not in (auto, None) and int(num_worker) > 1:
-            raise NotImplementedError(
-                "num_worker=%d: the multi-device engines for knowledge "
-                "graphs are not ported yet (ROADMAP queue 1, item 16, the "
-                "KG engines)" % int(num_worker))
-        super().__init__(dim, *args, num_worker=num_worker, **kwargs)
-
     def get_default_optimizer(self):
         # ref knowledge_graph.cuh:556-558
         return Optimizer(type="Adam", lr=5e-5, weight_decay=0.0,
@@ -1380,8 +1499,9 @@ class KnowledgeGraphSolver(SolverBase):
         (shared candidate pools) or the classic per-draw step; auto picks
         the pooled step where the classic step's [B, K+1, D] intermediates
         would cap its batch below 4096 samples (GRAPHVITE_KG_NEG_SHARING
-        overrides). `sample_batch_size` serves the host sampler only and
-        is accepted for parity."""
+        overrides). `sampler_backend="host"` trains pools from the host
+        edge sampler (`_train_loop`); `sample_batch_size` is accepted for
+        parity (the reference's host sampler does not read it either)."""
         if model not in self.get_available_models():
             raise ValueError("unknown model `%s`" % model)
         self.model = model
@@ -1395,6 +1515,11 @@ class KnowledgeGraphSolver(SolverBase):
         mdl = KG_MODELS[model]
         margin_or_l3 = (self.margin if mdl.uses_margin
                         else self.l3_regularization)
+        if self.num_worker > 1:
+            self._train_loop_mesh_kg(model, num_epoch, margin_or_l3,
+                                     float(relation_lr_multiplier),
+                                     log_frequency)
+            return
         if negative_sharing in (auto, None):
             env = os.environ.get("GRAPHVITE_KG_NEG_SHARING")
             if env is not None:
@@ -1405,10 +1530,13 @@ class KnowledgeGraphSolver(SolverBase):
                                         * self.dim * 32)
                 negative_sharing = classic_cap < 4096
         self._pooled_step = bool(negative_sharing)
+        host = self.sampler_backend != "device"
         if negative_sharing:
             trust = float(os.environ.get("GRAPHVITE_TRUST", 0.25)) or None
+            # the host backend's batches are batch_size, unplanned
+            pool_batch = self.batch_size if host else self._batch_plan()[1]
             pool_groups = _steps.kg_pool_groups(
-                self._batch_plan()[1], target_group=int(os.environ.get(
+                pool_batch, target_group=int(os.environ.get(
                     "GRAPHVITE_KG_POOL_TARGET", 512)))
             step_fn = _steps.make_kg_pool_step(
                 mdl, self.optimizer, self.num_negative, margin_or_l3,
@@ -1419,6 +1547,14 @@ class KnowledgeGraphSolver(SolverBase):
             step_fn = _steps.make_kg_train_step(
                 mdl, self.optimizer, self.num_negative, margin_or_l3,
                 self.adversarial_temperature, float(relation_lr_multiplier))
+        if host:
+            # reference solver.py:1387-1392
+            sampler = EdgeSampler(self.graph,
+                                  seed=int(self._rng.integers(2**31)),
+                                  with_relation=True)
+            self._train_loop(step_fn, sampler, True, (), num_epoch,
+                             positive_reuse, log_frequency)
+            return
         sampler = self._get_sampler(
             ("kg_edge", str(self.device)),
             lambda: DeviceEdgeSampler.build(self.graph, with_relation=True,
@@ -1426,6 +1562,164 @@ class KnowledgeGraphSolver(SolverBase):
         self._train_loop_device(step_fn, sampler, (), num_epoch,
                                 positive_reuse, log_frequency,
                                 has_relation=True)
+
+    def _mesh_kg_plan(self, num_epoch):
+        """(negative pool, batch per worker, batches, episode batches) of
+        `num_epoch` epochs on the mesh
+        loop (reference solver.py:1394-1440). The pool: GRAPHVITE_KG_NEG_POOL,
+        else "pooled" where the classic step's [B, K+1, D] intermediates
+        would cap its batch below 4096 samples and "global" otherwise.
+        The batch: the smallest of batch_size, the GRAPHVITE_STEP_BYTES
+        cap and the staleness cap over a worker's 2 V / 2W resident rows
+        (GRAPHVITE_MAX_TOUCH), in units of 256 (8 below 256). Episodes:
+        every block revisited GRAPHVITE_MIN_SWEEPS times over the run's
+        sweeps of 2W - 1 rounds."""
+        env = os.environ.get
+        W = self.num_worker
+        budget = float(env("GRAPHVITE_STEP_BYTES", 2e9))
+        neg_pool = env("GRAPHVITE_KG_NEG_POOL")
+        if neg_pool is None:
+            classic_cap = budget / ((self.num_negative + 2) * self.dim * 32)
+            neg_pool = "pooled" if classic_cap < 4096 else "global"
+        pooled = neg_pool == "pooled"
+        live_bytes = (16 * self.dim * 4 if pooled
+                      else (self.num_negative + 2) * self.dim * 4 * 8)
+        mem_cap = max(int(budget / max(live_bytes, 1)), 512)
+        tau = float(env("GRAPHVITE_MAX_TOUCH", 64))
+        rows_per_worker = max(2 * self.graph.num_vertex // (2 * W), 1)
+        touch_cap = max(int(tau * rows_per_worker
+                            / (self.num_negative + 2)), 64)
+        batch_size = min(self.batch_size, mem_cap, touch_cap)
+        unit = 256 if batch_size >= 256 else 8
+        batch_size = max(batch_size // unit * unit, unit)
+        num_batch = max(int(num_epoch * self.graph.num_edge
+                            // batch_size), 1)
+        min_sweeps = int(env("GRAPHVITE_MIN_SWEEPS", 16))
+        sweep_cap = max(num_batch // (W * (2 * W - 1) * min_sweeps), 1)
+        ep_batches = max(min(self._episode_batches(), sweep_cap,
+                             max(num_batch // W, 1)), 1)
+        return neg_pool, batch_size, num_batch, ep_batches
+
+    def _train_loop_mesh_kg(self, model_name, num_epoch, margin_or_l3,
+                            relation_lr_multiplier, log_frequency):
+        """Tied-weights sharded entity tables over the workers (reference
+        solver.py:1394-1501): 2W partitions under the tournament rotation,
+        relations replicated with the summed-delta merge
+        (parallel/kg.py:ShardedKGTrainer). An entity table W times larger
+        than one card's memory becomes trainable. The trainer (its
+        partition and block-sorted triplets) is kept for the next call on
+        the same graph and settings, its partition and block-sorted
+        triplets for any engine on the graph and workers. The state comes
+        back in canonical
+        order on the first worker's device: entity moments exactly,
+        relation moments as the workers' mean, so resume=True continues
+        from them. Per-batch losses stay on the device (`batch_losses`);
+        `mesh_stats` holds loop and set-up seconds and the episodes."""
+        env = os.environ.get
+        W = self.num_worker
+        neg_pool, batch_size, num_batch, ep_batches = self._mesh_kg_plan(
+            num_epoch)
+        pooled = neg_pool == "pooled"
+        self._pooled_step = pooled
+        if batch_size < self.batch_size:
+            logger.info("batch_size %d -> %d per worker (%d workers)",
+                        self.batch_size, batch_size, W)
+        self.effective_batch = batch_size
+        self.num_batch = num_batch
+        key = (id(self.graph), "kgmesh", model_name, self.optimizer,
+               self.num_negative, float(margin_or_l3),
+               self.adversarial_temperature, float(relation_lr_multiplier),
+               tuple(self.worker_devices), batch_size, ep_batches, neg_pool,
+               env("GRAPHVITE_KG_FAST", "1"),
+               env("GRAPHVITE_KG_POOL_TARGET", ""),
+               env("GRAPHVITE_KG_POOL_SIZE", ""), env("GRAPHVITE_TRUST", ""))
+        setup = {}
+        if getattr(self, "_kgmesh_key", None) != key:
+            self._kgmesh_trainer = None
+            # the partition and the block-sorted triplets depend on the
+            # graph, W and the devices alone: kept for the next engine on
+            # them (another optimizer, step or batch)
+            prep_key = (id(self.graph), tuple(self.worker_devices))
+            prep = getattr(self, "_kgmesh_prep", None)
+            if prep is None or prep[0] != prep_key:
+                self._kgmesh_prep = None
+                t0 = time.perf_counter()
+                part = VertexPartition(np.asarray(self.graph.degrees), 2 * W)
+                setup["partition_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                blocks = TripletBlocks(self.graph, part,
+                                       list(dict.fromkeys(
+                                           self.worker_devices)))
+                setup["triplet_sort_s"] = time.perf_counter() - t0
+                self._kgmesh_prep = (prep_key, part, blocks)
+            part = self._kgmesh_prep[1]
+            trust = float(env("GRAPHVITE_TRUST", 0.25)) or None
+            trainer = ShardedKGTrainer(
+                DeviceGroup(self.worker_devices), part, self.dim,
+                KG_MODELS[model_name], self.optimizer,
+                num_negative=self.num_negative, margin_or_l3=margin_or_l3,
+                adversarial_temperature=self.adversarial_temperature,
+                relation_lr_multiplier=relation_lr_multiplier,
+                batch_size=batch_size, ep_batches=ep_batches,
+                negative_pool=neg_pool,
+                pool_size=(int(env("GRAPHVITE_KG_POOL_SIZE", 0)) if pooled
+                           else None),
+                trust=trust)
+            self._kgmesh_trainer = trainer
+            self._kgmesh_key = key
+        trainer = self._kgmesh_trainer
+        group = trainer.group
+        t0 = time.perf_counter()
+        st = self.state
+        self.state = None       # the arenas replace the tables
+        state = trainer.init_state(st["tables"][0], st["tables"][1],
+                                   moments=st["moments"])
+        del st
+        setup["split_s"] = time.perf_counter() - t0
+        logger.info("training %s on %d workers (2x%d entity partitions, %s "
+                    "negatives): %d batches of %d (episodes of %d)",
+                    model_name, W, W, neg_pool, self.num_batch, batch_size,
+                    ep_batches)
+        next_log = log_frequency
+        losses_acc, all_losses = [], []
+        episodes = 0
+        t0 = time.perf_counter()
+        while self.batch_id < self.num_batch:
+            state, losses = trainer.run_episode(
+                state, self._kgmesh_prep[2], self.batch_id, self.num_batch,
+                self.seed)
+            self.batch_id += ep_batches * W
+            episodes += 1
+            # [EP, W]: batch i of every worker, in the order they train
+            losses = torch.stack([l.to(self.device) for l in losses], dim=1)
+            losses_acc.append(losses.reshape(-1))
+            all_losses.append(losses.reshape(-1))
+            if self.batch_id >= next_log or self.batch_id >= self.num_batch:
+                logger.info("Batch id: %d / %d, loss = %.6g",
+                            min(self.batch_id, self.num_batch),
+                            self.num_batch,
+                            float(torch.cat(losses_acc).mean()))
+                losses_acc = []
+                next_log = self.batch_id + log_frequency
+        for d in group.distinct:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        loop_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ent = trainer.gather_entities(state, self.device)
+        e_moms = trainer.gather_entity_moments(state, self.device)
+        r_moms = trainer.gather_relation_moments(state, self.device)
+        rel = state["rel"][0].to(self.device)
+        del state
+        self.state = {"tables": (ent, rel), "moments": (e_moms, r_moms)}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        setup["join_s"] = time.perf_counter() - t0
+        self.batch_losses = torch.cat(all_losses)
+        self.mesh_stats = {"workers": W, "negative_pool": neg_pool,
+                           "ep_batches": ep_batches, "episodes": episodes,
+                           "batch_size": batch_size, "loop_s": loop_s,
+                           "setup_s": setup}
 
     def predict(self, samples):
         """samples: (n, 3) array of (head, tail, relation) ids -> logits, a
@@ -1527,8 +1821,9 @@ class VisualizationSolver(SolverBase):
         (default) or the classic K-draw step; auto, like every value equal
         to 0 (False included, as in the reference), reads
         GRAPHVITE_NEG_SHARING ("0" picks the classic step).
-        `sample_batch_size` serves the host sampler only and is accepted
-        for parity."""
+        `sampler_backend="host"` trains pools from the host edge sampler
+        (`_train_loop`); `sample_batch_size` is accepted for parity (the
+        reference's host sampler does not read it either)."""
         if model not in self.get_available_models():
             raise ValueError("unknown model `%s`" % model)
         self.model = "LargeVis"
@@ -1545,8 +1840,11 @@ class VisualizationSolver(SolverBase):
                                               "1") != "0"
         # the pooled step plans its batch under the pooled memory cap
         self._pooled_step = bool(negative_sharing)
+        host = self.sampler_backend != "device"
         if negative_sharing:
-            pool_groups = _steps.graph_pool_groups(self._batch_plan()[1])
+            # the host backend's batches are batch_size, unplanned
+            pool_batch = self.batch_size if host else self._batch_plan()[1]
+            pool_groups = _steps.graph_pool_groups(pool_batch)
             step_fn = _steps.make_vis_pool_step(
                 self.optimizer, self.num_negative, float(negative_weight),
                 pool_groups=pool_groups, trust=trust)
@@ -1557,6 +1855,13 @@ class VisualizationSolver(SolverBase):
         if self.num_worker > 1:
             self._train_loop_mesh_vis(step_fn, neg_state, num_epoch,
                                       log_frequency, positive_reuse)
+            return
+        if host:
+            # reference solver.py:1655-1657
+            sampler = EdgeSampler(self.graph,
+                                  seed=int(self._rng.integers(2**31)))
+            self._train_loop(step_fn, sampler, False, neg_state, num_epoch,
+                             positive_reuse, log_frequency)
             return
         sampler = self._get_sampler(
             ("edge", str(self.device)),

@@ -1322,3 +1322,181 @@ def test_mesh_engine_across_cards_matches_cpu(kind, monkeypatch):
         else:
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=3e-4,
                                        atol=3e-6)
+
+
+# ---------------------------------------------------------------------------
+# the knowledge-graph engines for several workers, and the host backend
+# ---------------------------------------------------------------------------
+
+def _power_law_kg(v, r, e, seed):
+    """An anonymous power-law KG of `e` triplets over `v` entities and `r`
+    Zipf-skewed relations, straight into its arrays."""
+    from graphvite_tpu_torch.graph import KnowledgeGraph
+
+    rng = np.random.default_rng(seed)
+    kg = KnowledgeGraph()
+    kg.num_vertex, kg.num_relation, kg.num_edge = v, r, e
+    kg.id2entity = kg.entity2id = kg.id2relation = kg.relation2id = None
+    kg.edge_heads = (rng.random(e) ** 2.5 * v).astype(np.int64)
+    kg.edge_tails = (rng.random(e) ** 2.5 * v).astype(np.int64)
+    p = (np.arange(r) + 3.0) ** -0.9
+    kg.edge_relations = rng.choice(r, e, p=p / p.sum()).astype(np.int64)
+    kg.edge_weights = np.ones(e, dtype=np.float32)
+    return kg
+
+
+# per worker-batch: (kernel 1, kernel 2) launches of each mode and rule,
+# with the dense-update size shrunk so the arenas take kernel 2 and the
+# relation table (20 x 32) the dense route
+KG_MESH_LAUNCHES = {("pooled", "SGD"): (2, 0), ("pooled", "Adam"): (0, 1),
+                    ("global", "SGD"): (4, 0), ("global", "Adam"): (1, 2),
+                    ("resident", "SGD"): (2, 0),
+                    ("resident", "Adam"): (0, 1)}
+
+
+def _kg_mesh_run(mode, rule, devices, kg, draws, episodes=2):
+    """ShardedKGTrainer on `devices` (a worker per entry) over `kg` at dim
+    32 (RotatE, K 8): the gathered entity table and moments, worker 0's
+    relations and the losses after `episodes` rounds, and the kernel
+    launches of the run. `draws`: per-episode draws made on the CPU by the
+    first call and reused by the next."""
+    from graphvite_tpu_torch.parallel import kg as kg_mod
+    from graphvite_tpu_torch.parallel import mesh
+
+    dim, W = 32, len(devices)
+    group = mesh.DeviceGroup(devices)
+    part = mesh.VertexPartition(np.asarray(kg.degrees), 2 * W)
+    opt = Optimizer(type=rule, lr=0.01 if rule == "SGD" else 1e-4,
+                    weight_decay=0.0)
+    tr = kg_mod.ShardedKGTrainer(
+        group, part, dim, KG_MODELS["RotatE"], opt, num_negative=8,
+        margin_or_l3=6.0, adversarial_temperature=0.2, batch_size=512,
+        ep_batches=3, negative_pool=mode)
+    gen = torch.Generator().manual_seed(5)
+    ent = (torch.rand((kg.num_vertex, dim), generator=gen) - 0.5) * 0.1
+    rel = torch.rand((kg.num_relation, dim), generator=gen) * 6 - 3
+    state = tr.init_state(ent, rel)
+    trip = tr.init_triplets(kg)
+    before = (scatter.scatter_add_.launches, scatter.scatter_update_.launches)
+    losses = []
+    for e in range(episodes):
+        if len(draws) <= e:
+            draws.append(tr.episode_draws(torch.Generator().manual_seed(e)))
+        state, ls = tr.run_episode(state, trip, 6 * e, 1000, 1,
+                                   draws=mesh.draws_to(draws[e],
+                                                       group.devices))
+        losses += [l.cpu() for l in ls]
+    out = [tr.gather_entities(state).cpu(), state["rel"][0].cpu()]
+    out += [m.cpu() for m in tr.gather_entity_moments(state)]
+    out.append(torch.stack(losses))
+    for d in group.distinct:
+        _sync(d)
+    return out, (scatter.scatter_add_.launches - before[0],
+                 scatter.scatter_update_.launches - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pooled", "global", "resident"])
+@pytest.mark.parametrize("rule", ["SGD", "Adam"])
+def test_kg_mesh_two_workers_on_card_match_cpu(mode, rule, monkeypatch):
+    """ShardedKGTrainer with two workers on cuda:0 against two CPU
+    workers from the same state and draws over two rounds (the seat
+    rotation, the relation merge and, in global mode, the pool's
+    all_gather and reduce_scatter on the card), at the steps'
+    card-vs-CPU tolerance; the launches counted on the card
+    (KG_MESH_LAUNCHES per worker-batch)."""
+    dev = _cuda()
+    monkeypatch.setattr(optim_mod, "DENSE_UPDATE_ELEMS", 1000)
+    kg = _power_law_kg(2000, 20, 20000, 3)
+    draws = []
+    gpu, launches = _kg_mesh_run(mode, rule, [dev, dev], kg, draws)
+    cpu, _ = _kg_mesh_run(mode, rule, ["cpu", "cpu"], kg, draws)
+    worker_batches = 2 * 2 * 3
+    want = KG_MESH_LAUNCHES[(mode, rule)]
+    assert launches == tuple(n * worker_batches for n in want)
+    np.testing.assert_allclose(gpu.pop().numpy(), cpu.pop().numpy(),
+                               rtol=2e-5)
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=3e-4,
+                                   atol=3e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["graph", "knowledge graph",
+                                    "visualization"])
+def test_host_backend_on_card(solver):
+    """sampler_backend="host" on the card, one case per solver: pools
+    from the host samplers uploaded from pinned memory, the same step
+    family as the reference's host route; two-block LINE AUC > 0.9, the
+    math fixture's filtered tail MRR > 0.85, LargeVis 10-NN agreement >=
+    0.9; the tables on the card and the kernels launched (kernel 1 on
+    the small tables' SGD updates)."""
+    from collections import defaultdict
+
+    from graphvite_tpu_torch.application import evaluate as ev
+    from graphvite_tpu_torch.application.evaluate import rank_sum_auc
+    from graphvite_tpu_torch.graph import Graph, KnowledgeGraph
+    from graphvite_tpu_torch.knn import KNNGraph
+    from graphvite_tpu_torch.solver import (GraphSolver,
+                                            KnowledgeGraphSolver,
+                                            VisualizationSolver)
+
+    _cuda()
+    before = scatter.scatter_add_.launches
+    if solver == "graph":
+        s = GraphSolver(dim=16, sampler_backend="host")
+        s.build(Graph().load_edge_list(_two_block_edges()), num_negative=2,
+                batch_size=256, episode_size=4)
+        s.train(model="LINE", num_epoch=200, augmentation_step=1,
+                negative_weight=1.0, log_frequency=10**9)
+        n2i = s.graph.name2id
+        intra = np.asarray([(n2i[str(a)], n2i[str(b)])
+                            for a in range(20) for b in range(20, 40)])
+        cross = np.asarray([(n2i[str(a)], n2i[str(b)])
+                            for a in range(20) for b in range(60, 80)])
+        si, sc = s.predict(intra), s.predict(cross)
+        score = rank_sum_auc(np.r_[si, sc], np.r_[np.ones(len(si)),
+                                                 np.zeros(len(sc))])
+        assert score > 0.9, score
+        assert scatter.scatter_add_.launches - before == 2 * s.batch_id
+    elif solver == "knowledge graph":
+        rng = np.random.default_rng(0)
+        trips = []
+        for _ in range(2000):
+            x, c = int(rng.integers(50)), int(rng.integers(1, 6))
+            trips.append((str(x), "+%d" % c, str((x + c) % 50)))
+        kg = KnowledgeGraph().load_triplet_list(trips)
+        s = KnowledgeGraphSolver(dim=32, seed=0, sampler_backend="host")
+        s.build(kg, optimizer=dict(type="Adam", lr=5e-3), num_negative=8,
+                batch_size=256, episode_size=8)
+        s.train(model="RotatE", num_epoch=150, margin=6.0,
+                log_frequency=10**9)
+        H = np.arange(100) % 50
+        R = np.asarray([kg.relation2id["+%d" % (1 + i % 5)]
+                        for i in range(100)])
+        T = np.asarray([kg.entity2id[str((h + 1 + i % 5) % 50)]
+                        for i, h in enumerate(H)])
+        H = np.asarray([kg.entity2id[str(h)] for h in H])
+        rk = ev.filtered_rankings("RotatE", s.entity_embeddings,
+                                  s.relation_embeddings, H, R, T,
+                                  defaultdict(set), defaultdict(set), 6.0,
+                                  "tail")
+        assert ev.ranking_metrics(rk)["MRR"] > 0.85
+    else:
+        rng = np.random.default_rng(0)
+        centers = rng.standard_normal((5, 10)) * 8
+        labels = np.repeat(np.arange(5), 300)
+        x = (centers[labels]
+             + rng.standard_normal((1500, 10))).astype(np.float32)
+        s = VisualizationSolver(dim=2, sampler_backend="host")
+        s.build(KNNGraph().load_numpy(x, num_neighbor=15, perplexity=10),
+                optimizer=dict(type="Adam", lr=0.5, weight_decay=1e-5),
+                num_negative=5, batch_size=2000, episode_size=50)
+        s.train(num_epoch=50, negative_weight=3, log_frequency=10**9)
+        c = s.coordinates
+        d2 = ((c[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+        np.fill_diagonal(d2, np.inf)
+        nn = np.argsort(d2, axis=1)[:, :10]
+        assert float((labels[nn] == labels[:, None]).mean()) >= 0.9
+    assert s.state["tables"][0].device.type == "cuda"
+    assert s.host_stats["pools"] >= 1

@@ -141,6 +141,20 @@ def test_sources_import_nothing_forbidden():
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
+def test_kg_engines_and_host_samplers_are_walked():
+    """The knowledge-graph engines and the host samplers are among the
+    modules imported above with the forbidden packages blocked, and their
+    sources import none of them."""
+    names = _modules()
+    for name in ("graphvite_tpu_torch.parallel.kg",
+                 "graphvite_tpu_torch.sampler"):
+        assert name in names
+        path = os.path.join(REPO, *name.split(".")) + ".py"
+        imports = list(_imports(path))
+        assert imports
+        assert not [n for n in imports if n.split(".")[0] in FORBIDDEN]
+
+
 def test_entry_points_default_to_cuda():
     """With no `device`, the solver and the application ask for CUDA, and
     raise where there is none (here, a CPU-only torch)."""

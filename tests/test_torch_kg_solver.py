@@ -294,12 +294,22 @@ def test_predict_in_chunks():
 
 
 def test_gaps_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="item 16, the KG engines"):
-        KnowledgeGraphSolver(dim=8, num_worker=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16, the KG engines"):
-        KnowledgeGraphApplication(dim=8, gpus=[0, 1], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        KnowledgeGraphSolver(dim=8, sampler_backend="host", device="cpu")
+    """The gaps that raised are ported: num_worker > 1 (and the
+    application's `gpus`) trains on the sharded engine with CPU workers
+    (tests/test_torch_kg_mesh.py), sampler_backend="host" on the host edge
+    sampler (tests/test_torch_host_sampler.py)."""
+    g = KnowledgeGraph().load_triplet_list(_small_kg())
+    for kw in (dict(num_worker=2), dict(sampler_backend="host")):
+        s = KnowledgeGraphSolver(dim=8, device="cpu", **kw)
+        s.build(g, num_negative=4, batch_size=64)
+        s.train(model="RotatE", num_epoch=4, margin=6.0,
+                log_frequency=10**9)
+        assert np.isfinite(s.entity_embeddings).all()
+        stats = s.mesh_stats if "num_worker" in kw else s.host_stats
+        assert stats["loop_s"] > 0
+    app = KnowledgeGraphApplication(dim=8, gpus=[0, 1], device="cpu")
+    assert app.solver.num_worker == 2
+    assert app.solver.worker_devices == [torch.device("cpu")] * 2
     # host-resident tables (ROADMAP item 15) are ported: predict scores
     # them in chunks of touched rows, as the device tables score
     s = _built("TransE")

@@ -169,10 +169,36 @@ def test_kg_train_step_draws_split_ids():
 
 
 def test_kg_train_step_external_pool_not_ported():
-    _, p_opt, _ = _opts("SGD")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        port.make_kg_train_step(KG_MODELS["RotatE"], p_opt, K, 6.0, 2.0, 1.0,
-                                external_pool=True)
+    """external_pool=True, once a raise, is ported: candidate rows from a
+    caller-owned pool, left out of the entity update, their [B, K, D]
+    gradients returned. Held to the reference on the same pool rows,
+    indices, sides and mask, SGD and warm Adam (the sharded KG engine's
+    global pool)."""
+    heads, tails, rels, mask = _batch(masked=True)
+    rng = np.random.default_rng(9)
+    N = 12
+    pool_rows = (rng.normal(size=(N, D)) * 0.5).astype(np.float32)
+    pool_idx = rng.integers(0, N, (B, K)).astype(np.int32)
+    side = rng.random((B, K)) < 0.5
+    for rule in ("SGD", "Adam"):
+        r_opt, p_opt, lr = _opts(rule)
+        state_np = _state_np(r_opt.num_moment, warm=rule == "Adam")
+        r_step = ref.make_kg_train_step(REF_MODELS["RotatE"], r_opt, K, 6.0,
+                                        2.0, 0.5, external_pool=True)
+        p_step = port.make_kg_train_step(KG_MODELS["RotatE"], p_opt, K, 6.0,
+                                         2.0, 0.5, external_pool=True)
+        want_state, want_loss, want_grad = r_step(
+            _ref_state(state_np), _j(heads), _j(tails), _j(rels),
+            jax.random.PRNGKey(0), jnp.float32(lr), mask=_j(mask),
+            pool=(_j(pool_rows), _j(pool_idx), _j(side)))
+        got_state, got_loss, got_grad = p_step(
+            state_from_numpy(state_np, "cpu"), _t(heads), _t(tails),
+            _t(rels), lr, mask=_t(mask),
+            pool=(_t(pool_rows), _t(pool_idx), _t(side)))
+        _compare(got_state, want_state, got_loss, want_loss)
+        assert got_grad.shape == (B, K, D)
+        np.testing.assert_allclose(got_grad.numpy(), np.asarray(want_grad),
+                                   **TABLE_TOL)
 
 
 # ---------------------------------------------------------------------------

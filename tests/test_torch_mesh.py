@@ -895,7 +895,8 @@ def test_graph_application_gpus_train_on_cpu_workers():
 def test_worker_placement(monkeypatch):
     """device_ids place worker i on cuda:device_ids[i] (repeats allowed);
     without them W must not exceed the visible cards (reference
-    solver.py:61-64); the KG solver raises naming its engines."""
+    solver.py:61-64); the KG solver places its workers the same way (its
+    engines are ported: tests/test_torch_kg_mesh.py)."""
     import graphvite_tpu_torch.solver as port_solver
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -912,6 +913,8 @@ def test_worker_placement(monkeypatch):
                                         device_ids=[0])
     # a single worker ignores device_ids, as before
     assert port_solver.GraphSolver(dim=8, device_ids=[3]).num_worker == 1
-    with pytest.raises(NotImplementedError, match="the KG engines"):
-        port_solver.KnowledgeGraphSolver(dim=8, num_worker=2,
-                                         device_ids=[0, 0])
+    kg = port_solver.KnowledgeGraphSolver(dim=8, num_worker=2,
+                                          device_ids=[0, 0])
+    assert kg.worker_devices == [torch.device("cuda", 0)] * 2
+    with pytest.raises(ValueError, match="devices visible"):
+        port_solver.KnowledgeGraphSolver(dim=8, num_worker=2)

@@ -273,15 +273,24 @@ def test_unported_training_paths_raise(kwargs, env, match, monkeypatch):
     # more workers than visible cards, without device_ids (the multi-device
     # engines are ported: tests/test_torch_mesh.py)
     (dict(num_worker=2, device=None), "devices visible"),
-    (dict(sampler_backend="host"), "item 11"),
+    # the host sampler backend is ported: this case now trains
+    # (tests/test_torch_host_sampler.py)
+    (dict(sampler_backend="host"), None),
 ])
 def test_unported_solver_options_raise(kwargs, match, monkeypatch):
     kwargs = dict(dict(device="cpu"), **kwargs)
     if kwargs["device"] is None:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    exc = ValueError if "num_worker" in kwargs else NotImplementedError
-    with pytest.raises(exc, match=match):
+    if match is None:
+        s = GraphSolver(dim=8, **kwargs)
+        s.build(_port_graph(two_blocks(40)), batch_size=512)
+        s.train(model="DeepWalk", num_epoch=1, augmentation_step=2,
+                random_walk_length=6, log_frequency=10**9)
+        assert s.host_stats["pools"] >= 1
+        assert np.isfinite(s.vertex_embeddings).all()
+        return
+    with pytest.raises(ValueError, match=match):
         GraphSolver(dim=8, **kwargs)
 
 

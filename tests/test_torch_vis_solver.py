@@ -160,14 +160,20 @@ def test_resume_continues_without_reinit():
 
 
 def test_parts_left_out_raise():
-    """The host sampler backend still raises; the multi-device engine is
-    ported (tests/test_torch_mesh.py): the application takes `gpus` as
-    two CPU workers and trains on the replicated engine."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        VisualizationSolver(dim=2, sampler_backend="host", device="cpu")
+    """No part of the solver is left out now: the host sampler backend
+    trains (tests/test_torch_host_sampler.py), and the multi-device engine
+    (tests/test_torch_mesh.py) takes the application's `gpus` as two CPU
+    workers and trains on the replicated engine."""
+    x, _ = _clusters(n=200, c=2, seed=4)
+    host = VisualizationSolver(dim=2, sampler_backend="host", device="cpu")
+    host.build(KNNGraph(device="cpu").load_numpy(x, num_neighbor=10,
+                                                 perplexity=5),
+               num_negative=5, batch_size=512, episode_size=4)
+    host.train(num_epoch=4, log_frequency=10**9)
+    assert host.host_stats["pools"] >= 1
+    assert np.isfinite(host.coordinates).all()
     s = VisualizationSolver(dim=2, num_worker=2, device="cpu")
     assert s.worker_devices == [torch.device("cpu")] * 2
-    x, _ = _clusters(n=200, c=2, seed=4)
     app = VisualizationApplication(dim=2, gpus=[0, 1], device="cpu")
     app.load(vectors=x, num_neighbor=10, perplexity=5)
     app.build(num_negative=5, batch_size=512, episode_size=4)
