@@ -3,7 +3,10 @@
     python3 chip_smoke.py [--seed N] [--main-batches N]
                           [--node2vec-batches N] [--layout-batches N]
                           [--edge-batches N] [--kg-batches N]
-                          [--kg-big-batches N]
+                          [--kg-big-batches N] [--only multihost]
+
+(--only multihost runs the device and build phases, builds the three
+graphs that phase reads, runs it, and prints no result line.)
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
@@ -16,7 +19,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
             SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5, walk 40,
             batch 100000) on a Youtube-sized synthetic power-law graph
             (1,138,499 vertices, ~4.9M undirected edges) made from --seed:
-            float32 (the kernels' launch counts are set to 0 just before
+            float32, --main-batches (600) batches (the
+            kernels' launch counts are set to 0 just before
             and read just after), a torch.profiler trace of 10 more
             batches, a shorter bfloat16 run, and one batch at batch 250000.
             Checks the fused arena path, one scatter-add launch per batch,
@@ -185,7 +189,37 @@ Phases, in order (any failure exits non-zero and prints no result line):
             epochs through the CLI (global negatives by the auto rule):
             filtered tail MRR >= the JAX package's at W = 2 on the CPU
             less 0.05 (KG_MESH_MATH_GATE).
-14. host    sampler_backend="host" (the host samplers' pools from a
+14. multihost the multi-device engines over two processes
+            (GRAPHVITE_COORDINATOR=localhost:<free port>; this script run
+            twice with --multihost-child, one worker each on cuda:0, so
+            the gloo transport, each tensor that crosses staged through
+            pinned host buffers), on the graphs of phases edge, main and
+            kg_big, which the parent writes once as .npy with the Flickr
+            clone's block edge tables and the Wikidata5m clone's
+            block-sorted triplets; the initial tables are drawn on the
+            card from --seed in every process. Cases, each also run as
+            one process with two workers on cuda:0 from the same seed:
+            (a) LINE edges mode at the line_flickr.yaml hyperparameters
+            (dim 128, SGD lr 0.025 wd 5e-3, K 1, negative_weight 5), 128
+            worker-batches of 99,840 in two episodes; (b) Adam lr 1e-6
+            wd 0, 32; (c) DeepWalk walks mode at the deepwalk_youtube.yaml
+            hyperparameters, 10 of 78,720 (three all_to_alls across the
+            processes a batch); (d) RotatE pooled at the
+            rotate_wikidata5m.yaml width (dim 512, SGD lr 0.01, K 64), 24
+            of 60,928 in two rounds; (e) global negatives, 8 of 1,792 (an
+            all_gather and a reduce_scatter across the processes a
+            batch). Each case: the sha256 digests of every worker's
+            tables, moments and losses (and of the gathered tables in
+            edges and walks mode) equal to the one-process group's, the
+            kernels' launches per worker-batch equal to it (kernel 1
+            twice in (a) and (d), once in (c), four times in (e); kernel
+            2 twice in (b)), ms per worker-batch of both, and the
+            cross-process seconds and bytes per episode. With two cards
+            or more, (a) again with one process per card (NCCL) against
+            one process with a worker on each; with one, the phase says
+            NCCL was not exercised. A process that fails or outlasts
+            MH_TIMEOUT_S fails the phase.
+15. host    sampler_backend="host" (the host samplers' pools from a
             background thread, uploaded from pinned memory; episodes of
             8): LINE at the line_flickr.yaml shape (100 batches of
             100,000; the pair pool step, kernel 1 on each table),
@@ -198,7 +232,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             loop's, the wait share on PrefetchingPool.next, launches per
             batch; node2vec's second-order entries at the Youtube shape,
             counted (the table is not built).
-15. kernel  each kernel against its plain torch version on the card, on the
+16. kernel  each kernel against its plain torch version on the card, on the
             ids the main paths drew: scatter_add on the DeepWalk update ids
             (batch 100000 and 250000, with dropped ids added, float32 and
             bfloat16 tables), on the node2vec batch's (float32) and on the
@@ -242,7 +276,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             context tables (1,715,256 x 128, unsorted) and RotatE's
             entity and relation tables, scatter_update_ on RotatE
             Adam's entity table.
-16. quality  GraphApplication on a small two-block graph on the card:
+17. quality  GraphApplication on a small two-block graph on the card:
             DeepWalk (the unfused trust-clip route), node2vec (p 4, q 2,
             the same route), the classic step (GRAPHVITE_NEG_SHARING=0),
             LINE on the edge route (the small-table route, the trust clip
@@ -251,7 +285,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             LINE, DeepWalk and node2vec (its second-order table built on
             the host, the entries counted) on sampler_backend="host":
             link-prediction AUC > 0.9.
-17. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
+18. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
             list` in a process of its own (the total of baselines), then
             three shipped configs through cmd.load_config and
             cmd.run_config, each copied with its save: path moved into a
@@ -269,7 +303,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             config/demo/math.yaml cut to dim 128 and 500 epochs (the
             offline math fixture): filtered tail MRR >= 0.60;
             config/word_graph/line_wikipedia.yaml at its 80 epochs on a
-            planted-topic corpus of 5M tokens (this script's
+            planted-topic corpus of 3M tokens (this script's
             copy of tools/word_graph_e2e.py:write_corpus: 50 topics, a
             Zipf vocabulary of 100,000): the word graph's host build,
             LINE on the edge route (kernel 1 on the small-table update),
@@ -281,11 +315,12 @@ Phases, in order (any failure exits non-zero and prints no result line):
             kernel 1 against its plain version (and timed, beside
             index_add_ and its bound) on the vertex and the context ids
             of one more batch of each graph config.
-18. summary the card line, the kernels line, and the result line.
+19. summary the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -1515,7 +1550,7 @@ def check_update_rows(name, ids, counts, v, d, dtype, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: each kernel against its plain version
+# phase 16: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
 def check_kernel(ids, dtype, gen):
@@ -3338,7 +3373,488 @@ def kg_mesh_phase(seed, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the host sampler backend
+# phase 14: the engines over two processes (GRAPHVITE_COORDINATOR)
+# ---------------------------------------------------------------------------
+
+# what a process of a multi-process run may not load (the card's host has
+# none of these; the children check it before they exit)
+FORBIDDEN = ("jax", "jaxlib", "graphvite_tpu", "ml_dtypes", "yaml", "pandas")
+# (case, worker-batches over both workers, episodes, launches per
+# worker-batch): (a) LINE edges SGD at line_flickr.yaml's
+# hyperparameters, (b) Adam, (c) DeepWalk walks SGD at
+# deepwalk_youtube.yaml's, (d) RotatE pooled SGD at
+# rotate_wikidata5m.yaml's, (e) global negatives at 1,792
+MH_CASES = (("a_edges_sgd", 128, 2, {"scatter_add_": 2}),
+            ("b_edges_adam", 32, 2, {"scatter_update_": 2}),
+            ("c_walks_sgd", 10, 1, {"scatter_add_": 1}),
+            ("d_kg_pooled_sgd", 24, 2, {"scatter_add_": 2}),
+            ("e_kg_global_sgd", 8, 2, {"scatter_add_": 4}))
+MH_WORKERS = 2
+MH_DEVICE = "cuda:0"           # both processes' workers: two ranks, one card
+MH_KG_BATCH = {"d": 60928, "e": 1792}   # per worker: pooled, global
+MH_TIMEOUT_S = 300
+
+
+def mh_write_inputs(root, shared):
+    """The graphs of phases edge, main and kg_big as .npy under `root`,
+    with the Flickr clone's block edge tables and the Wikidata5m clone's
+    block-sorted triplets built once here: the processes load them.
+    Returns the set-up seconds."""
+    from graphvite_tpu_torch.parallel import kg as kg_mod
+    from graphvite_tpu_torch.parallel import mesh
+
+    out = {}
+
+    def save(name, a):
+        np.save(os.path.join(root, name + ".npy"), np.asarray(a))
+
+    fl = shared["flickr"]
+    t0 = time.perf_counter()
+    part = mesh.VertexPartition(np.asarray(fl.degrees), MH_WORKERS)
+    tables = mesh.BlockEdgeTables(fl, part)
+    out["flickr_block_tables_s"] = time.perf_counter() - t0
+    for name in ("prob", "alias", "heads", "tails", "offsets"):
+        save("flickr_" + name, getattr(tables, name))
+    save("flickr_uniform", tables.uniform)
+    save("flickr_degrees", fl.degrees)
+    save("flickr_vertex_weights", fl.vertex_weights)
+    del tables
+    yt = shared["youtube"]
+    for name in ("degrees", "vertex_weights", "edge_weights", "csr_weights",
+                 "indptr", "indices", "edge_heads", "edge_tails"):
+        save("youtube_" + name, getattr(yt, name))
+    kg = shared["wikidata5m"]
+    t0 = time.perf_counter()
+    part = mesh.VertexPartition(np.asarray(kg.degrees), 2 * MH_WORKERS)
+    blocks = kg_mod.TripletBlocks(kg, part, ["cpu"])
+    out["kg_triplet_sort_s"] = time.perf_counter() - t0
+    save("kg_block_off", blocks.block_off)
+    for name, a in zip(("heads", "tails", "relations"), blocks.arrays["cpu"]):
+        save("kg_" + name, a.numpy())
+    save("kg_degrees", kg.degrees)
+    save("kg_sizes", [kg.num_vertex, kg.num_relation])
+    return out
+
+
+def mh_load_inputs(root):
+    """The arrays `mh_write_inputs` saved, with the block edge tables as a
+    BlockEdgeTables, the walk graph as the attributes the walks engine
+    reads, and the triplets' block offsets and arrays."""
+    import types
+
+    from graphvite_tpu_torch.parallel import mesh
+
+    def load(name):
+        return np.load(os.path.join(root, name + ".npy"))
+
+    tables = mesh.BlockEdgeTables.__new__(mesh.BlockEdgeTables)
+    for name in ("prob", "alias", "heads", "tails", "offsets"):
+        setattr(tables, name, load("flickr_" + name))
+    tables.uniform = bool(load("flickr_uniform"))
+    tables.capacity = tables.heads.shape[1]
+    youtube = types.SimpleNamespace(**{
+        name: load("youtube_" + name)
+        for name in ("degrees", "vertex_weights", "edge_weights",
+                     "csr_weights", "indptr", "indices", "edge_heads",
+                     "edge_tails")})
+    return {"flickr_tables": tables,
+            "flickr_degrees": load("flickr_degrees"),
+            "flickr_vertex_weights": load("flickr_vertex_weights"),
+            "youtube": youtube,
+            "kg_block_off": load("kg_block_off"),
+            "kg_arrays": tuple(load("kg_" + n)
+                               for n in ("heads", "tails", "relations")),
+            "kg_degrees": load("kg_degrees"),
+            "kg_sizes": tuple(int(x) for x in load("kg_sizes"))}
+
+
+def mh_table(rows, dim, seed, lo, hi, device):
+    """A [rows, dim] float32 table uniform in [lo, hi) on `device`, made
+    from `seed`: every process makes the same bits."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = torch.rand((rows, dim), generator=gen, device=device)
+    return t.mul_(hi - lo).add_(lo)
+
+
+def digest(t, chunk=1 << 28):
+    """sha256 of a tensor's bytes (equal digests, equal bits), fed from a
+    pinned host buffer `chunk` bytes at a time."""
+    import hashlib
+
+    import torch
+
+    flat = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    h = hashlib.sha256()
+    buf = torch.empty(min(chunk, flat.numel()), dtype=torch.uint8,
+                      pin_memory=flat.is_cuda)
+    for lo in range(0, flat.numel(), chunk):
+        part = buf[:min(chunk, flat.numel() - lo)]
+        part.copy_(flat[lo:lo + chunk])
+        h.update(memoryview(part.numpy()))
+    return h.hexdigest()
+
+
+def mh_engine(name, group, inputs, ep_batches):
+    """Case `name`'s engine on `group` and its sample state, as the solvers
+    configure them at these shapes (as in phases mesh and kg_mesh)."""
+    from graphvite_tpu_torch.models import GRAPH_MODELS, KG_MODELS
+    from graphvite_tpu_torch.optim import Optimizer
+    from graphvite_tpu_torch.parallel import kg as kg_mod
+    from graphvite_tpu_torch.parallel import mesh
+
+    W = group.size
+    if name.startswith(("a_", "b_")):
+        part = mesh.VertexPartition(inputs["flickr_degrees"], W)
+        opt = Optimizer(**(SGD_FLICKR if name.startswith("a_")
+                           else ADAM_FLICKR))
+        tr = mesh.ShardedGraphTrainer(
+            group, part, DIM, GRAPH_MODELS["LINE"], opt, num_negative=1,
+            negative_weight=5.0, batch_size=MESH_EDGE_BATCH,
+            ep_batches=ep_batches, sampler_mode="edges", pool_size=128,
+            trust=0.25)
+        return tr, tr.build_blocks(None, inputs["flickr_tables"])
+    if name.startswith("c_"):
+        yt = inputs["youtube"]
+        part = mesh.VertexPartition(yt.degrees, W)
+        tr = mesh.ShardedGraphTrainer(
+            group, part, DIM, GRAPH_MODELS["DeepWalk"],
+            Optimizer(**SGD_YOUTUBE), num_negative=1, negative_weight=5.0,
+            batch_size=MESH_WALK_BATCH, ep_batches=ep_batches,
+            sampler_mode="walks", trust=0.25,
+            walk_cfg=dict(augmentation_step=5, walk_length=40,
+                          batch_walks=MESH_WALK_BATCH // 410, bidir=True,
+                          pool_size=64))
+        return tr, tr.build_sample_state(yt)
+    import torch
+
+    part = mesh.VertexPartition(inputs["kg_degrees"], 2 * W)
+    pooled = name.startswith("d_")
+    tr = kg_mod.ShardedKGTrainer(
+        group, part, KG_BIG_DIM, KG_MODELS["RotatE"],
+        Optimizer(**SGD_WIKIDATA5M), num_negative=64, margin_or_l3=6.0,
+        adversarial_temperature=0.2, relation_lr_multiplier=1.0,
+        batch_size=MH_KG_BATCH[name[0]], ep_batches=ep_batches,
+        negative_pool="pooled" if pooled else "global",
+        pool_size=0 if pooled else None, trust=0.25)
+    blocks = kg_mod.TripletBlocks.__new__(kg_mod.TripletBlocks)
+    blocks.block_off = inputs["kg_block_off"]
+    blocks.arrays = {d: tuple(torch.from_numpy(a).to(d)
+                              for a in inputs["kg_arrays"])
+                     for d in group.distinct}
+    return tr, blocks
+
+
+def mh_run_case(case, group, inputs, seed):
+    """One case of MH_CASES on `group` (W = 2 workers in this process, or
+    this process's share of them): the episodes timed from a synchronized
+    start to a synchronized end, the kernels' launch counts set to 0 just
+    before and read just after, the cross-process traffic, and the
+    digests of every local worker's state and losses and of the gathered
+    tables (edges and walks)."""
+    import torch
+
+    name, worker_batches, episodes, _ = case
+    W = group.size
+    per_worker = worker_batches // W
+    ep = per_worker // episodes
+    t0 = time.perf_counter()
+    tr, sample = mh_engine(name, group, inputs, ep)
+    kg = name.startswith(("d_", "e_"))
+    if kg:
+        v, r = inputs["kg_sizes"]
+        ent = mh_table(v, KG_BIG_DIM, seed, -0.05, 0.05, group.home)
+        rel = mh_table(r, KG_BIG_DIM, seed + 1, -3.0, 3.0, group.home)
+        state = tr.init_state(ent, rel)
+        del ent, rel
+        neg = None
+    else:
+        v = int(np.asarray(tr.partition.part_of).size)
+        state = tr.init_state(
+            mh_table(v, DIM, seed, -0.5 / DIM, 0.5 / DIM, group.home),
+            mh_table(v, DIM, seed + 1, -0.5 / DIM, 0.5 / DIM, group.home))
+        weights = (inputs["youtube"].vertex_weights if name.startswith("c_")
+                   else inputs["flickr_vertex_weights"])
+        neg = tr.init_negative_state(weights)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    comm0 = dict(group.comm)
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for e in range(episodes):
+        if kg:
+            state, ls = tr.run_episode(state, sample, e * ep * W,
+                                       worker_batches, seed)
+        else:
+            state, neg, ls = tr.run_episode(state, sample, neg, e * ep * W,
+                                            worker_batches, seed)
+        losses.append(ls)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    counts = read_launches()
+    comm = {k: group.comm[k] - comm0[k] for k in comm0}
+    workers = {}
+    hashing = concurrent.futures.ThreadPoolExecutor(4)  # sha256 frees the GIL
+    for i in group.local:
+        if kg:
+            tensors = ([state["arena"][i], state["rel"][i]]
+                       + list(state["arena_moms"][i]))
+        else:
+            s = state[i]
+            tensors = (list(s["tables"]) + [m for side in s["moments"]
+                                            for m in side])
+        tensors += [ls[i] for ls in losses]
+        workers[str(i)] = list(hashing.map(digest, tensors))
+    rec = {"case": name, "workers": W, "local": list(group.local),
+           "transport": group.transport, "worker_batches": worker_batches,
+           "episodes": episodes, "setup_s": setup_s, "loop_s": loop_s,
+           "launches": counts, "comm": comm, "digests": workers,
+           "losses_finite": all(bool(torch.isfinite(ls[i]).all())
+                                for ls in losses for i in group.local)}
+    if name.startswith(("a_", "c_")):
+        rec["gathered"] = list(hashing.map(digest, tr.gather_tables(state)))
+    hashing.shutdown()
+    if name.startswith("c_"):
+        rec["requests"] = list(tr.drop_counts())
+        rec["valid_pairs"] = tr.valid_pairs()
+    del state, sample, tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def multihost_child(root, pid, port, device, cases, seed):
+    """A process of the multihost phase: `device` ("{pid}" in it stands for
+    this process's index) holds its one worker; every case named in
+    `cases` in order; the records written to root/child_PID.json."""
+    os.environ["GRAPHVITE_COORDINATOR"] = "localhost:%s" % port
+    os.environ["GRAPHVITE_NUM_PROCESSES"] = str(MH_WORKERS)
+    os.environ["GRAPHVITE_PROCESS_ID"] = str(pid)
+    from graphvite_tpu_torch.parallel import mesh
+
+    inputs = mh_load_inputs(root)
+    recs = {}
+    for case in MH_CASES:
+        if case[0] in cases.split(","):
+            group = mesh.DeviceGroup([device.format(pid=pid)])
+            recs[case[0]] = mh_run_case(case, group, inputs, seed)
+            log("   process %d, %s: %.1f s, transport %s" % (
+                pid, case[0], recs[case[0]]["loop_s"],
+                recs[case[0]]["transport"]))
+    recs["gloo_probe"] = mh_gloo_probe()
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+    if loaded:
+        raise AssertionError("a process loaded %r" % loaded)
+    with open(os.path.join(root, "child_%d.json" % pid), "w") as f:
+        json.dump(recs, f)
+    return 0
+
+
+def mh_gloo_probe(nbytes=256 << 20, reps=2):
+    """gloo's own rate between the two processes: a host buffer of
+    `nbytes` sent and sent back `reps` times, pageable and pinned
+    (GB/s of one direction)."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    rank = dist.get_rank()
+    for pinned in (False, True)[:1 + torch.cuda.is_available()]:
+        x = torch.zeros(nbytes, dtype=torch.uint8, pin_memory=pinned)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if rank == 0:
+                dist.send(x, 1)
+                dist.recv(x, 1)
+            else:
+                dist.recv(x, 0)
+                dist.send(x, 0)
+        out["pinned" if pinned else "pageable"] = (
+            2 * reps * nbytes / (time.perf_counter() - t0) / 1e9)
+    return out
+
+
+def mh_spawn(root, device, cases, seed):
+    """Run the two processes of the phase (this script with
+    --multihost-child) to their end: a shared deadline, and the other
+    killed as soon as one fails. Returns [(exit code, log tail)] and
+    their records."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("GRAPHVITE_COORDINATOR")}
+    env["PYTHONPATH"] = HERE
+    logs = [open(os.path.join(root, "child_%d.log" % pid), "w+")
+            for pid in range(MH_WORKERS)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--seed",
+         str(seed), "--multihost-child", root, str(pid), port, device,
+         ",".join(cases)], stdout=logs[pid], stderr=subprocess.STDOUT,
+        env=env, cwd=HERE) for pid in range(MH_WORKERS)]
+    deadline = time.monotonic() + MH_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    runs, recs = [], []
+    for pid, (p, f) in enumerate(zip(procs, logs)):
+        f.seek(0)
+        runs.append((p.returncode, f.read()[-4000:]))
+        f.close()
+        path = os.path.join(root, "child_%d.json" % pid)
+        if os.path.exists(path):
+            with open(path) as fh:
+                recs.append(json.load(fh))
+        else:
+            recs.append({})
+    return runs, recs
+
+
+def mh_compare(case, one, recs):
+    """The two processes' records of `case` against the one-process
+    group's: the same digests worker by worker and of the gathered tables,
+    the same launches per worker-batch. Returns (record, problems)."""
+    name, worker_batches, episodes, per_batch = case
+    problems = []
+    got = [r.get(name) for r in recs]
+    if any(g is None for g in got):
+        return {}, ["%s: a process made no record" % name]
+    equal = all(g["digests"][str(i)] == one["digests"][str(i)]
+                for g in got for i in g["local"])
+    if "gathered" in one:
+        equal = equal and all(g["gathered"] == one["gathered"] for g in got)
+    if name.startswith("c_"):
+        equal = equal and all(g["requests"] == one["requests"]
+                              and g["valid_pairs"] == one["valid_pairs"]
+                              for g in got)
+    launches = {}
+    for fn in one["launches"]:
+        launches[fn] = sum(g["launches"][fn] for g in got)
+    want = {fn: per_batch.get(fn, 0) * worker_batches for fn in launches}
+    if launches != want:
+        problems.append("%s: launches %r over both processes, want %r"
+                        % (name, launches, want))
+    if one["launches"] != want:
+        problems.append("%s: one process launched %r, want %r"
+                        % (name, one["launches"], want))
+    if not equal:
+        problems.append("%s: two processes differ from one" % name)
+    if not all(g["losses_finite"] for g in got) or not one["losses_finite"]:
+        problems.append("%s: losses not finite" % name)
+    loop_s = max(g["loop_s"] for g in got)
+    rec = {"bit_equal": equal, "transport": got[0]["transport"],
+           "worker_batches": worker_batches, "episodes": episodes,
+           "one_process": {
+               "ms_per_worker_batch": one["loop_s"] / worker_batches * 1e3,
+               "loop_s": one["loop_s"], "setup_s": one["setup_s"]},
+           "two_processes": {
+               "ms_per_worker_batch": loop_s / worker_batches * 1e3,
+               "loop_s": [g["loop_s"] for g in got],
+               "setup_s": [g["setup_s"] for g in got],
+               "cross_process_s_per_episode": [
+                   g["comm"]["seconds"] / episodes for g in got],
+               "staging_s_per_episode": [
+                   g["comm"]["stage_s"] / episodes for g in got],
+               "cross_process_bytes_per_episode": [
+                   g["comm"]["bytes"] / episodes for g in got],
+               "exchanges": [g["comm"]["exchanges"] for g in got]},
+           "launches": launches,
+           "launches_per_worker_batch": {fn: c / worker_batches
+                                         for fn, c in launches.items() if c}}
+    return rec, problems
+
+
+def multihost_phase(seed, shared):
+    """The multi-device engines over two processes on the card
+    (GRAPHVITE_COORDINATOR; two ranks on cuda:0, so the gloo transport
+    with pinned host staging), each case against the same engine as one
+    process with two workers on cuda:0 from the same seed: bit for bit,
+    the same launches per worker-batch. Where there are two cards, case
+    (a) again with one process per card (NCCL) against one process with
+    a worker on each."""
+    import torch
+    from graphvite_tpu_torch.parallel import mesh
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_multihost_")
+    out, problems = {}, []
+    try:
+        t0 = time.perf_counter()
+        out["setup"] = mh_write_inputs(root, shared)
+        out["setup"]["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inputs = mh_load_inputs(root)
+        one = {}
+        for case in MH_CASES:
+            group = mesh.DeviceGroup([MH_DEVICE] * MH_WORKERS)
+            one[case[0]] = mh_run_case(case, group, inputs, seed)
+        del inputs
+        torch.cuda.empty_cache()
+        out["setup"]["one_process_s"] = time.perf_counter() - t0
+        names = [c[0] for c in MH_CASES]
+        t0 = time.perf_counter()
+        runs, recs = mh_spawn(root, MH_DEVICE, names, seed)
+        out["setup"]["two_processes_s"] = time.perf_counter() - t0
+        out["gloo_probe_gb_per_s"] = [r.get("gloo_probe") for r in recs]
+        log("   set-up and wall seconds:", json.dumps(out["setup"]))
+        log("   gloo between the processes, GB/s one way:",
+            json.dumps(out["gloo_probe_gb_per_s"]))
+        for pid, (rc, tail) in enumerate(runs):
+            if rc != 0:
+                problems.append("process %d exited %s:\n%s" % (pid, rc,
+                                                              tail))
+        for case in MH_CASES:
+            rec, bad = mh_compare(case, one[case[0]], recs)
+            log("   (%s) two processes on cuda:0:" % case[0],
+                json.dumps(rec))
+            out[case[0]] = rec
+            problems += bad
+        out["transport"] = "gloo: two processes on cuda:0"
+        log("   transport: %s" % out["transport"])
+        if torch.cuda.device_count() >= 2:
+            inputs = mh_load_inputs(root)
+            group = mesh.DeviceGroup(["cuda:0", "cuda:1"])
+            one_nccl = mh_run_case(MH_CASES[0], group, inputs, seed)
+            del inputs
+            torch.cuda.empty_cache()
+            runs, recs = mh_spawn(root, "cuda:{pid}", [MH_CASES[0][0]],
+                                  seed)
+            for pid, (rc, tail) in enumerate(runs):
+                if rc != 0:
+                    problems.append("NCCL process %d exited %s:\n%s"
+                                    % (pid, rc, tail))
+            rec, bad = mh_compare(MH_CASES[0], one_nccl, recs)
+            log("   (%s) one process per card:" % MH_CASES[0][0],
+                json.dumps(rec))
+            out["nccl_" + MH_CASES[0][0]] = rec
+            problems += ["NCCL " + p for p in bad]
+            if rec and rec["transport"] != "nccl":
+                problems.append("one process per card took %s"
+                                % rec["transport"])
+        else:
+            out["nccl"] = "not exercised: one card"
+            log("   NCCL not exercised: torch sees one card")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the host sampler backend
 # ---------------------------------------------------------------------------
 
 HOST_EPISODE = 8
@@ -3474,7 +3990,7 @@ def host_phase(seed, shared):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: quality
+# phase 17: quality
 # ---------------------------------------------------------------------------
 
 def two_blocks(n=60, seed=0):
@@ -3562,7 +4078,7 @@ def quality(model="DeepWalk", device=None, classic=False, blocked=False,
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the command line
+# phase 18: the command line
 # ---------------------------------------------------------------------------
 
 # tools/blogcatalog_clone.py: BlogCatalog's published statistics
@@ -3573,7 +4089,7 @@ BLOGCATALOG_MIXING = 0.25     # fraction of stubs wired to the background
 # tools/word_graph_e2e.py: the planted-topic corpus
 # 5M tokens (the gate holds at 5M and at 10M): a corpus that keeps the
 # whole smoke, blocked phase included, under 1,000 s on a slow host
-CORPUS_TOKENS = 5_000_000
+CORPUS_TOKENS = 3_000_000
 CORPUS_VOCAB = 100_000
 CORPUS_TOPICS = 50
 
@@ -3960,12 +4476,18 @@ def kernel_row(name, source, replaces, launches, by_path, cases, case):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--main-batches", type=int, default=1000)
+    ap.add_argument("--main-batches", type=int, default=600)
     ap.add_argument("--node2vec-batches", type=int, default=600)
     ap.add_argument("--layout-batches", type=int, default=50)
     ap.add_argument("--edge-batches", type=int, default=1000)
     ap.add_argument("--kg-batches", type=int, default=50)
     ap.add_argument("--kg-big-batches", type=int, default=50)
+    ap.add_argument("--only", choices=["multihost"],
+                    help="run the device and build phases and this phase "
+                    "alone (its graphs built here), print its record and "
+                    "no result line")
+    # a process of the multihost phase: ROOT PID PORT DEVICE CASES
+    ap.add_argument("--multihost-child", nargs=5, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     try:
@@ -3977,6 +4499,10 @@ def main():
         sys.stderr.write("chip_smoke: CUDA is not available; this script "
                          "runs on a GPU only\n")
         return 2
+    if args.multihost_child:
+        root, pid, port, device, cases = args.multihost_child
+        return multihost_child(root, int(pid), port, device, cases,
+                               args.seed)
     # the cli phase's datasets live in a directory of their own, removed
     # at the end; the registry reads its path when it is first imported
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_data_")
@@ -4048,6 +4574,21 @@ def run(args):
         return 1
 
     shared = {}
+    if args.only == "multihost":
+        def graphs():
+            from graphvite_tpu_torch.graph import KnowledgeGraph
+
+            shared["flickr"] = power_law_graph(FLICKR_V, FLICKR_E, args.seed)
+            shared["youtube"] = power_law_graph(YOUTUBE_V, YOUTUBE_E,
+                                                args.seed)
+            shared["wikidata5m"] = fill_power_law_kg(
+                KnowledgeGraph(), WIKIDATA5M_ENT, WIKIDATA5M_REL,
+                WIKIDATA5M_TRAIN, args.seed)
+        ok = (phase("graphs", graphs)
+              and phase("multihost",
+                        lambda: multihost_phase(args.seed, shared)))
+        log(card_line())
+        return 0 if ok else 1
 
     def youtube_graph():
         """The Youtube-sized graph of the walk phases, built once."""
@@ -4300,13 +4841,18 @@ def run(args):
     phase("kg_mesh", lambda: kg_mesh_phase(args.seed, shared))
     torch.cuda.empty_cache()
 
-    # 14. the host sampler backend on the graphs of edge, main, kg_big
+    # 14. the engines over two processes on the graphs of edge, main and
+    # kg_big
+    phase("multihost", lambda: multihost_phase(args.seed, shared))
+    torch.cuda.empty_cache()
+
+    # 15. the host sampler backend on the graphs of edge, main, kg_big
     # and vis
     phase("host", lambda: host_phase(args.seed, shared))
     shared.clear()
     torch.cuda.empty_cache()
 
-    # 15. each kernel against its plain version, on the paths' own ids
+    # 16. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         cases = {"scatter_add": [], "gather_sorted": [],
@@ -4472,7 +5018,7 @@ def run(args):
     else:
         failures.append("kernel (needs the paths' ids)")
 
-    # 16. quality
+    # 17. quality
     def quality_phase():
         out = {}
         for name, model, classic, blocked, host in (
@@ -4503,7 +5049,7 @@ def run(args):
         return out
     phase("quality", quality_phase)
 
-    # 17. the command line: three shipped configs through cmd, in process,
+    # 18. the command line: three shipped configs through cmd, in process,
     # and `cmd list` in a process of its own
     def cli_phase():
         root = os.environ["GRAPHVITE_DATASET_PATH"]
@@ -4543,7 +5089,7 @@ def run(args):
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 18. summary: the card line, the kernels line, the result line
+    # 19. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
@@ -4571,6 +5117,10 @@ def run(args):
     kg_mesh = results["kg_mesh"]
     for name in ("a_pooled_sgd", "c_global_sgd", "d_resident_sgd"):
         k1["kg_mesh_" + name] = kg_mesh[name]["launches"]["scatter_add_"]
+    multihost = results["multihost"]
+    for name in ("a_edges_sgd", "c_walks_sgd", "d_kg_pooled_sgd",
+                 "e_kg_global_sgd"):
+        k1["multihost_" + name] = multihost[name]["launches"]["scatter_add_"]
     host = results["host"]
     for name in ("line_flickr", "deepwalk_youtube", "rotate_wikidata5m"):
         k1["host_" + name] = host[name]["launches"]["scatter_add_"]
@@ -4591,6 +5141,8 @@ def run(args):
           "mesh_vis_adam": mesh["vis_adam"]["launches"]["scatter_update_"],
           "kg_mesh_b_pooled_adam": (kg_mesh["b_pooled_adam"]["launches"]
                                     ["scatter_update_"]),
+          "multihost_b_edges_adam": (multihost["b_edges_adam"]["launches"]
+                                     ["scatter_update_"]),
           "host_rotate_wikidata5m_adam": (
               host["rotate_wikidata5m_adam"]["launches"]["scatter_update_"]),
           # the MNIST table takes the dense moment route

@@ -137,22 +137,47 @@ def device_alias_arrays(table: AliasTable, dtype=np.float32):
     return table.prob.astype(dtype), table.alias.astype(np.int32)
 
 
+def alias_draws(arrays, shape, generator=None, device=None):
+    """The two draws of `device_sample` over the alias tensors `arrays`,
+    made by the port itself. Over an unpacked (prob, alias) pair, the
+    layout of tables of 2^24 entries or more, the column is an integer
+    draw over [0, n): a float32 uniform reaches at most 2^24 columns, and
+    the reference's float draw (ops/alias.py:154-174 there) misses the
+    others as first picks (ROADMAP queue 3). The packed layout (n < 2^24)
+    keeps the float draw, which reaches every column. The second draw is
+    the alias test's uniform either way."""
+    if len(arrays) == 2:
+        idx = torch.randint(0, arrays[0].shape[0], shape,
+                            generator=generator, device=device)
+    else:
+        idx = torch.rand(shape, generator=generator, device=device)
+    return idx, torch.rand(shape, generator=generator, device=device)
+
+
+def _first_pick(u1, n):
+    """The first-level column: an integer draw as it is, a float uniform
+    by the reference's rule min(int(u1 n), n - 1)."""
+    if not u1.is_floating_point():
+        return u1.long()
+    return torch.clamp((u1 * n).long(), max=n - 1)
+
+
 def device_sample(*args):
     """Sample from device-resident alias tensors.
 
     Accepts either (packed[n,2], u1, u2) or (prob[n], alias[n], u1, u2);
-    u1/u2 are uniforms in [0,1) with the sample shape, on the arrays'
-    device. Returns int64 ids (the reference returns int32; the values
-    are equal)."""
+    u1 / u2 have the sample shape, on the arrays' device: u2 a uniform in
+    [0, 1), u1 either a uniform (the reference's draw, column
+    min(int(u1 n), n - 1)) or an integer column in [0, n) (`alias_draws`).
+    Returns int64 ids (the reference returns int32; the values are
+    equal)."""
     if len(args) == 3:
         packed, u1, u2 = args
-        n = packed.shape[0]
-        idx = torch.clamp((u1 * n).long(), max=n - 1)
+        idx = _first_pick(u1, packed.shape[0])
         rows = packed[idx]                       # one gather of [.., 2]
         keep = u2 < rows[..., 0]
         return torch.where(keep, idx, rows[..., 1].long())
     prob, alias, u1, u2 = args
-    n = prob.shape[0]
-    idx = torch.clamp((u1 * n).long(), max=n - 1)
+    idx = _first_pick(u1, prob.shape[0])
     keep = u2 < prob[idx]
     return torch.where(keep, idx, alias[idx].long())

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from graphvite_tpu_torch.ops.alias import (AliasTable, PackedAliasTables,
-                                           device_alias_arrays,
+                                           alias_draws, device_alias_arrays,
                                            device_sample)
 
 
@@ -161,8 +161,7 @@ class DeviceEdgeSampler:
                 row = edges[eid]
             else:
                 if draws is None:
-                    draws = (torch.rand(B, generator=generator, device=dev),
-                             torch.rand(B, generator=generator, device=dev))
+                    draws = alias_draws(alias_arrays, (B,), generator, dev)
                 row = edges[device_sample(*alias_arrays, *draws)]
             cols = row.t().contiguous()
             mask = torch.ones(B, dtype=torch.float32, device=dev)

@@ -36,7 +36,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from graphvite_tpu_torch.ops.alias import device_sample
+from graphvite_tpu_torch.ops.alias import alias_draws, device_sample
 from graphvite_tpu_torch.ops.device_sampler import walk_offsets
 from graphvite_tpu_torch.ops.gather import gather_sorted
 from graphvite_tpu_torch.ops.scatter import (scatter_add_,
@@ -101,8 +101,7 @@ def make_graph_train_step(model, opt: Optimizer, num_negative: int,
         b = heads.shape[0]
         dev = vertex.device
         if draws is None:
-            draws = (torch.rand((b, k), generator=generator, device=dev),
-                     torch.rand((b, k), generator=generator, device=dev))
+            draws = alias_draws(neg_state, (b, k), generator, dev)
         negs = device_sample(*neg_state, *draws)             # [B, K]
 
         v = vertex[heads].float()                            # [B, D]
@@ -195,11 +194,20 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
     M = int(pool_size)
     G = int(pool_groups)
     neg_w = float(negative_weight) * k / M
+    # the reference's switch (ops/steps.py:185 there), read when the step
+    # is built; it takes effect on bf16 tables only
+    bf16_mm = os.environ.get("GRAPHVITE_BF16_COMPUTE", "0") == "1"
 
     def step(state, heads, tails, lr, *neg_state, mask=None,
              generator=None, draws=None):
         vertex, context = state["tables"]
         v_moms, c_moms = state["moments"]
+        if bf16_mm and vertex.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "GRAPHVITE_BF16_COMPUTE=1 (bf16 operands for the pool "
+                "step's products over bf16 tables, an experimental opt-in "
+                "of the reference) is not ported yet (ROADMAP queue 1, "
+                "item 11)")
         b = heads.shape[0]
         if b % G:
             raise ValueError("batch %d must divide into %d pool groups"
@@ -431,8 +439,7 @@ def walk_shift_fwd(x, kk):
 def _pool_ids(neg_state, G, M, device, generator, draws):
     """[G, M] negative-pool ids from the alias tensors `neg_state`."""
     if draws is None:
-        draws = (torch.rand((G, M), generator=generator, device=device),
-                 torch.rand((G, M), generator=generator, device=device))
+        draws = alias_draws(neg_state, (G, M), generator, device)
     u1, u2 = draws
     return device_sample(*neg_state, u1, u2)
 
@@ -1199,8 +1206,7 @@ def make_vis_train_step(model, opt: Optimizer, num_negative: int,
         v = coord.shape[0]
         dev = coord.device
         if draws is None:
-            draws = (torch.rand((b, k), generator=generator, device=dev),
-                     torch.rand((b, k), generator=generator, device=dev))
+            draws = alias_draws(neg_state, (b, k), generator, dev)
         negs = device_sample(*neg_state, *draws)             # [B, K]
 
         h = coord[heads][:, None, :].float()                 # [B, 1, D]

@@ -5,8 +5,8 @@ The reference scales by staging (head partition x tail partition) blocks
 of the embedding tables under an orthogonal episode schedule
 (include/core/solver.h:519-575, 873-887). On one card the port trains one
 such block per episode (ops/blocked.py and GraphSolver's blocked loop).
-Over W workers (`DeviceGroup`, one process, a device, stream and
-generator per worker) `ShardedGraphTrainer` keeps partition p's vertex
+Over W workers (`DeviceGroup`: a device, stream and generator per
+worker, in one process or, with GRAPHVITE_COORDINATOR, over several) `ShardedGraphTrainer` keeps partition p's vertex
 shard on worker p and rotates the context shards around the ring (edges
 mode), or fetches and updates rows on their owners (banded walks);
 `ReplicatedEdgeTrainer` trains LargeVis replicas and merges their deltas.

@@ -37,7 +37,8 @@ import os
 import numpy as np
 import torch
 
-from graphvite_tpu_torch.ops.alias import AliasTable, device_sample
+from graphvite_tpu_torch.ops.alias import (AliasTable, alias_draws,
+                                           device_sample)
 from graphvite_tpu_torch.ops.scatter import scatter_add_
 from graphvite_tpu_torch.ops.steps import (kg_pool_groups,
                                            make_kg_pool_step,
@@ -80,17 +81,19 @@ class ReplicatedKGTrainer:
         """(tables, moments) per worker from the canonical (entity,
         relation) tables (tensors or numpy) and, for resume, the canonical
         moments (one tuple per table; None: zeros). Moments are float32."""
+        g = self.group
         if moments is None:
             moments = tuple((None,) * self.opt.num_moment for _ in tables)
-        out_t, out_m = [], []
-        for d in self.group.devices:
+        out_t, out_m = [None] * g.size, [None] * g.size
+        for w in g.local:
+            d = g.devices[w]
             ts = tuple(_as_tensor(t, d).clone() for t in tables)
-            out_t.append(ts)
-            out_m.append(tuple(
+            out_t[w] = ts
+            out_m[w] = tuple(
                 tuple(torch.zeros(t.shape, dtype=torch.float32, device=d)
                       if m is None else _as_tensor(m, d).float().clone()
                       for m in side)
-                for t, side in zip(ts, moments)))
+                for t, side in zip(ts, moments))
         return out_t, out_m
 
     def init_edges(self, kg):
@@ -124,8 +127,9 @@ class ReplicatedKGTrainer:
         B = self.batch_size
         gens = g.seed_generators(seed, 0)
         g.begin()
-        starts, deltas, moms, losses = [], [], [], []
-        for w in range(g.size):
+        W = g.size
+        starts, deltas, moms, losses = ([None] * W for _ in range(4))
+        for w in g.local:
             dev = g.devices[w]
             eprob, ealias, eheads, etails, erels = edge_arrays[dev]
             with g.worker(w), torch.no_grad():
@@ -135,7 +139,7 @@ class ReplicatedKGTrainer:
                 for i in range(self.ep_batches):
                     lr = self.opt.schedule_lr(batch_id0 + i, num_batch_total)
                     if draws is None:
-                        u = torch.rand((2, B), generator=gens[w], device=dev)
+                        u = alias_draws((eprob, ealias), (B,), gens[w], dev)
                         negs = None
                     else:
                         u, negs = draws[w][i]
@@ -144,17 +148,18 @@ class ReplicatedKGTrainer:
                                             erels[eid], lr, negatives=negs,
                                             generator=gens[w])
                     ls.append(loss)
-                deltas.append(tuple(s - s0 for s, s0
-                                    in zip(st["tables"], start)))
-                starts.append(start)
-                moms.append(st["moments"])
-                losses.append(torch.stack(ls))
-        summed = [g.sum([d[k] for d in deltas]) for k in range(len(deltas[0]))]
-        out = []
-        for w in range(g.size):
+                deltas[w] = tuple(s - s0 for s, s0
+                                  in zip(st["tables"], start))
+                starts[w] = start
+                moms[w] = st["moments"]
+                losses[w] = torch.stack(ls)
+        summed = [g.sum([d[k] if d is not None else None for d in deltas])
+                  for k in range(len(starts[g.local[0]]))]
+        out = [None] * W
+        for w in g.local:
             with g.worker(w):
-                out.append(tuple(s0 + summed[k][w]
-                                 for k, s0 in enumerate(starts[w])))
+                out[w] = tuple(s0 + summed[k][w]
+                               for k, s0 in enumerate(starts[w]))
         g.end()
         return out, moms, losses
 
@@ -291,7 +296,8 @@ class ShardedKGTrainer:
 
     def init_state(self, entity, relation, moments=None):
         """Per-worker state from the canonical [V, D] entity and [R, D]
-        relation tables (tensors on any device, or numpy). `moments`
+        relation tables (tensors on any device, or numpy; the whole tables
+        in every process; None for a worker of another process). `moments`
         ((entity moments...), (relation moments...)) canonical arrays seed
         the arena moments and every worker's relation moments: resume
         continues from the gathered ones (entities exactly; relations from
@@ -302,22 +308,24 @@ class ShardedKGTrainer:
         if moments is None:
             moments = ((None,) * self.opt.num_moment,) * 2
         e_moms, r_moms = moments
-        src = _as_tensor(entity, g.devices[0])
+        src = _as_tensor(entity, g.home)
         shape = (2, self.cap, self.dim)
-        state = {"arena": [], "arena_moms": [], "rel": [], "rel_moms": []}
-        for d, dev in enumerate(g.devices):
-            state["arena"].append(self._arena(src, d))
-            state["arena_moms"].append(tuple(
+        state = {k: [None] * g.size
+                 for k in ("arena", "arena_moms", "rel", "rel_moms")}
+        for d in g.local:
+            dev = g.devices[d]
+            state["arena"][d] = self._arena(src, d)
+            state["arena_moms"][d] = tuple(
                 torch.zeros(shape, dtype=torch.float32, device=dev)
                 if m is None else
-                self._arena(_as_tensor(m, g.devices[0]).float(), d)
-                for m in e_moms))
+                self._arena(_as_tensor(m, g.home).float(), d)
+                for m in e_moms)
             rel = _as_tensor(relation, dev)
-            state["rel"].append(rel.clone())
-            state["rel_moms"].append(tuple(
+            state["rel"][d] = rel.clone()
+            state["rel_moms"][d] = tuple(
                 torch.zeros(rel.shape, dtype=torch.float32, device=dev)
                 if m is None else _as_tensor(m, dev).float().clone()
-                for m in r_moms))
+                for m in r_moms)
         return state
 
     def init_triplets(self, kg):
@@ -433,15 +441,15 @@ class ShardedKGTrainer:
         g.begin()
         blocks = [self._blocks(w, diag_f, triplets.block_off)
                   for w in range(W)]
-        rel0, st = [], []
-        for w in range(W):
+        rel0, st = [None] * W, [None] * W
+        for w in g.local:
             with g.worker(w):
-                rel0.append(state["rel"][w].clone())
-                st.append({"tables": (state["arena"][w].view(2 * cap, D),
-                                      state["rel"][w]),
-                           "moments": (tuple(m.view(2 * cap, D) for m in
-                                             state["arena_moms"][w]),
-                                       state["rel_moms"][w])})
+                rel0[w] = state["rel"][w].clone()
+                st[w] = {"tables": (state["arena"][w].view(2 * cap, D),
+                                    state["rel"][w]),
+                         "moments": (tuple(m.view(2 * cap, D) for m in
+                                           state["arena_moms"][w]),
+                                     state["rel_moms"][w])}
         # the input state is donated: its arenas are updated in place, and
         # dropping them here lets each kind's old arenas go in the rotation
         state["arena"] = state["arena_moms"] = None
@@ -451,7 +459,7 @@ class ShardedKGTrainer:
                 self._global_batch(i, st, triplets, blocks, batch_id0,
                                    num_batch_total, gens, draws, losses)
         else:
-            for w in range(W):
+            for w in g.local:
                 trip = triplets.arrays[g.devices[w]]
                 with g.worker(w), torch.no_grad():
                     for i in range(self.ep_batches):
@@ -473,19 +481,22 @@ class ShardedKGTrainer:
         # averaged)
         scale = (1.0 / W if os.environ.get("GRAPHVITE_REL_MERGE", "sum")
                  == "mean" else 1.0)
-        deltas = []
-        for w in range(W):
+        deltas, rel_out = [None] * W, [None] * W
+        for w in g.local:
             with g.worker(w):
-                deltas.append(st[w]["tables"][1] - rel0[w])
+                deltas[w] = st[w]["tables"][1] - rel0[w]
         summed = g.sum(deltas)
-        rel_out = []
-        for w in range(W):
+        for w in g.local:
             with g.worker(w):
-                rel_out.append(rel0[w] + scale * summed[w])
-        arena = [s["tables"][0].view(2, cap, D) for s in st]
-        arena_moms = [tuple(m.view(2, cap, D) for m in s["moments"][0])
-                      for s in st]
-        rel_moms = [tuple(s["moments"][1]) for s in st]
+                rel_out[w] = rel0[w] + scale * summed[w]
+
+        def each(fn):
+            return [fn(s) if s is not None else None for s in st]
+
+        arena = each(lambda s: s["tables"][0].view(2, cap, D))
+        arena_moms = each(lambda s: tuple(m.view(2, cap, D)
+                                          for m in s["moments"][0]))
+        rel_moms = each(lambda s: tuple(s["moments"][1]))
         del st, deltas, summed
         # the seat rotation moves the arenas and their moments, one kind
         # at a time (each kind's old arenas go as its new ones come)
@@ -493,15 +504,19 @@ class ShardedKGTrainer:
         n_mom = self.opt.num_moment
         moved = []
         for m in range(n_mom):
-            moved.append(self._transition([am[m] for am in arena_moms]))
-            arena_moms = [am[:m] + (None,) + am[m + 1:] for am in arena_moms]
+            moved.append(self._transition(
+                [am[m] if am is not None else None for am in arena_moms]))
+            arena_moms = [am[:m] + (None,) + am[m + 1:]
+                          if am is not None else None for am in arena_moms]
         g.end()
         self.advance_schedule()
         state = {"arena": arena,
                  "arena_moms": [tuple(moved[m][w] for m in range(n_mom))
+                                if g.is_local(w) else None
                                 for w in range(W)],
                  "rel": rel_out, "rel_moms": rel_moms}
-        return state, [torch.stack(ls) for ls in losses]
+        return state, [torch.stack(ls) if g.is_local(w) else None
+                       for w, ls in enumerate(losses)]
 
     def _resident_negatives(self, un, sh, st, sz):
         """Split-id corruption over the two resident slots (kg.py:343-358):
@@ -524,19 +539,17 @@ class ShardedKGTrainer:
         WQ = W * Q
         lr = self.opt.schedule_lr(batch_id0 + i * W, num_batch_total)
         n_mom = self.opt.num_moment
-        ctx = []
-        rows = []
-        for w in range(W):
+        ctx, rows, sums = [None] * W, [None] * W, [None] * W
+        for w in g.local:
             with g.worker(w), torch.no_grad():
                 u, (up, nid) = self._draw(w, i, gens, draws)
                 h, t, r, _, _, mask = self._positives(
                     u, blocks[w], triplets.arrays[g.devices[w]])
                 pool_arena = self._span_ids(up, blocks[w][2])     # [Q]
-                rows.append(st[w]["tables"][0][pool_arena])
-                ctx.append((h, t, r, mask, nid, pool_arena))
+                rows[w] = st[w]["tables"][0][pool_arena]
+                ctx[w] = (h, t, r, mask, nid, pool_arena)
         pools = g.all_gather(rows)                              # [W Q, D]
-        sums = []
-        for w in range(W):
+        for w in g.local:
             h, t, r, mask, nid, _ = ctx[w]
             with g.worker(w), torch.no_grad():
                 ch = nid < WQ
@@ -555,10 +568,10 @@ class ShardedKGTrainer:
                     cols.append(gr.new_zeros((B * K, pad)))
                 acc = torch.zeros((WQ, sum(c.shape[1] for c in cols)),
                                   device=gr.device)
-                sums.append(scatter_add_(acc, idx.reshape(-1),
-                                         torch.cat(cols, dim=1)))
+                sums[w] = scatter_add_(acc, idx.reshape(-1),
+                                       torch.cat(cols, dim=1))
         mine = g.reduce_scatter(sums)                           # [Q, C]
-        for w in range(W):
+        for w in g.local:
             pool_arena = ctx[w][5]
             with g.worker(w), torch.no_grad():
                 D = self.dim
@@ -585,21 +598,25 @@ class ShardedKGTrainer:
             return xs
         fwd = [(d, d + 1) for d in range(W - 1)]
         bwd = [(d, d - 1) for d in range(1, W)]
-        got_fwd = g.permute([x[1] if w == 0 else x[0]
-                             for w, x in enumerate(xs)], fwd)
-        got_bwd = g.permute([x[1] for x in xs], bwd)
-        out = []
-        for w, x in enumerate(xs):
+        got_fwd = g.permute([(x[1] if w == 0 else x[0]) if x is not None
+                             else None for w, x in enumerate(xs)], fwd)
+        got_bwd = g.permute([x[1] if x is not None else None for x in xs],
+                            bwd)
+        out = [None] * W
+        for w in g.local:
+            x = xs[w]
             with g.worker(w):
-                out.append(torch.stack([x[0] if w == 0 else got_fwd[w],
-                                        x[0] if w == W - 1 else got_bwd[w]]))
+                out[w] = torch.stack([x[0] if w == 0 else got_fwd[w],
+                                      x[0] if w == W - 1 else got_bwd[w]])
         return out
 
     # -- gathering ----------------------------------------------------------
     def _gather(self, parts, dtype, device):
         """Per-worker [2, cap, D] arenas -> the canonical [V, D] tensor on
-        `device`, through the current seat map."""
+        `device`, through the current seat map; across processes every
+        worker's arena comes to every process (a collective)."""
         part = self.partition
+        parts = self.group.collect(parts)
         out = torch.empty((part.part_of.shape[0], self.dim), dtype=dtype,
                           device=device)
         for d, (a, b) in enumerate(self.assignments()):
@@ -610,14 +627,17 @@ class ShardedKGTrainer:
         return out
 
     def gather_entities(self, state, device=None):
-        """The [V, D] entity table on `device` (worker 0's by default)."""
-        device = device or self.group.devices[0]
-        return self._gather(state["arena"], state["arena"][0].dtype, device)
+        """The [V, D] entity table on `device` (the first local worker's
+        by default), in every process."""
+        device = device or self.group.home
+        dtype = state["arena"][self.group.local[0]].dtype
+        return self._gather(state["arena"], dtype, device)
 
     def gather_entity_moments(self, state, device=None):
         """The canonical [V, D] float32 entity moments."""
-        device = device or self.group.devices[0]
-        return tuple(self._gather([am[m] for am in state["arena_moms"]],
+        device = device or self.group.home
+        return tuple(self._gather([am[m] if am is not None else None
+                                   for am in state["arena_moms"]],
                                   torch.float32, device)
                      for m in range(self.opt.num_moment))
 
@@ -625,9 +645,12 @@ class ShardedKGTrainer:
         """The workers' relation moments as their mean: the canonical
         summary a resumed run restarts every worker from (the reference
         keeps them per device and never merges them)."""
-        device = device or self.group.devices[0]
+        device = device or self.group.home
         W = self.num_worker
-        return tuple(
-            torch.stack([rm[m].to(device) for rm in state["rel_moms"]])
-            .mean(dim=0) if W > 1 else state["rel_moms"][0][m].to(device)
-            for m in range(self.opt.num_moment))
+        out = []
+        for m in range(self.opt.num_moment):
+            every = self.group.collect([rm[m] if rm is not None else None
+                                        for rm in state["rel_moms"]])
+            out.append(torch.stack([x.to(device) for x in every]).mean(dim=0)
+                       if W > 1 else every[0].to(device))
+        return tuple(out)

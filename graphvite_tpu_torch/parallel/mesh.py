@@ -6,14 +6,16 @@ The reference drives a `jax.sharding.Mesh` from one controller; its
 collectives are `ppermute` (the ring, the KG seat rotation), `all_to_all`
 (the walk engine's row routing), `psum` (the replicated merge) and
 `all_gather` / `psum_scatter` (the KG engine's global negative pool). The
-port keeps that design: one Python process holds W workers
-(`DeviceGroup`), each with its own `torch.device`, on CUDA its own stream,
-and its own `torch.Generator`; the collectives are functions over lists
-of per-worker tensors (`ring_shift`, `permute`, `all_to_all`, `sum`,
-`all_gather`, `reduce_scatter`), narrow enough that a
-`torch.distributed` backend can stand behind the same interface for the
-multi-host path. Workers may share a device (`device_ids=[0, 0]`): the
-ring then renames list entries and copies nothing.
+port keeps that design: a `DeviceGroup` holds W workers, each with its
+own `torch.device`, on CUDA its own stream, and its own
+`torch.Generator`; the collectives are functions over lists of
+per-worker tensors (`ring_shift`, `permute`, `all_to_all`, `sum`,
+`all_gather`, `reduce_scatter`). Workers may share a device
+(`device_ids=[0, 0]`): the ring then renames list entries and copies
+nothing. With GRAPHVITE_COORDINATOR set, the group spans processes, as
+the reference's mesh spans hosts: each process holds its own workers,
+and the collectives carry what crosses a process boundary over
+`torch.distributed` (gloo, or NCCL between cards of their own).
 
 Layout (ShardedGraphTrainer). Vertices are dealt to P = W partitions in
 degree order (solver.h:873-887) and renumbered so partition p owns local
@@ -38,13 +40,14 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from graphvite_tpu_torch.ops.alias import (AliasTable, PackedAliasTables,
-                                           device_sample)
+                                           alias_draws, device_sample)
 from graphvite_tpu_torch.ops.blocked import _pick_edges
 from graphvite_tpu_torch.ops.steps import (_logistic_terms,
                                            graph_pool_groups,
@@ -182,12 +185,76 @@ def worker_seed(seed, rotation, worker):
     return int(ss.generate_state(1, np.uint64)[0])
 
 
+DIST_TIMEOUT_S = 600      # a peer that never comes fails, not hangs
+
+
+def _join_processes():
+    """Join the process group of GRAPHVITE_COORDINATOR=host:port,
+    GRAPHVITE_NUM_PROCESSES and GRAPHVITE_PROCESS_ID (the reference's
+    make_mesh calls jax.distributed.initialize from them), once per
+    process; a missing variable raises KeyError as the reference's does.
+    The group is gloo's: the workers' tensors cross it through host
+    buffers, or a NCCL group made beside it (`DeviceGroup`)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    coord = os.environ["GRAPHVITE_COORDINATOR"]
+    world = int(os.environ["GRAPHVITE_NUM_PROCESSES"])
+    rank = int(os.environ["GRAPHVITE_PROCESS_ID"])
+    host, _, port = coord.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError("GRAPHVITE_COORDINATOR must be host:port, not %r"
+                         % coord)
+    if not 0 <= rank < world:
+        raise ValueError("GRAPHVITE_PROCESS_ID %d is not in [0, %d)"
+                         % (rank, world))
+    dist.init_process_group(
+        "gloo", init_method="tcp://%s:%s" % (host, port), world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+
+
+_NCCL = {}                 # the NCCL group of this process, made once
+
+
+def _card_id(device):
+    """A name of the card behind a CUDA device that no other card on any
+    host shares."""
+    return str(torch.cuda.get_device_properties(device).uuid)
+
+
 class DeviceGroup:
-    """W workers in one process (the port of make_mesh, which builds the
-    reference's jax.sharding.Mesh; GRAPHVITE_COORDINATOR, its multi-host
-    switch, raises): worker i runs on
-    `devices[i]`, on CUDA on a stream of its own, and draws from a
-    generator of its own. Workers may share a device.
+    """W workers (the port of make_mesh, which builds the reference's
+    jax.sharding.Mesh): worker i runs on `devices[i]`, on CUDA on a
+    stream of its own, and draws from a generator of its own. Workers may
+    share a device.
+
+    Several processes: with GRAPHVITE_COORDINATOR set, the group joins
+    the process group of that address (`_join_processes`) and spans every
+    process; `devices` are then this process's workers. The processes
+    tell each other their counts, and the global worker order is
+    process-major, process 0's workers first, as jax.devices() orders
+    them. Every list of per-worker values is indexed by the global worker:
+    `size` is the global W, `local` the range of workers held here, and a
+    remote worker's entry of `devices`, `streams`, `generators`, of a
+    collective's input and of its output is None. An engine loops over
+    `local` and never touches a remote worker's state. Every process
+    calls the same collectives in the same order, each worker's tensor of
+    the same shape and dtype (the reference's SPMD contract).
+
+    Transport across processes (`transport`): "nccl" when every process's
+    workers sit on cards that no other process uses, else "gloo" (CPU
+    workers, or two processes on one card, which NCCL refuses). gloo
+    carries host tensors: a CUDA tensor goes to a pinned host buffer on
+    its worker's stream, the host waits for that copy, gloo moves the
+    bytes, and a copy onto the destination worker's stream brings them
+    back. NCCL moves device tensors on a stream of the group's, ordered
+    after the sources' streams and before the destinations'. The
+    collectives only copy: every sum adds in worker order on each
+    receiver, so W workers over several processes hold the bits of W
+    workers in one.
 
     The collectives take and return lists of per-worker tensors, each on
     its worker's device; on CUDA each destination's stream waits for the
@@ -209,36 +276,95 @@ class DeviceGroup:
       concatenated along dim 0 in worker order (all_gather, tiled);
     * reduce_scatter(xs): xs[i] is [P * C, ...]; worker j receives the sum
       over workers of chunk j, xs[i][j C:(j + 1) C], added in worker order
-      (psum_scatter, tiled).
+      (psum_scatter, tiled);
+    * collect(xs): every worker's tensor in every process (remote ones as
+      received copies), readable on the current streams;
+      `gather_values(xs)` stacks them on the CPU (process_allgather).
     """
 
     def __init__(self, devices):
-        if os.environ.get("GRAPHVITE_COORDINATOR"):
-            raise NotImplementedError(
-                "GRAPHVITE_COORDINATOR (multi-host training) is not ported "
-                "yet (ROADMAP queue 1, item 19)")
-        self.devices = [torch.device(d) for d in devices]
-        if not self.devices:
+        local = [torch.device(d) for d in devices]
+        if not local:
             raise ValueError("a device group needs at least one worker")
-        self.size = len(self.devices)
-        self.on_cuda = self.devices[0].type == "cuda"
-        if any((d.type == "cuda") != self.on_cuda for d in self.devices):
+        self.on_cuda = local[0].type == "cuda"
+        if any((d.type == "cuda") != self.on_cuda for d in local):
             raise ValueError("workers on CUDA and on the CPU cannot mix: %r"
-                             % (self.devices,))
+                             % (local,))
         if self.on_cuda:
-            self.devices = [torch.device("cuda", d.index if d.index
-                                         is not None else 0)
-                            for d in self.devices]
-            self.streams = [torch.cuda.Stream(device=d)
-                            for d in self.devices]
-        else:
-            self.streams = [None] * self.size
-        self.generators = [torch.Generator(device=d) for d in self.devices]
-        # the distinct devices, in worker order (replicated arrays)
-        self.distinct = list(dict.fromkeys(self.devices))
+            local = [torch.device("cuda", d.index if d.index is not None
+                                  else 0) for d in local]
+        self.process, self.num_process = 0, 1
+        self.transport = None
+        counts = [len(local)]
+        if os.environ.get("GRAPHVITE_COORDINATOR"):
+            counts = self._join(local)
+        self.counts = counts
+        self.size = sum(counts)
+        lo = sum(counts[:self.process])
+        self.local = range(lo, lo + len(local))
+        self.owner = [p for p, c in enumerate(counts) for _ in range(c)]
+        self.devices = [None] * self.size
+        self.devices[lo:lo + len(local)] = local
+        self.home = local[0]
+        self.streams = [None] * self.size
+        self.generators = [None] * self.size
+        for i in self.local:
+            d = self.devices[i]
+            if self.on_cuda:
+                self.streams[i] = torch.cuda.Stream(device=d)
+            self.generators[i] = torch.Generator(device=d)
+        # the distinct devices of this process, in worker order
+        # (replicated arrays)
+        self.distinct = list(dict.fromkeys(local))
+        # cross-process traffic: exchanges, bytes sent, and host seconds
+        # from the sources' readiness to the last byte's arrival, of which
+        # `stage_s` went to the copies into host buffers (gloo on CUDA)
+        self.comm = {"exchanges": 0, "bytes": 0, "seconds": 0.0,
+                     "stage_s": 0.0}
+
+    def _join(self, local):
+        """Join the processes and agree on the counts and the transport;
+        returns every process's worker count."""
+        import datetime
+
+        import torch.distributed as dist
+
+        _join_processes()
+        self.process = dist.get_rank()
+        self.num_process = dist.get_world_size()
+        cards = (sorted({_card_id(d) for d in local}) if self.on_cuda
+                 else [])
+        infos = [None] * self.num_process
+        dist.all_gather_object(infos, (len(local), self.on_cuda, cards))
+        if any(info[1] != self.on_cuda for info in infos):
+            raise ValueError("workers on CUDA and on the CPU cannot mix "
+                             "across processes: %r" % (infos,))
+        seen = [c for info in infos for c in info[2]]
+        self.transport = ("nccl" if self.on_cuda
+                          and len(seen) == len(set(seen)) else "gloo")
+        if self.transport == "nccl":
+            torch.cuda.set_device(local[0])
+            if "group" not in _NCCL:
+                _NCCL["group"] = dist.new_group(
+                    backend="nccl",
+                    timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+                # the group's first call is a barrier, not a batch of
+                # point-to-point messages (which need every rank in the
+                # first call)
+                dist.barrier(group=_NCCL["group"],
+                             device_ids=[local[0].index])
+            self.comm_stream = torch.cuda.Stream(device=local[0])
+        logger.info("device group: %d workers over %d processes (%d here, "
+                    "process %d), transport %s", sum(i[0] for i in infos),
+                    self.num_process, len(local), self.process,
+                    self.transport)
+        return [info[0] for info in infos]
 
     def __len__(self):
         return self.size
+
+    def is_local(self, i):
+        return self.devices[i] is not None
 
     def worker(self, i):
         """Context in which worker i's work is issued (its stream)."""
@@ -247,31 +373,36 @@ class DeviceGroup:
         return torch.cuda.stream(self.streams[i])
 
     def seed_generators(self, seed, rotation):
-        for i, g in enumerate(self.generators):
-            g.manual_seed(worker_seed(seed, rotation, i))
+        """Seed each local worker's generator from (seed, rotation, global
+        worker): W workers draw alike over any number of processes."""
+        for i in self.local:
+            self.generators[i].manual_seed(worker_seed(seed, rotation, i))
         return self.generators
 
     def begin(self):
         """Order every worker's stream after the work issued so far on its
         device's current stream (the state it starts from)."""
         if self.on_cuda:
-            for d, s in zip(self.devices, self.streams):
-                s.wait_stream(torch.cuda.current_stream(d))
+            for i in self.local:
+                self.streams[i].wait_stream(
+                    torch.cuda.current_stream(self.devices[i]))
 
     def end(self):
         """Order each device's current stream after its workers' streams
         (the caller reads what the workers wrote)."""
         if self.on_cuda:
-            for d, s in zip(self.devices, self.streams):
-                torch.cuda.current_stream(d).wait_stream(s)
+            for i in self.local:
+                torch.cuda.current_stream(self.devices[i]).wait_stream(
+                    self.streams[i])
 
     def _events(self):
         if not self.on_cuda:
             return None
-        return [s.record_event() for s in self.streams]
+        return [s.record_event() if s is not None else None
+                for s in self.streams]
 
     def _fetch(self, x, i, j, events):
-        """Worker i's tensor `x` made readable on worker j."""
+        """Worker i's tensor `x` made readable on worker j (both local)."""
         if i == j or not self.on_cuda:
             return x.to(self.devices[j])
         src, dst = self.streams[i], self.streams[j]
@@ -284,6 +415,132 @@ class DeviceGroup:
         with torch.cuda.stream(src), torch.cuda.stream(dst):
             return x.to(self.devices[j], non_blocking=True)
 
+    # -- across processes ----------------------------------------------------
+
+    def _exchange(self, msgs):
+        """Send and receive one collective's cross-process messages. `msgs`
+        lists (source worker, destination process, tensor, like, key) in
+        one order that every process enumerates alike: `tensor` the
+        source's (read on the sending process), `like` a local tensor of
+        the received shape and dtype (read on the receiving one). Returns
+        {key: the received tensor} for this process's receives, staged: a
+        host tensor under gloo, a tensor on `home` written on the group's
+        stream under NCCL (`_land` brings it to a worker)."""
+        me = self.process
+        sends = [(k, m) for k, m in enumerate(msgs)
+                 if self.owner[m[0]] == me and m[1] != me]
+        recvs = [(k, m) for k, m in enumerate(msgs)
+                 if m[1] == me and self.owner[m[0]] != me]
+        if not sends and not recvs:
+            return {}
+        import torch.distributed as dist
+
+        nccl = self.transport == "nccl"
+        srcs = sorted({m[0] for _, m in sends})
+        if self.on_cuda and not nccl:
+            # the sources' work done: what follows is the transfer's time
+            for i in srcs:
+                self.streams[i].synchronize()
+        t0 = time.perf_counter()
+        if nccl:
+            comm = self.comm_stream
+            for i in srcs:
+                comm.wait_stream(self.streams[i])
+        ops, nbytes, got = [], 0, {}
+        for k, (i, q, x, _, _) in sends:
+            if nccl:
+                # on `home`, ordered after the source's stream
+                with torch.cuda.stream(self.streams[i]), \
+                        torch.cuda.stream(comm):
+                    x = x.to(self.home, non_blocking=True).contiguous()
+                x.record_stream(comm)
+            elif self.on_cuda:
+                with torch.cuda.stream(self.streams[i]):
+                    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    h.copy_(x, non_blocking=True)
+                x = h
+            else:
+                x = x.contiguous()
+            ops.append((k, dist.isend, x, q))
+        if self.on_cuda and not nccl:
+            for i in srcs:                # the host buffers are written
+                self.streams[i].synchronize()
+        self.comm["stage_s"] += time.perf_counter() - t0
+        with (torch.cuda.stream(comm) if nccl
+              else contextlib.nullcontext()):
+            for k, (i, _, _, like, key) in recvs:
+                y = torch.empty(like.shape, dtype=like.dtype,
+                                device=self.home if nccl else "cpu",
+                                pin_memory=self.on_cuda and not nccl)
+                got[key] = y
+                ops.append((k, dist.irecv, y, self.owner[i]))
+            # every tensor travels as its bytes, the ops in message order
+            # on both sides (gloo matches them by tag, NCCL by order)
+            group = _NCCL["group"] if nccl else None
+            p2p = []
+            for k, fn, t, peer in sorted(ops, key=lambda op: op[0]):
+                flat = t.reshape(-1).view(torch.uint8)
+                if fn is dist.isend:
+                    nbytes += flat.numel()
+                p2p.append(dist.P2POp(fn, flat, peer, group=group, tag=k))
+            for work in dist.batch_isend_irecv(p2p):
+                work.wait()
+        self.comm["exchanges"] += 1
+        self.comm["bytes"] += nbytes
+        self.comm["seconds"] += time.perf_counter() - t0
+        return got
+
+    def _land(self, y, j):
+        """A received tensor (`_exchange`) made readable on local worker j."""
+        if not self.on_cuda:
+            return y
+        dst = self.streams[j]
+        if self.transport == "nccl":
+            dst.wait_stream(self.comm_stream)
+            y.record_stream(dst)
+            if self.devices[j] == self.home:
+                return y
+            with torch.cuda.stream(self.comm_stream), torch.cuda.stream(dst):
+                return y.to(self.devices[j], non_blocking=True)
+        with torch.cuda.stream(dst):
+            return y.to(self.devices[j], non_blocking=True)
+
+    def _local(self, x, i):
+        return x if self.is_local(i) else None
+
+    def _routed(self, pairs, xs, likes):
+        """Worker j of each (source i, destination j) of `pairs` receives
+        `xs[i, j]` (a callable): local pairs by `_fetch`, the others as
+        messages; likes(j, i) the received shape on a local j. Returns
+        {(i, j): tensor readable on j} for the local destinations."""
+        ev = self._events()
+        msgs = [(i, self.owner[j], xs(i, j) if self.is_local(i) else None,
+                 likes(j, i) if self.is_local(j) else None, (i, j))
+                for i, j in pairs if self.owner[i] != self.owner[j]]
+        got = self._exchange(msgs)
+        return {(i, j): (self._fetch(xs(i, j), i, j, ev) if self.is_local(i)
+                         else self._land(got[i, j], j))
+                for i, j in pairs if self.is_local(j)}
+
+    def _remote(self, xs):
+        """Every remote worker's tensor, received once in this process:
+        {worker: the staged tensor} (`_exchange`)."""
+        like = xs[self.local[0]]
+        return self._exchange([(i, q, self._local(xs[i], i), like, i)
+                               for i in range(self.size)
+                               for q in range(self.num_process)
+                               if q != self.owner[i]])
+
+    def _everyone(self, xs):
+        """Every worker's tensor on every local worker: {j: [the P
+        tensors readable on j]}; a remote one is landed on each local
+        worker."""
+        ev = self._events()
+        got = self._remote(xs)
+        return {j: [self._fetch(xs[i], i, j, ev) if self.is_local(i)
+                    else self._land(got[i], j) for i in range(self.size)]
+                for j in self.local}
+
     # each collective runs under a profiler range of its name (mesh::...),
     # so a trace shows its copies' device time
 
@@ -292,22 +549,26 @@ class DeviceGroup:
         if P == 1:
             return list(xs)
         with record_function("mesh::ring_shift"):
-            ev = self._events()
-            return [self._fetch(xs[(j + 1) % P], (j + 1) % P, j, ev)
-                    for j in range(P)]
+            pairs = [((j + 1) % P, j) for j in range(P)]
+            got = self._routed(pairs, lambda i, j: xs[i],
+                               lambda j, i: xs[j])
+            out = [None] * P
+            for (i, j), x in got.items():
+                out[j] = x
+            return out
 
     def all_to_all(self, chunks):
         P = self.size
         if P == 1:
             return list(chunks)
         with record_function("mesh::all_to_all"):
-            ev = self._events()
-            out = []
-            for j in range(P):
-                parts = [self._fetch(chunks[i][j], i, j, ev)
-                         for i in range(P)]
+            pairs = [(i, j) for i in range(P) for j in range(P)]
+            got = self._routed(pairs, lambda i, j: chunks[i][j],
+                               lambda j, i: chunks[j][i])
+            out = [None] * P
+            for j in self.local:
                 with self.worker(j):
-                    out.append(torch.stack(parts))
+                    out[j] = torch.stack([got[i, j] for i in range(P)])
             return out
 
     def sum(self, xs):
@@ -315,15 +576,13 @@ class DeviceGroup:
         if P == 1:
             return list(xs)
         with record_function("mesh::sum"):
-            ev = self._events()
-            out = []
-            for j in range(P):
-                parts = [self._fetch(xs[i], i, j, ev) for i in range(P)]
+            out = [None] * P
+            for j, parts in self._everyone(xs).items():
                 with self.worker(j):
                     acc = parts[0].clone()
                     for p in parts[1:]:
                         acc += p
-                out.append(acc)
+                out[j] = acc
             return out
 
     def permute(self, xs, pairs):
@@ -333,15 +592,15 @@ class DeviceGroup:
             return [xs[0] if 0 in src_of else xs[0].new_zeros(()).expand_as(
                 xs[0])]
         with record_function("mesh::permute"):
-            ev = self._events()
-            out = []
-            for j in range(P):
+            got = self._routed([(i, j) for j, i in sorted(src_of.items())],
+                               lambda i, j: xs[i], lambda j, i: xs[j])
+            out = [None] * P
+            for j in self.local:
                 if j in src_of:
-                    i = src_of[j]
-                    out.append(self._fetch(xs[i], i, j, ev))
+                    out[j] = got[src_of[j], j]
                 else:
                     with self.worker(j):
-                        out.append(xs[j].new_zeros(()).expand_as(xs[j]))
+                        out[j] = xs[j].new_zeros(()).expand_as(xs[j])
             return out
 
     def all_gather(self, xs):
@@ -349,12 +608,10 @@ class DeviceGroup:
         if P == 1:
             return list(xs)
         with record_function("mesh::all_gather"):
-            ev = self._events()
-            out = []
-            for j in range(P):
-                parts = [self._fetch(xs[i], i, j, ev) for i in range(P)]
+            out = [None] * P
+            for j, parts in self._everyone(xs).items():
                 with self.worker(j):
-                    out.append(torch.cat(parts))
+                    out[j] = torch.cat(parts)
             return out
 
     def reduce_scatter(self, xs):
@@ -362,18 +619,48 @@ class DeviceGroup:
         if P == 1:
             return list(xs)
         with record_function("mesh::reduce_scatter"):
-            ev = self._events()
-            C = xs[0].shape[0] // P
-            out = []
-            for j in range(P):
-                parts = [self._fetch(xs[i][j * C:(j + 1) * C], i, j, ev)
-                         for i in range(P)]
+            C = xs[self.local[0]].shape[0] // P
+
+            def chunk(i, j):
+                return xs[i][j * C:(j + 1) * C]
+
+            pairs = [(i, j) for i in range(P) for j in range(P)]
+            got = self._routed(pairs, chunk, lambda j, i: chunk(j, j))
+            out = [None] * P
+            for j in self.local:
                 with self.worker(j):
-                    acc = parts[0].clone()
-                    for p in parts[1:]:
-                        acc += p
-                out.append(acc)
+                    acc = got[0, j].clone()
+                    for i in range(1, P):
+                        acc += got[i, j]
+                out[j] = acc
             return out
+
+    def collect(self, xs):
+        """Every worker's tensor, in every process: the local workers' own
+        tensors and copies of the remote ones (host tensors under gloo,
+        on `home` under NCCL), all readable on the current streams (this
+        orders them after the workers' streams, as `end` does). The
+        tensors may come from the current streams (an engine's stacked
+        losses): the workers' streams, which stage what is sent, are
+        ordered after them first."""
+        self.end()
+        if self.num_process == 1:
+            return list(xs)
+        self.begin()
+        out = list(xs)
+        for i, y in self._remote(xs).items():
+            if self.transport == "nccl":
+                cur = torch.cuda.current_stream(self.home)
+                cur.wait_stream(self.comm_stream)
+                y.record_stream(cur)
+            out[i] = y
+        return out
+
+    def gather_values(self, xs):
+        """Every worker's small tensor `xs[i]` stacked on the CPU in worker
+        order, [W, ...], in every process (the counterpart of
+        multihost_utils.process_allgather): losses, drop counts."""
+        return torch.stack([x.cpu() for x in self.collect(xs)])
 
 
 def _as_tensor(x, device):
@@ -445,10 +732,11 @@ class BlockEdgeTables:
         self.offsets = offsets
 
     def device_arrays(self, group):
-        """Per worker: (prob, alias, heads, tails) tensors on its device."""
+        """Per worker: (prob, alias, heads, tails) tensors on its device
+        (None for a worker of another process)."""
         return [tuple(torch.from_numpy(np.ascontiguousarray(a[i])).to(d)
                       for a in (self.prob, self.alias, self.heads,
-                                self.tails))
+                                self.tails)) if d is not None else None
                 for i, d in enumerate(group.devices)]
 
 
@@ -534,10 +822,10 @@ class ReplicatedEdgeTrainer:
     generator=None, draws=None) over {"tables": (table,), "moments":
     ((m...),)}.
 
-    Positives: an alias draw over every edge, the first-level index from
-    a float32 uniform as the reference (and the port's flat edge route)
-    takes it. Draws per worker and batch: ((u0, u1) [B] edge uniforms,
-    [step draws per reuse])."""
+    Positives: an alias draw over every edge, the first-level index an
+    integer draw over the edges (`alias_draws`; the reference takes it
+    from a float32 uniform, which `draws` may pass). Draws per worker and
+    batch: ((u0, u1) [B] edge draws, [step draws per reuse])."""
 
     def __init__(self, group: DeviceGroup, step_fn, opt: Optimizer,
                  batch_size: int, ep_batches: int, positive_reuse: int = 1):
@@ -555,16 +843,16 @@ class ReplicatedEdgeTrainer:
         g = self.group
         if moments is None:
             moments = tuple((None,) * self.opt.num_moment for _ in tables)
-        out_t, out_m = [], []
-        for d in g.devices:
+        out_t, out_m = [None] * g.size, [None] * g.size
+        for w in g.local:
+            d = g.devices[w]
             ts = tuple(_as_tensor(t, d).clone() for t in tables)
-            ms = tuple(tuple(torch.zeros(t.shape, dtype=torch.float32,
-                                         device=d) if m is None
-                             else _as_tensor(m, d).float().clone()
-                             for m in side)
-                       for t, side in zip(ts, moments))
-            out_t.append(ts)
-            out_m.append(ms)
+            out_m[w] = tuple(tuple(torch.zeros(t.shape, dtype=torch.float32,
+                                               device=d) if m is None
+                                   else _as_tensor(m, d).float().clone()
+                                   for m in side)
+                             for t, side in zip(ts, moments))
+            out_t[w] = ts
         return out_t, out_m
 
     def init_edges(self, graph):
@@ -615,8 +903,8 @@ class ReplicatedEdgeTrainer:
         gens = g.seed_generators(seed, 0)
         negs = {d: tuple(x.to(d) for x in neg_state) for d in g.distinct}
         g.begin()
-        deltas, states, losses = [], [], []
-        for w in range(W):
+        deltas, states, losses = [None] * W, [None] * W, [None] * W
+        for w in g.local:
             dev = g.devices[w]
             eprob, ealias, eheads, etails = edge_arrays[dev]
             with g.worker(w), torch.no_grad():
@@ -625,8 +913,7 @@ class ReplicatedEdgeTrainer:
                 ls = []
                 for i in range(self.ep_batches):
                     if draws is None:
-                        u = (torch.rand(B, generator=gens[w], device=dev),
-                             torch.rand(B, generator=gens[w], device=dev))
+                        u = alias_draws((eprob, ealias), (B,), gens[w], dev)
                         steps = [None] * R
                     else:
                         u, steps = draws[w][i]
@@ -641,29 +928,32 @@ class ReplicatedEdgeTrainer:
                                                 draws=steps[r])
                         rl.append(loss)
                     ls.append(rl[0] if R == 1 else torch.stack(rl).mean())
-                deltas.append(tuple(s.float() - s0.float() for s, s0
-                                    in zip(st["tables"], start)))
-                states.append((start, st["moments"]))
-                losses.append(torch.stack(ls))
-        n_tab = len(tables[0])
-        summed = [g.sum([d[k] for d in deltas]) for k in range(n_tab)]
-        out_tables = []
-        for w in range(W):
+                deltas[w] = tuple(s.float() - s0.float() for s, s0
+                                  in zip(st["tables"], start))
+                states[w] = (start, st["moments"])
+                losses[w] = torch.stack(ls)
+        n_tab = len(tables[g.local[0]])
+        summed = [g.sum([d[k] if d is not None else None for d in deltas])
+                  for k in range(n_tab)]
+        out_tables, out_moms = [None] * W, [None] * W
+        for w in g.local:
             with g.worker(w):
                 start = states[w][0]
-                out_tables.append(tuple(
+                out_tables[w] = tuple(
                     (s0.float() + summed[k][w] / W).to(s0.dtype)
-                    for k, s0 in enumerate(start)))
+                    for k, s0 in enumerate(start))
+            out_moms[w] = states[w][1]
         g.end()
-        return out_tables, [s[1] for s in states], losses
+        return out_tables, out_moms, losses
 
 
 def _draws_to(draws, device):
-    """A nested list/tuple of CPU draw tensors, on `device`."""
+    """A nested list/tuple of CPU draw tensors, on `device` (None: a worker
+    of another process, whose draws stay behind)."""
+    if draws is None or device is None:
+        return None
     if torch.is_tensor(draws):
         return draws.to(device)
-    if draws is None:
-        return None
     kind = type(draws)
     return kind(_draws_to(x, device) for x in draws)
 
@@ -756,8 +1046,9 @@ class ShardedGraphTrainer:
 
     # -- host-side state ------------------------------------------------------
     def init_state(self, vertex, context, moments=None):
-        """Shard the [V, D] tables (tensors on any device, or numpy) into
-        per-worker [cap, D] shards on the workers' devices. `moments`
+        """Shard the [V, D] tables (tensors on any device, or numpy; the
+        whole tables in every process) into per-worker [cap, D] shards on
+        the workers' devices (None for a worker of another process). `moments`
         ((v_moms...), (c_moms...)) canonical [V, D] moments seed the
         shards' (resume=True continues from what an earlier mesh run
         gathered); None: zeros. Moments are float32 whatever the tables'
@@ -766,20 +1057,20 @@ class ShardedGraphTrainer:
         self.rotation = 0
         if moments is None:
             moments = ((None,) * self.opt.num_moment,) * 2
-        src = [_as_tensor(vertex, g.devices[0]),
-               _as_tensor(context, g.devices[0])]
-        out = []
-        for p, d in enumerate(g.devices):
+        src = [_as_tensor(vertex, g.home), _as_tensor(context, g.home)]
+        out = [None] * g.size
+        for p in g.local:
+            d = g.devices[p]
             tables = tuple(part.shard_tensor(t, p).to(d) for t in src)
             moms = tuple(
                 tuple(torch.zeros((part.capacity, self.dim),
                                   dtype=torch.float32, device=d)
                       if m is None else
-                      part.shard_tensor(_as_tensor(m, g.devices[0]).float(),
+                      part.shard_tensor(_as_tensor(m, g.home).float(),
                                         p).to(d)
                       for m in side)
                 for side in moments)
-            out.append({"tables": tables, "moments": moms})
+            out[p] = {"tables": tables, "moments": moms}
         return out
 
     def init_negative_state(self, vertex_weights, exponent: float = 0.75):
@@ -797,9 +1088,9 @@ class ShardedGraphTrainer:
                     for d in g.distinct}
         prob, alias, sizes = self.partition.negative_alias_arrays(
             vertex_weights, exponent, padded_uniform=self.negative_sharing)
-        return ([torch.from_numpy(prob[i]).to(d)
+        return ([torch.from_numpy(prob[i]).to(d) if d is not None else None
                  for i, d in enumerate(g.devices)],
-                [torch.from_numpy(alias[i]).to(d)
+                [torch.from_numpy(alias[i]).to(d) if d is not None else None
                  for i, d in enumerate(g.devices)],
                 [int(s) for s in sizes])
 
@@ -961,8 +1252,8 @@ class ShardedGraphTrainer:
                        num_batch_total, gens, draws):
         g, P_, B = self.group, self.num_partition, self.batch_size
         nprob, nalias, nsize = neg_state
-        losses = []
-        for i in range(P_):
+        losses = [None] * P_
+        for i in g.local:
             dev = g.devices[i]
             bprob, balias, bheads, btails = blocks[i]
             j = (i + self.rotation) % P_
@@ -1014,14 +1305,16 @@ class ShardedGraphTrainer:
                                              generator=gens[i],
                                              draws=step_draws)
                     ls.append(loss)
-                losses.append(torch.stack(ls))
+                losses[i] = torch.stack(ls)
             state[i] = st
         # the tail role moves one step around the ring
-        contexts = g.ring_shift([s["tables"][1] for s in state])
+        contexts = g.ring_shift([s["tables"][1] if s else None
+                                 for s in state])
         n_mom = self.opt.num_moment
-        c_moms = [g.ring_shift([s["moments"][1][m] for s in state])
+        c_moms = [g.ring_shift([s["moments"][1][m] if s else None
+                                for s in state])
                   for m in range(n_mom)]
-        for i in range(P_):
+        for i in g.local:
             state[i] = {"tables": (state[i]["tables"][0], contexts[i]),
                         "moments": (state[i]["moments"][0],
                                     tuple(c_moms[m][i]
@@ -1035,32 +1328,34 @@ class ShardedGraphTrainer:
         g, P_ = self.group, self.num_partition
         D = self.dim
         sgd = self.opt.num_moment == 0
-        local = []
-        for i, s in enumerate(state):
+        local = [None] * P_
+        for i in g.local:
+            s = state[i]
             if not sgd:
-                local.append(dict(s))
+                local[i] = dict(s)
                 continue
             # the fused (vertex | context) arena for the episode: the
             # serve gather and the owner's update are one row op each
             with g.worker(i):
-                local.append({"vc": torch.cat(s["tables"], dim=-1)})
+                local[i] = {"vc": torch.cat(s["tables"], dim=-1)}
         losses = [[] for _ in range(P_)]
         stats = [[] for _ in range(P_)]
         for it in range(self.ep_batches):
             lr = self.opt.schedule_lr(batch_id0 + it * P_, num_batch_total)
-            bd = None if draws is None else [draws[i][it] for i in range(P_)]
+            bd = None if draws is None else [
+                draws[i][it] if g.is_local(i) else None for i in range(P_)]
             self._walk_batch(local, sample_state, neg_state, lr, gens, bd,
                              losses, stats)
-        out = []
-        for i in range(P_):
+        out = [None] * P_
+        for i in g.local:
             with g.worker(i):
                 if sgd:
                     vc = local[i]["vc"]
-                    out.append({"tables": (vc[:, :D].contiguous(),
-                                           vc[:, D:].contiguous()),
-                                "moments": ((), ())})
+                    out[i] = {"tables": (vc[:, :D].contiguous(),
+                                         vc[:, D:].contiguous()),
+                              "moments": ((), ())}
                 else:
-                    out.append(local[i])
+                    out[i] = local[i]
                 drops = torch.stack([d for d, _ in stats[i]]).sum()
                 pairs = torch.stack([n for _, n in stats[i]]).double().sum()
                 if self._drops[i] is not None:
@@ -1068,6 +1363,9 @@ class ShardedGraphTrainer:
                     pairs = pairs + self._pairs[i]
                 self._drops[i], self._pairs[i] = drops, pairs
                 losses[i] = torch.stack(losses[i])
+        for i in range(P_):
+            if not g.is_local(i):
+                losses[i] = None
         return out, losses
 
     def _walk_batch(self, local, sample_state, neg_state, lr, gens, draws,
@@ -1103,9 +1401,9 @@ class ShardedGraphTrainer:
         if self._drops is None:
             self._drops = [None] * P_
             self._pairs = [None] * P_
-        ctx = []
-        reqs = []
-        for i in range(P_):
+        ctx = [None] * P_
+        reqs = [None] * P_
+        for i in g.local:
             dev = g.devices[i]
             walk_arrays, part_of, local_of = sample_state[dev]
             nprob, nalias = neg_state[dev]
@@ -1118,10 +1416,8 @@ class ShardedGraphTrainer:
                                               draws=chain_draws)
                 chainT, pmask = emit_walk_banded(chain, valid, aug, bidir)
                 if pool_draws is None:
-                    pool_draws = (torch.rand((G, M), generator=gens[i],
-                                             device=dev),
-                                  torch.rand((G, M), generator=gens[i],
-                                             device=dev))
+                    pool_draws = alias_draws((nprob, nalias), (G, M),
+                                             gens[i], dev)
                 pool_ids = device_sample(nprob, nalias, *pool_draws)
                 ids = torch.cat([chainT.reshape(-1), pool_ids.reshape(-1)])
                 owner = part_of[ids]
@@ -1143,27 +1439,28 @@ class ShardedGraphTrainer:
                 src2 = src2[:P_ * C]
                 ok = (src2 < N).reshape(P_, C)
                 src2 = torch.clamp(src2, max=N - 1).reshape(P_, C)
-                reqs.append(torch.stack(
+                reqs[i] = torch.stack(
                     [torch.where(ok, lid[src2], torch.zeros_like(src2)),
-                     ok.long()], dim=-1))                      # [P, C, 2]
-                ctx.append(dict(pmask=pmask, fetched=fetched, loc=loc,
-                                n_drop=n_drop, ok=ok, src2=src2))
+                     ok.long()], dim=-1)                       # [P, C, 2]
+                ctx[i] = dict(pmask=pmask, fetched=fetched, loc=loc,
+                              n_drop=n_drop, ok=ok, src2=src2)
         got = g.all_to_all(reqs)
-        serves = []
-        for i in range(P_):
+        serves = [None] * P_
+        for i in g.local:
             with g.worker(i), torch.no_grad():
                 glid = got[i][..., 0]
                 ctx[i]["glid"] = glid
                 ctx[i]["gok"] = got[i][..., 1] > 0
                 if sgd:
-                    serves.append(local[i]["vc"][glid])        # [P, C, 2D]
+                    serves[i] = local[i]["vc"][glid]           # [P, C, 2D]
                 else:
                     vertex, context = local[i]["tables"]
-                    serves.append(torch.cat([vertex[glid], context[glid]],
-                                            dim=-1))
+                    serves[i] = torch.cat([vertex[glid], context[glid]],
+                                          dim=-1)
         rows = g.all_to_all(serves)
-        rets = []
-        for i in range(P_):
+        rets = [None] * P_
+        self._emitted += N * P_
+        for i in g.local:
             c_ = ctx[i]
             dev = g.devices[i]
             with g.worker(i), torch.no_grad():
@@ -1185,7 +1482,6 @@ class ShardedGraphTrainer:
                                  / torch.clamp(o["n_active"], min=1.0)
                                  / (1.0 + k * nw))
                 stats[i].append((c_["n_drop"], o["n_active"]))
-                self._emitted += N
                 zeros = torch.zeros((G * M, D), device=dev)
                 if sgd:
                     ret = torch.cat([
@@ -1206,9 +1502,9 @@ class ShardedGraphTrainer:
                                    o["p_counts"].reshape(G * M, 1)],
                                   dim=-1)])
                 ok = c_["ok"]
-                rets.append(torch.where(ok[..., None], ret[c_["src2"]], 0.0))
+                rets[i] = torch.where(ok[..., None], ret[c_["src2"]], 0.0)
         back = g.all_to_all(rets)
-        for i in range(P_):
+        for i in g.local:
             c_ = ctx[i]
             with g.worker(i), torch.no_grad():
                 retg = back[i].reshape(P_ * C, -1)
@@ -1241,20 +1537,30 @@ class ShardedGraphTrainer:
                             "moments": (new_v_moms, new_c_moms)}
 
     # -- accounting and gathering -----------------------------------------------
+    def _counted(self, counts):
+        """Every worker's count, in worker order, on the host (a host sync;
+        across processes a collective every process calls); None before
+        the first walks batch."""
+        if not counts or any(counts[i] is None for i in self.group.local):
+            return None
+        return self.group.gather_values(counts).tolist()
+
     def drop_counts(self):
-        """(dropped, emitted) row requests of the walks engine since the
-        counts were last reset, read from the workers (a host sync)."""
-        if not self._drops or any(d is None for d in self._drops):
+        """(dropped, emitted) row requests of the walks engine over all
+        workers since the counts were last reset."""
+        drops = self._counted(self._drops)
+        if drops is None:
             return 0, self._emitted
-        return int(sum(int(d) for d in self._drops)), self._emitted
+        return int(sum(int(d) for d in drops)), self._emitted
 
     def valid_pairs(self):
-        """Pairs the walks engine trained since the counts were last
-        reset (their masks' sum, after dropped requests), read from the
-        workers (a host sync)."""
-        if not self._pairs or any(n is None for n in self._pairs):
+        """Pairs the walks engine trained over all workers since the
+        counts were last reset (their masks' sum, after dropped
+        requests)."""
+        pairs = self._counted(self._pairs)
+        if pairs is None:
             return 0.0
-        return float(sum(float(n) for n in self._pairs))
+        return float(sum(float(n) for n in pairs))
 
     def reset_drop_counts(self):
         self._drops = self._pairs = None
@@ -1291,34 +1597,43 @@ class ShardedGraphTrainer:
     def canonical(self, per_worker, rotated, out):
         """Write per-worker shards back into the [V, D] tensor `out` in
         global order; `rotated`: the shards travel with the ring (after e
-        episodes worker i holds partition (i + e) % P)."""
+        episodes worker i holds partition (i + e) % P). Across processes
+        the shards of every worker come to every process (a
+        collective)."""
         P_ = self.num_partition
         e = self.rotation % P_ if (rotated and self.rotating) else 0
+        per_worker = self.group.collect(per_worker)
         parts = [per_worker[(p - e) % P_] for p in range(P_)]
         return self.partition.unshard_tensors(parts, out)
 
+    def _shards(self, state, side, what="tables", m=None):
+        return [(s[what][side] if m is None else s[what][side][m])
+                if s is not None else None for s in state]
+
     def gather_tables(self, state, device=None):
-        """(vertex, context) [V, D] in global order on `device` (worker 0's
-        by default), undoing the tail-shard rotation."""
-        device = device or self.group.devices[0]
+        """(vertex, context) [V, D] in global order on `device` (the first
+        local worker's by default), undoing the tail-shard rotation; in
+        every process."""
+        device = device or self.group.home
         v = self.partition.part_of.shape[0]
         out = []
         for side, rotated in ((0, False), (1, True)):
-            shards = [s["tables"][side] for s in state]
-            t = torch.empty((v, self.dim), dtype=shards[0].dtype,
+            shards = self._shards(state, side)
+            t = torch.empty((v, self.dim),
+                            dtype=shards[self.group.local[0]].dtype,
                             device=device)
             out.append(self.canonical(shards, rotated, t))
         return tuple(out)
 
     def gather_moments(self, state, device=None):
         """Canonical ((v_moms...), (c_moms...)) [V, D] float32."""
-        device = device or self.group.devices[0]
+        device = device or self.group.home
         v = self.partition.part_of.shape[0]
         out = []
         for side, rotated in ((0, False), (1, True)):
             moms = []
             for m in range(self.opt.num_moment):
-                shards = [s["moments"][side][m] for s in state]
+                shards = self._shards(state, side, "moments", m)
                 t = torch.empty((v, self.dim), dtype=torch.float32,
                                 device=device)
                 moms.append(self.canonical(shards, rotated, t))

@@ -130,6 +130,20 @@ def state_to_numpy(state):
                              for group in state["moments"])}
 
 
+def _one_process(loop):
+    """The solvers' mesh loops run their W workers in one process. With
+    GRAPHVITE_COORDINATOR set they raise: multi-process training runs
+    through the engines (parallel/), as in the reference, whose solvers
+    fail reading their losses back over processes (its solver.py:767;
+    ROADMAP queue 3)."""
+    if os.environ.get("GRAPHVITE_COORDINATOR"):
+        raise RuntimeError(
+            "GRAPHVITE_COORDINATOR is set, but %s trains its workers in one "
+            "process: multi-process training runs through the engines of "
+            "graphvite_tpu_torch.parallel (ShardedGraphTrainer, "
+            "ReplicatedEdgeTrainer, ShardedKGTrainer, ReplicatedKGTrainer) "
+            "on a DeviceGroup" % loop)
+
 class SolverBase:
     """Shared machinery: build/train plumbing over a state dict
     {"tables": (...), "moments": (...)}."""
@@ -850,6 +864,7 @@ class GraphSolver(SolverBase):
         resume=True continues from the gathered moments. Per-batch losses
         stay on the device (`batch_losses`); the walks engine's dropped
         requests are in `mesh_stats`."""
+        _one_process("GraphSolver")
         env = os.environ.get
         P_ = self.num_worker
         walks = int(augmentation_step) > 1
@@ -1615,6 +1630,7 @@ class KnowledgeGraphSolver(SolverBase):
         relation moments as the workers' mean, so resume=True continues
         from them. Per-batch losses stay on the device (`batch_losses`);
         `mesh_stats` holds loop and set-up seconds and the episodes."""
+        _one_process("KnowledgeGraphSolver")
         env = os.environ.get
         W = self.num_worker
         neg_pool, batch_size, num_batch, ep_batches = self._mesh_kg_plan(
@@ -1880,6 +1896,7 @@ class VisualizationSolver(SolverBase):
         apart for long would settle on differently oriented layouts whose
         deltas cancel. The moments stay per worker; worker 0's become the
         state."""
+        _one_process("VisualizationSolver")
         W = self.num_worker
         batch_size, _, _ = self._batch_plan()
         self.effective_batch = batch_size

@@ -1500,3 +1500,56 @@ def test_host_backend_on_card(solver):
         assert float((labels[nn] == labels[:, None]).mean()) >= 0.9
     assert s.state["tables"][0].device.type == "cuda"
     assert s.host_stats["pools"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the worker group over two processes (GRAPHVITE_COORDINATOR), on the card
+# ---------------------------------------------------------------------------
+
+def _multihost():
+    """tests/test_torch_multihost.py (its runs and its process launcher;
+    it imports no JAX at its top), loaded by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_multihost.py")
+    spec = importlib.util.spec_from_file_location("torch_multihost", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("across_cards", [False, True])
+def test_two_processes_on_card_equal_one(across_cards, tmp_path):
+    """Two processes with one worker each give the bits of one process
+    with two workers, in edges and walks mode and the KG engine's pooled
+    and resident modes: on
+    cuda:0 for both (two ranks on one card: gloo, the tensors staged
+    through pinned host buffers), or, where there are two cards, one
+    process per card (NCCL). SGD: at these small tables the moment rules
+    take the dense route, whose index_add_ adds with float atomics, so
+    one process does not reproduce its own bits there."""
+    from graphvite_tpu_torch.parallel import mesh
+
+    _cuda()
+    if across_cards and torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    mh = _multihost()
+    devices = ["cuda:0", "cuda:1"] if across_cards else ["cuda:0"] * 2
+    names = ["edges_sgd", "kg_pooled_sgd", "walks_sgd", "kg_resident"]
+    # across cards each process takes the card of its index
+    runs = mh.spawn(str(tmp_path), ["cuda:{pid}" if across_cards
+                                    else "cuda:0", "1", ",".join(names)])
+    for pid, (rc, out) in enumerate(runs):
+        assert rc == 0, "process %d failed:\n%s" % (pid, out[-3000:])
+        want = "transport %s" % ("nccl" if across_cards else "gloo")
+        assert want in out, out[-2000:]
+    for name in names:
+        want = mh.RUNS[name](mesh.DeviceGroup(devices), None)
+        for out in mh.outputs(str(tmp_path), runs, name):
+            assert sorted(out) == sorted(want)
+            for key in want:
+                np.testing.assert_array_equal(out[key], want[key],
+                                              err_msg="%s %s" % (name, key))

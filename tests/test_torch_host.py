@@ -125,3 +125,33 @@ def test_device_sample_matches_reference(packed):
         *(torch.as_tensor(a) for a in arrays), torch.as_tensor(u1),
         torch.as_tensor(u2))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_first_level_draw_reaches_every_column():
+    """torch.rand's float32 uniforms are k 2^-24 for k in [0, 2^24), so
+    the reference's first pick min(int(u n), n - 1) reaches at most 2^24
+    columns: at n = 2^25 only the even ones, and on an unweighted table
+    (every prob 1) an odd column is never drawn. When the port draws for
+    itself over an unpacked table (the layout of n >= 2^24) the column is
+    an integer over [0, n) (`alias_draws`; ROADMAP queue 3). A caller that
+    passes float uniforms still gets the reference's rule. The tables
+    here are zero-stride views: no 2^25-entry build."""
+    n = 1 << 25
+    prob = torch.ones(()).expand(n)
+    alias = torch.zeros((), dtype=torch.int32).expand(n)
+    gen = torch.Generator().manual_seed(0)
+    u1, u2 = torch.rand(1 << 16, generator=gen), torch.rand(1 << 16,
+                                                           generator=gen)
+    floats = port_alias.device_sample(prob, alias, u1, u2)
+    assert bool((floats % 2 == 0).all())
+    idx, u = port_alias.alias_draws((prob, alias), (1 << 16,), gen)
+    assert idx.dtype == torch.int64 and u.is_floating_point()
+    got = port_alias.device_sample(prob, alias, idx, u)
+    np.testing.assert_array_equal(got.numpy(), idx.numpy())
+    assert int((got % 2 == 1).sum()) > (1 << 16) // 3
+    assert int(got.min()) >= 0 and int(got.max()) < n
+    # the packed layout (n < 2^24) keeps the float draw, which reaches
+    # every column there
+    packed = torch.ones(()).expand(1000, 2)
+    u1, _ = port_alias.alias_draws((packed,), (8,), gen)
+    assert u1.is_floating_point()

@@ -203,3 +203,25 @@ def test_knn_casts_with_torch():
     got = knn._upload(x.numpy(), torch.device("cpu"), torch.bfloat16)
     assert got.dtype == torch.bfloat16
     assert got.float().tolist() == [[1.0, 1.0 + 2 ** -6]]
+
+
+def test_child_scripts_import_nothing_forbidden():
+    """The scripts that run as processes of a multi-process group (the
+    multi-host test's processes, and chip_smoke.py's multihost children)
+    import none of the forbidden packages at their top level: only
+    functions the parent alone calls import JAX. The processes also
+    assert, before they exit, that none of them was loaded."""
+    for path in (os.path.join(REPO, "tests", "test_torch_multihost.py"),
+                 os.path.join(REPO, "chip_smoke.py")):
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        top = []
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                top += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                top.append(node.module)
+        assert top, path
+        assert not [n for n in top if n.split(".")[0] in FORBIDDEN], path
+        with open(path) as f:
+            assert "FORBIDDEN" in f.read(), path

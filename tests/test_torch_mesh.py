@@ -147,9 +147,22 @@ def test_group_placement_and_coordinator(monkeypatch):
     assert len(g) == 3 and g.distinct == [torch.device("cpu")]
     with pytest.raises(ValueError, match="cannot mix"):
         port_mesh.DeviceGroup(["cpu", "cuda:0"])
+    # with the coordinator set the group joins the processes (the
+    # reference's make_mesh reads the same variables); a missing one
+    # raises before any connection is tried, as the reference's KeyError
     monkeypatch.setenv("GRAPHVITE_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 19"):
+    monkeypatch.delenv("GRAPHVITE_NUM_PROCESSES", raising=False)
+    with pytest.raises(KeyError, match="GRAPHVITE_NUM_PROCESSES"):
         _port_group(2)
+    # the solvers' mesh loops train in one process: with the coordinator
+    # set they raise a clear error (multi-process training runs through
+    # the engines; tests/test_torch_multihost.py)
+    from graphvite_tpu_torch.solver import GraphSolver
+
+    s = GraphSolver(dim=8, num_worker=2, device="cpu")
+    s.build(Graph().load_edge_list(_edges(40)), batch_size=256)
+    with pytest.raises(RuntimeError, match="through the engines"):
+        s.train(model="LINE", num_epoch=1, augmentation_step=1)
 
 
 def test_worker_seeds_differ_by_rotation_and_worker():

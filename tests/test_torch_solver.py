@@ -250,19 +250,26 @@ def test_linear_classification_matches_reference():
     (dict(model="node2vec"), {"GRAPHVITE_BULK_WALKS": "1"}, "item 11"),
     (dict(), {"GRAPHVITE_BF16_BAND": "1"}, "item 11"),
     (dict(), {"GRAPHVITE_SWEEP_BANDED": "1"}, "item 11"),
+    # bf16 operands for the pool step's products: they take effect on
+    # bf16 tables only, so a float32 run with the switch set trains
+    (dict(augmentation_step=1, float_type="bfloat16"),
+     {"GRAPHVITE_BF16_COMPUTE": "1"}, "item 11"),
+    (dict(augmentation_step=1), {"GRAPHVITE_BF16_COMPUTE": "1"}, None),
 ])
 def test_unported_training_paths_raise(kwargs, env, match, monkeypatch):
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     g = _port_graph(two_blocks(40))
-    s = GraphSolver(dim=8, device="cpu")
     kw = dict(model="DeepWalk", num_epoch=1, augmentation_step=2,
               random_walk_length=6, num_partition=0)
     kw.update(kwargs)
+    s = GraphSolver(dim=8, device="cpu", float_type=kw.pop("float_type",
+                                                            "float32"))
     s.build(g, batch_size=512, num_partition=kw.pop("num_partition"))
     if match is None:
         s.train(**kw)
-        assert s.blocked_stats["num_partition"] == 2
+        if "num_partition" in kwargs:
+            assert s.blocked_stats["num_partition"] == 2
         assert np.isfinite(s.vertex_embeddings).all()
         return
     with pytest.raises(NotImplementedError, match=match):
