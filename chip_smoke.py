@@ -3,18 +3,36 @@
     python3 chip_smoke.py [--seed N] [--main-batches N]
                           [--node2vec-batches N] [--layout-batches N]
                           [--edge-batches N] [--kg-batches N]
-                          [--kg-big-batches N] [--only multihost]
+                          [--kg-big-batches N] [--only multihost|opt_ins]
 
 (--only multihost runs the device and build phases, builds the three
-graphs that phase reads, runs it, and prints no result line.)
+graphs that phase reads, runs it, and prints no result line; --only
+opt_ins the same for phases row_access and opt_ins.)
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
 1. device   require CUDA; print the card's name and power limit; TF32 off.
 2. build    compile the hand-written CUDA kernels (csrc/*.cu: scatter_add,
-            gather_sorted, scatter_update) with nvcc, one process each, all
-            started together, from the checkout's sources.
-3. main     DeepWalk through GraphSolver.build/train at the
+            gather_sorted, scatter_update, row_access) with nvcc, one
+            process each, all started together, from the checkout's
+            sources.
+3. row_access the row-access bench
+            (graphvite_tpu_torch/tools/row_access_bench.py, the
+            counterpart of tools/pallas_bench.py) at the reference's shape
+            (1,000,000 x 128 float32, N 325,520): every experiment in this
+            process, the launch counts set to 0 just before and read just
+            after (70 of each row-access kernel, 281 and 141 of kernel 1's
+            sorted and unsorted entries); then gather_rows, rmw_rows_ and
+            sweep_add_sorted_ bit for bit against their plain versions on
+            the card at that shape (the sweep also on hub-skewed ids) and
+            at the shapes the reference's kernels leave out (N 325,519,
+            not a multiple of 512; 4,099 x 20 with N 1,001: a partial
+            last 8192-row tile, no 4-column vectors; repeated ids and ids
+            >= V for the sweep), each timed at the reference's shape
+            beside its plain version, index_select or index_add_ and its
+            bytes bound; rmw_rows_(check_unique=True) must raise on a
+            repeated id.
+4. main     DeepWalk through GraphSolver.build/train at the
             config/graph/deepwalk_youtube.yaml hyperparameters (dim 128,
             SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5, walk 40,
             batch 100000) on a Youtube-sized synthetic power-law graph
@@ -29,7 +47,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             solver's own walk sampler, pool shape and negative sampler) and
             replayed: the fused step on the card against the same step on
             the CPU, over the whole 1,138,499 x 256 arena.
-4. node2vec node2vec through GraphApplication at the
+5. node2vec node2vec through GraphApplication at the
             config/graph/node2vec_youtube.yaml hyperparameters (p 4, q 2,
             dim 128, SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5,
             walk 40, batch 100000) on the same graph: the cuckoo table's
@@ -42,14 +60,14 @@ Phases, in order (any failure exits non-zero and prints no result line):
             per step and time; the chain on the card against the CPU from
             the same draws (ids equal), and one batch's step replayed on
             the card against the CPU.
-5. layouts  DeepWalk at the deepwalk_youtube.yaml shape on the pair layout
+6. layouts  DeepWalk at the deepwalk_youtube.yaml shape on the pair layout
             (GRAPHVITE_WALK_STEP=pair), the multitail layout
             (GRAPHVITE_WALK_STEP=multitail) and the classic K-draw step
             (GRAPHVITE_NEG_SHARING=0), --layout-batches each: ms/batch,
             kernels per batch (a trace of 5), kernel 1 on the vertex and
             the context table per step, one batch replayed on the card
             against the CPU.
-6. edge     LINE through GraphSolver.build/train at the
+7. edge     LINE through GraphSolver.build/train at the
             config/graph/line_flickr.yaml hyperparameters (dim 128, SGD lr
             0.025 wd 5e-3, K 1, negative_weight 5, aug 1, batch 100000,
             episode 1000) on a Flickr-sized synthetic power-law graph
@@ -63,7 +81,28 @@ Phases, in order (any failure exits non-zero and prints no result line):
             replayed through the pool step on the card and on the CPU from
             the same tables and moments; its heads must ascend and, in
             float32, every head's vertex row must move.
-7. kg       RotatE through KnowledgeGraphApplication.load/build/train/
+8. opt_ins  the reference's experimental walk opt-ins, each with its switch
+            set, on the Youtube and Flickr clones of phases main and edge
+            at the configs' widths (3 warm-up batches, then the measured
+            call with the launch counts set to 0 just before and read just
+            after; ms/batch, launches per batch, finite losses, a falling
+            loss on the pool-step runs; one batch replayed on the card
+            against the CPU at the steps' tolerances): (a)
+            GRAPHVITE_SWEEP_WALK=1, DeepWalk SGD on the pair step with
+            sort_heads, 50 batches of 99,328 pairs (gather_sorted, kernel
+            1 sorted and unsorted once per batch); (b) Adam lr 1e-6 wd 0,
+            20 (gather_sorted once, kernel 2 sorted and unsorted once);
+            (c) GRAPHVITE_BULK_WALKS=1, DeepWalk, 50 batches in episodes
+            of 25, the episode sample on the card equal to the CPU's from
+            the same draws; (d) node2vec, 20; (e) GRAPHVITE_BF16_BAND=1 on
+            bfloat16 tables: the fused arena, 50, then the walks engine
+            with two workers on the card, 10 worker-batches, and the
+            engine at W = 2 on the card against the CPU on a
+            20,000-vertex graph; (f) GRAPHVITE_SWEEP_BANDED=1, float32 and
+            bfloat16 SGD, 50 each (kernel 1 twice per batch); (g)
+            GRAPHVITE_BF16_COMPUTE=1, LINE bfloat16 at the line_flickr.yaml
+            shape, 50 (the edge route's three launches).
+9. kg       RotatE through KnowledgeGraphApplication.load/build/train/
             evaluate at the config/knowledge_graph/rotate_fb15k.yaml
             hyperparameters (dim 2048, Adam lr 2e-4, K 64, batch 100000,
             margin 24, adversarial temperature 2, episode 1) on a graph of
@@ -80,7 +119,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             from the same state and candidate ids; filtered ranking of
             the first 2,000 test triplets, both sides, on the card, and
             filtered_rankings on the card against the CPU on 64 of them.
-8. kg_big   RotatE at the config/knowledge_graph/rotate_wikidata5m.yaml
+10. kg_big   RotatE at the config/knowledge_graph/rotate_wikidata5m.yaml
             hyperparameters (dim 512, SGD lr 0.01, K 64, batch 100000,
             margin 6, adversarial temperature 0.2, episode 200) on a
             graph of Wikidata5m's published size made from --seed
@@ -96,7 +135,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             each run one batch is captured and replayed on the card
             against the CPU, which holds a renumbered copy of the touched
             rows.
-9. vis      LargeVis through VisualizationApplication.load/build/train at
+11. vis      LargeVis through VisualizationApplication.load/build/train at
             the config/visualization/largevis_mnist_2d.yaml
             hyperparameters (dim 2 padded to 8 columns, num_neighbor 200,
             perplexity 20, Adam lr 0.5 wd 1e-5, K 5, negative_weight 3,
@@ -112,7 +151,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             and a bfloat16 Adam run of 200; one batch of the Adam and of
             the SGD run replayed on the card against the CPU over the
             whole 70,000 x 8 table.
-10. vis_big LargeVis at config/visualization/largevis_imagenet.yaml
+12. vis_big LargeVis at config/visualization/largevis_imagenet.yaml
             (perplexity 50) on a clone of tools/largevis_imagenet.py's
             statistics drawn on the card (1,331,167 x 2048, 1000
             classes): KNNGraph's auto route is the
@@ -122,7 +161,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             512 queries (>= 0.75, on the raw vectors as the tool scores
             it, and on the normalized ones the search used); 200 Adam
             batches with a trace of 10.
-11. blocked LINE through GraphApplication at the
+13. blocked LINE through GraphApplication at the
             config/graph/line_friendster-small.yaml hyperparameters (dim
             128, SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 1,
             batch 100000, episode 3500) on a power-law graph of
@@ -140,7 +179,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             ms/batch, samples/s, episodes, cache hits and misses, staging
             bytes and seconds per episode, set-up seconds by stage, peak
             memory; one more episode of (a) and of (b) traced.
-12. mesh    the multi-device engines with two workers on the card
+14. mesh    the multi-device engines with two workers on the card
             (GraphApplication / VisualizationApplication with gpus [0, 0])
             on the graphs the phases above built: (a) LINE in edges mode
             on the friendster-small clone, SGD (512 worker-batches of
@@ -163,13 +202,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
             engine with four workers on the card against four on the CPU
             from the same draws and state (a 20,000-vertex graph, dim 32:
             tables rtol 3e-4, atol 3e-6, losses rtol 2e-5).
-13. kg_mesh the knowledge-graph engines with two workers on the card
+15. kg_mesh the knowledge-graph engines with two workers on the card
             (KnowledgeGraphApplication with gpus [0, 0], GRAPHVITE_MIN_SWEEPS=1)
             on kg_big's Wikidata5m-shaped graph at the
             rotate_wikidata5m.yaml hyperparameters (dim 512, K 64, margin
             6, adversarial temperature 0.2) with episodes of 16: (a)
-            pooled negatives by the auto rule, SGD lr 0.01, 192
-            worker-batches of 60,928 (two sweeps of three rounds); (b)
+            pooled negatives by the auto rule, SGD lr 0.01, 96
+            worker-batches of 60,928 (one sweep of three rounds); (b)
             pooled, Adam lr 1e-6 wd 0, 96; (c) global negatives
             (GRAPHVITE_KG_NEG_POOL=global), SGD, 48 of 1,792; (d) resident
             negatives, SGD, 48. Each run: kernel 1 twice per worker-batch
@@ -189,7 +228,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             epochs through the CLI (global negatives by the auto rule):
             filtered tail MRR >= the JAX package's at W = 2 on the CPU
             less 0.05 (KG_MESH_MATH_GATE).
-14. multihost the multi-device engines over two processes
+16. multihost the multi-device engines over two processes
             (GRAPHVITE_COORDINATOR=localhost:<free port>; this script run
             twice with --multihost-child, one worker each on cuda:0, so
             the gloo transport, each tensor that crosses staged through
@@ -219,7 +258,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             one process with a worker on each; with one, the phase says
             NCCL was not exercised. A process that fails or outlasts
             MH_TIMEOUT_S fails the phase.
-15. host    sampler_backend="host" (the host samplers' pools from a
+17. host    sampler_backend="host" (the host samplers' pools from a
             background thread, uploaded from pinned memory; episodes of
             8): LINE at the line_flickr.yaml shape (100 batches of
             100,000; the pair pool step, kernel 1 on each table),
@@ -232,7 +271,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             loop's, the wait share on PrefetchingPool.next, launches per
             batch; node2vec's second-order entries at the Youtube shape,
             counted (the table is not built).
-16. kernel  each kernel against its plain torch version on the card, on the
+18. kernel  each kernel against its plain torch version on the card, on the
             ids the main paths drew: scatter_add on the DeepWalk update ids
             (batch 100000 and 250000, with dropped ids added, float32 and
             bfloat16 tables), on the node2vec batch's (float32) and on the
@@ -276,7 +315,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             context tables (1,715,256 x 128, unsorted) and RotatE's
             entity and relation tables, scatter_update_ on RotatE
             Adam's entity table.
-17. quality  GraphApplication on a small two-block graph on the card:
+19. quality  GraphApplication on a small two-block graph on the card:
             DeepWalk (the unfused trust-clip route), node2vec (p 4, q 2,
             the same route), the classic step (GRAPHVITE_NEG_SHARING=0),
             LINE on the edge route (the small-table route, the trust clip
@@ -285,15 +324,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
             LINE, DeepWalk and node2vec (its second-order table built on
             the host, the entries counted) on sampler_backend="host":
             link-prediction AUC > 0.9.
-18. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
+20. cli     the port's command line: `python3 -m graphvite_tpu_torch.cmd
             list` in a process of its own (the total of baselines), then
             three shipped configs through cmd.load_config and
             cmd.run_config, each copied with its save: path moved into a
             temporary dataset directory (GRAPHVITE_DATASET_PATH, removed
             at the end; the phase downloads nothing), the kernels' launch
             counts set to 0 just before each run and read just after:
-            config/demo/quick_start.yaml at its 2000 epochs on this
-            script's copy of the BlogCatalog clone of
+            config/demo/quick_start.yaml cut to 600 of its 2000
+            epochs on this script's copy of the BlogCatalog clone of
             tools/blogcatalog_clone.py (10,312 vertices, 39 communities;
             206,311 distinct edges at seed 0, about 62% of BlogCatalog's
             333,983) written as the registry's raw files, so the
@@ -315,7 +354,7 @@ Phases, in order (any failure exits non-zero and prints no result line):
             kernel 1 against its plain version (and timed, beside
             index_add_ and its bound) on the vertex and the context ids
             of one more batch of each graph config.
-19. summary the card line, the kernels line, and the result line.
+21. summary the card line, the kernels line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -437,12 +476,14 @@ def wrappers():
     """Every kernel wrapper of the port, by name: each counts its own
     kernel launches (scatter_add_ and scatter_add_sorted_ launch kernel 1,
     scatter_update_ and scatter_update_sorted_ kernel 2, gather_sorted
-    kernel 3)."""
-    from graphvite_tpu_torch.ops import gather, scatter
+    kernel 3; gather_rows, rmw_rows_ and sweep_add_sorted_ the row-access
+    kernels)."""
+    from graphvite_tpu_torch.ops import gather, row_access, scatter
 
     fns = (scatter.scatter_add_, scatter.scatter_add_sorted_,
            scatter.scatter_update_, scatter.scatter_update_sorted_,
-           gather.gather_sorted)
+           gather.gather_sorted, row_access.gather_rows,
+           row_access.rmw_rows_, row_access.sweep_add_sorted_)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -832,10 +873,11 @@ def node2vec_path(graph, batches, seed):
 
 
 def replay_walk_step(solver, seed):
-    """One batch of a separate-table walk step (pair, multitail, classic)
-    on the card and on the CPU from the same tables, batch and draws.
-    Tolerances of the CPU tests: tables rtol 3e-4, atol 3e-6; loss rtol
-    2e-5. Returns (record, problems)."""
+    """One batch of a separate-table walk step (pair, multitail, classic,
+    the unfused banded step) on the card and on the CPU from the same
+    tables, batch and draws. Tolerances of the CPU tests: tables rtol
+    3e-4, atol 3e-6 (plus 1 bf16 ulp on bf16 tables, as replay_batch);
+    loss rtol 2e-5. Returns (record, problems)."""
     import torch
 
     dev = solver.device
@@ -861,13 +903,17 @@ def replay_walk_step(solver, seed):
     diff = 0.0
     ok = True
     for got, want in zip(new["tables"], cpu_new["tables"]):
-        want = want.to(dev)
+        got, want = got.float(), want.to(dev).float()
         d = (got - want).abs()
-        ok = ok and bool((d <= 3e-6 + 3e-4 * want.abs()).all())
+        tol = 3e-6 + 3e-4 * want.abs()
+        if new["tables"][0].dtype == torch.bfloat16:
+            tol = tol + bf16_ulp(torch.maximum(got.abs(), want.abs()))
+        ok = ok and bool((d <= tol).all())
         diff = max(diff, float(d.max()))
     rec = {"rows": int(ids[0].numel()), "loss": float(loss),
            "cpu_loss": float(cpu_loss), "max_abs_diff": diff,
-           "tolerance": "rtol 3e-4, atol 3e-6"}
+           "tolerance": "rtol 3e-4, atol 3e-6 (+ 1 bf16 ulp on bf16 "
+                        "tables)"}
     problems = []
     if not ok:
         problems.append("card and CPU disagree on a batch: %r" % rec)
@@ -1016,9 +1062,10 @@ def train_edge_path(graph, float_type, optimizer, batches, per_batch,
     return solver, rec, problems
 
 
-def replay_edge_batch(solver, seed):
+def replay_edge_batch(solver, seed, sorted_heads=True):
     """Capture one batch as the solver's runner makes it (its sorted edge
-    stream, pool draws of the shape its step takes, its negative sampler)
+    stream, or with `sorted_heads` False the walk pairs the step sorts
+    itself; pool draws of the shape its step takes, its negative sampler)
     and run it through the solver's pool step on the card (in place on the
     solver's state, whose run is over) and on the CPU from a copy of the
     same tables and moments.
@@ -1026,9 +1073,9 @@ def replay_edge_batch(solver, seed):
     Tolerances: those of replay_batch (float32 rtol 3e-4, atol 3e-6, the
     CPU tests' tolerance against the reference; bfloat16 tables that plus
     1 bf16 ulp; loss rtol 2e-5); moments are float32. The captured heads
-    must ascend (the sorted entries' contract), and in float32 every
-    head's vertex row must move. Returns the record, the batch's ids and a
-    list of problems."""
+    must ascend where the stream sorts them (the sorted entries'
+    contract), and in float32 every live head's vertex row must move.
+    Returns the record, the batch's ids and a list of problems."""
     import torch
     from graphvite_tpu_torch.ops.alias import device_sample
 
@@ -1047,7 +1094,7 @@ def replay_edge_batch(solver, seed):
                                  for t in state["tables"]),
                  "moments": tuple(tuple(m.to("cpu", copy=True) for m in g)
                                   for g in state["moments"])}
-    uh = heads.unique()
+    uh = (heads if mask is None else heads[mask > 0]).unique()
     before = state["tables"][0][uh].clone()
     with torch.no_grad():
         new, loss = step(state, heads, tails, lr, *neg, mask=mask,
@@ -1082,7 +1129,7 @@ def replay_edge_batch(solver, seed):
            "heads": int(uh.numel()), "vertex_rows_moved": v_moved}
     del cpu_state, cpu_new, before
     problems = []
-    if not ascending:
+    if sorted_heads and not ascending:
         problems.append("the captured heads are not ascending")
     if not ok:
         problems.append("card and CPU disagree on a batch: %r" % rec)
@@ -3057,7 +3104,7 @@ BUILD_KG_MESH = dict(num_negative=64, batch_size=100000, episode_size=16)
 # twice (entity arena, relations) on SGD, kernel 2 once (the arena; the
 # 822 x 512 relation table takes the dense route) on Adam; the global
 # pool adds the pool-space sum and the owners' update, kernel 1 each
-KG_MESH_RUNS = (("a_pooled_sgd", None, SGD_WIKIDATA5M, 192, 60928,
+KG_MESH_RUNS = (("a_pooled_sgd", None, SGD_WIKIDATA5M, 96, 60928,
                  {"scatter_add_": 2}),
                 ("b_pooled_adam", "pooled", ADAM_WIKIDATA5M, 96, 60928,
                  {"scatter_update_": 1}),
@@ -3323,7 +3370,7 @@ def kg_mesh_math_cli(root):
 def kg_mesh_phase(seed, shared):
     """The KG engines at W = 2 on the one card (device_ids [0, 0]) on
     kg_big's Wikidata5m-shaped graph: (a) pooled by the auto rule, SGD,
-    192 worker-batches (two sweeps of three rounds); (b) pooled, Adam (lr
+    96 worker-batches (one sweep of three rounds); (b) pooled, Adam (lr
     1e-6, wd 0), one sweep; (c) global and (d) resident negatives, SGD,
     48 each. Then the lr = 0 round trips and the card-vs-CPU replays at
     W = 2 and 4 on a small KG, and math.yaml through the CLI at W = 2."""
@@ -4302,11 +4349,12 @@ def trace_and_update_ids(app, cfg, rec, batches=10):
 
 
 def quick_start_cli(root, seed):
-    """config/demo/quick_start.yaml at its 2000 epochs through the CLI, on
-    the BlogCatalog clone written as the registry's raw graph and label
-    files: the registry makes <blogcatalog.train|test> with its 100:1:1
-    link-prediction split, the config evaluates link prediction and
-    node classification."""
+    """config/demo/quick_start.yaml cut to 600 of its 2000 epochs (a
+    depth cut; the AUC gate stays at 0.85)
+    through the CLI, on the BlogCatalog clone written as the registry's
+    raw graph and label files: the registry makes <blogcatalog.train|test>
+    with its 100:1:1 link-prediction split, the config evaluates link
+    prediction and node classification."""
     t0 = time.perf_counter()
     edges, labels = blogcatalog_clone(seed)
     data = os.path.join(root, "blogcatalog")
@@ -4319,7 +4367,8 @@ def quick_start_cli(root, seed):
                         for x in zip(vs.tolist(), cs.tolist())))
     clone_s = time.perf_counter() - t0
     cfg, app, results, rec, problems = run_cli(
-        cli_config("demo/quick_start.yaml", root))
+        cli_config("demo/quick_start.yaml", root,
+                   cuts=[("num_epoch: 2000", "num_epoch: 600")]))
     s = app.solver
     rec.update({"clone_s": clone_s, "edges": int(len(edges)),
                 "vertices": app.graph.num_vertex,
@@ -4455,6 +4504,473 @@ def front_ends(walk_ids, heads, v_counts, ctx, c_counts, gen):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase row_access: the row-access bench and its three kernels
+# ---------------------------------------------------------------------------
+
+# the reference experiment's shape (tools/pallas_bench.py: V, D, N)
+ROW_ACCESS_SHAPE = (1_000_000, 128, 325_520)
+# the shapes its kernels leave out: N not a multiple of 512; V not a
+# multiple of 8192 (as at the reference's own V) with a width below one
+# 4-column vector pass
+ROW_ACCESS_EDGES = ((1_000_000, 128, 325_519), (4_099, 20, 1_001))
+
+
+def row_access_bench_run():
+    """Every experiment of graphvite_tpu_torch.tools.row_access_bench at
+    the reference's shape (PB_V, PB_D, PB_N unset), in this process, the
+    launch counts set to 0 just before and read just after. Returns (the
+    bench's records, the counts)."""
+    import io
+    import torch
+    from graphvite_tpu_torch.tools import row_access_bench as rab
+
+    for name in ("PB_V", "PB_D", "PB_N"):
+        os.environ.pop(name, None)
+    out = io.StringIO()
+    bench = rab.Bench("cuda", out=out)
+    if (bench.V, bench.D, bench.N) != ROW_ACCESS_SHAPE:
+        raise AssertionError("bench shape %r" % ((bench.V, bench.D,
+                                                  bench.N),))
+    reset_launches()
+    with torch.no_grad():
+        for fn in rab.EXPERIMENTS.values():
+            fn(bench)
+    counts = read_launches()
+    recs = [json.loads(line) for line in out.getvalue().splitlines()]
+    return recs, counts
+
+
+def row_access_case(name, v, d, n, gen, timed, skewed=False):
+    """One kernel against its plain version on the card, bit for bit, on
+    ids of its contract: gather on random ids (a few outside [0, V),
+    which clamp), RMW on the reference's unique ids (3 i + jitter), the
+    sweep on the reference's sorted random ids or, `skewed`, on sorted
+    hub-skewed ids (runs of up to ~1,300, ~15% of the ids in the first
+    tile, ids >= V dropped). With `timed`: the wrapper, the kernel alone
+    (the sweep without its searchsorted), the plain version and the
+    library call, beside the bytes bound."""
+    import torch
+    from graphvite_tpu_torch.ops import row_access as ra
+
+    dev = torch.device("cuda")
+    table = torch.randn((v, d), generator=gen, device=dev)
+    upd = torch.randn((n, d), generator=gen, device=dev) * 1e-2
+    if name == "gather_rows":
+        ids = torch.randint(0, v, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        bad = ids.clone()
+        bad[:2] = torch.tensor([-3, v + 5], device=dev)
+        want = ra.gather_rows_plain(table, bad)
+        got = ra.gather_rows(table, bad)
+        call = (lambda: ra.gather_rows(table, ids))
+        kernel = call
+        plain = (lambda: ra.gather_rows_plain(table, ids))
+        library = (lambda: torch.index_select(table, 0, ids))
+    elif name == "rmw_rows":
+        jitter = torch.randint(0, 3, (n,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        ids = (torch.arange(n, device=dev, dtype=torch.int32) * 3
+               + jitter) % v
+        want = ra.rmw_rows_plain(table.clone(), ids, upd)
+        got = ra.rmw_rows_(table.clone(), ids, upd, check_unique=True)
+        call = (lambda: ra.rmw_rows_(table, ids, upd))
+        kernel = call
+        plain = (lambda: ra.rmw_rows_plain(table, ids, upd))
+        library = (lambda: table.index_add_(0, ids, upd))
+    else:
+        if skewed:
+            u = torch.rand((n,), generator=gen, device=dev)
+            ids = (u ** 2.5 * (v + 3)).to(torch.int32)
+        else:
+            ids = torch.randint(0, v, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+        ids = torch.sort(ids)[0]
+        want = ra.sweep_add_sorted_plain(table.clone(), ids, upd)
+        got = ra.sweep_add_sorted_(table.clone(), ids, upd)
+        bounds = ra.tile_bounds(ids, v)
+        call = (lambda: ra.sweep_add_sorted_(table, ids, upd))
+        kernel = (lambda: ra._launch_sweep(table, ids, upd, bounds))
+        plain = (lambda: ra.sweep_add_sorted_plain(table, ids, upd))
+        keep = ids < v
+        ids_in, upd_in = ids[keep], upd[keep]
+        library = (lambda: table.index_add_(0, ids_in, upd_in))
+    torch.cuda.synchronize()
+    max_err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError("%s disagrees with its plain version at %d x "
+                             "%d, N %d: max |err| %g" % (name, v, d, n,
+                                                         max_err))
+    uniq = int(torch.unique(ids[(ids >= 0) & (ids < v)]).numel())
+    rec = {"entry": name, "n": n, "v": v, "d": d, "dtype": "float32",
+           "ids": "hub-skewed" if skewed else "random",
+           "unique_rows": uniq, "max_abs_err": max_err,
+           "tolerance": "exact"}
+    del got, want
+    if not timed:
+        return rec
+    if name == "gather_rows":
+        nbytes, ops = uniq * d * 4 + n * d * 4 + 4 * n, 0
+    elif name == "rmw_rows":
+        nbytes, ops = 3 * n * d * 4 + 4 * n, n * d
+    else:
+        nbytes, ops = 2 * uniq * d * 4 + n * d * 4 + 4 * n, n * d
+    bound_ms, bound_by = bytes_bound(nbytes, ops)
+    rec.update(ms=cuda_ms(call), kernel_only_ms=cuda_ms(kernel),
+               plain_ms=cuda_ms(plain, reps=5, warmup=1),
+               library_ms=cuda_ms(library), bound_ms=bound_ms,
+               bound_by=bound_by)
+    return rec
+
+
+def row_access_phase(seed):
+    """The bench's experiments (the path of this phase), then each kernel
+    bit for bit against its plain version at the reference's shape and at
+    the shapes its kernels leave out, timed at the reference's shape, and
+    rmw_rows_(check_unique=True) raising on a repeated id."""
+    import torch
+    from graphvite_tpu_torch.ops import row_access as ra
+
+    recs, counts = row_access_bench_run()
+    for r in recs:
+        log("   bench:", json.dumps(r))
+    problems = []
+    chains = 7 * 10                  # 2 warm + 5 timed chains of EP = 10
+    want = {"gather_rows": chains, "rmw_rows_": chains,
+            "sweep_add_sorted_": chains,
+            "scatter_add_sorted_": 4 * chains + 1,
+            "scatter_add_": 2 * chains + 1}
+    got = {k: counts[k] for k in want}
+    if got != want or sum(counts.values()) != sum(want.values()):
+        problems.append("bench launches %r, want %r" % (counts, want))
+    if not all(r["ok"] for r in recs if "ok" in r):
+        problems.append("a bench verify failed")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cases = {"gather_rows": [], "rmw_rows": [], "sweep_add_sorted": []}
+    for name in cases:
+        cases[name].append(row_access_case(name, *ROW_ACCESS_SHAPE, gen,
+                                           timed=True))
+        sweep = name == "sweep_add_sorted"
+        if sweep:
+            cases[name].append(row_access_case(name, *ROW_ACCESS_SHAPE, gen,
+                                               timed=True, skewed=True))
+        for v, d, n in ROW_ACCESS_EDGES:
+            cases[name].append(row_access_case(name, v, d, n, gen,
+                                               timed=False, skewed=sweep))
+        for c in cases[name]:
+            log("   %s:" % name, json.dumps(c))
+    dev = torch.device("cuda")
+    try:
+        ra.rmw_rows_(torch.zeros((10, 4), device=dev),
+                     torch.tensor([1, 2, 1], device=dev),
+                     torch.ones((3, 4), device=dev), check_unique=True)
+        problems.append("rmw_rows_ took a repeated id with check_unique")
+    except ValueError:
+        pass
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"bench": recs, "launches": counts, "cases": cases}
+
+
+# ---------------------------------------------------------------------------
+# phase opt_ins: the reference's experimental walk opt-ins
+# ---------------------------------------------------------------------------
+
+WALK_SWEEP_SGD_LAUNCHES = EDGE_SGD_LAUNCHES       # sorted heads, as edges
+WALK_SWEEP_ADAM_LAUNCHES = EDGE_ADAM_LAUNCHES
+# name, switch, graph, float type, optimizer, model, batches, launches per
+# batch, replay, whether the run is long enough for its loss to fall:
+# widths and hyperparameters are the configs'. The banded runs' losses
+# stay at ln 2 for hundreds of batches (the context rows start at zero;
+# phase main shows the fall over 600), the pair and edge pool steps'
+# leave it within tens
+OPT_IN_RUNS = (
+    ("a_sweep_walk_sgd", {"GRAPHVITE_SWEEP_WALK": "1"}, "youtube",
+     "float32", SGD_YOUTUBE, DEEPWALK_YOUTUBE, 50, WALK_SWEEP_SGD_LAUNCHES,
+     "state", True),
+    ("b_sweep_walk_adam", {"GRAPHVITE_SWEEP_WALK": "1"}, "youtube",
+     "float32", ADAM_FLICKR, DEEPWALK_YOUTUBE, 20, WALK_SWEEP_ADAM_LAUNCHES,
+     "state", False),
+    ("c_bulk_deepwalk", {"GRAPHVITE_BULK_WALKS": "1"}, "youtube", "float32",
+     SGD_YOUTUBE, DEEPWALK_YOUTUBE, 50, {"scatter_add_": 1}, "arena",
+     False),
+    ("d_bulk_node2vec", {"GRAPHVITE_BULK_WALKS": "1"}, "youtube", "float32",
+     SGD_YOUTUBE, NODE2VEC_YOUTUBE, 20, {"scatter_add_": 1}, "arena", False),
+    ("e_bf16_band", {"GRAPHVITE_BF16_BAND": "1"}, "youtube", "bfloat16",
+     SGD_YOUTUBE, DEEPWALK_YOUTUBE, 50, {"scatter_add_": 1}, "arena", False),
+    ("f_sweep_banded_float32", {"GRAPHVITE_SWEEP_BANDED": "1"}, "youtube",
+     "float32", SGD_YOUTUBE, DEEPWALK_YOUTUBE, 50, {"scatter_add_": 2},
+     "walk", False),
+    ("f_sweep_banded_bfloat16", {"GRAPHVITE_SWEEP_BANDED": "1"}, "youtube",
+     "bfloat16", SGD_YOUTUBE, DEEPWALK_YOUTUBE, 50, {"scatter_add_": 2},
+     "walk", False),
+    ("g_bf16_compute", {"GRAPHVITE_BF16_COMPUTE": "1"}, "flickr",
+     "bfloat16", SGD_FLICKR, LINE_FLICKR, 50, EDGE_SGD_LAUNCHES, "edge",
+     True),
+)
+OPT_IN_ENGINE_BATCHES = 10         # worker-batches of (e)'s walks engine
+
+
+def train_opt_in(graph, env, float_type, optimizer, train_kw, batches,
+                 per_batch, episode, samplers, falling):
+    """One opt-in at its config's shape with its switch set: 3 warm-up
+    batches, then the measured call, the launch counts set to 0 just
+    before and read just after; `falling` asks for a falling loss (first
+    against last tenth in float64). Returns the solver (the switch's step
+    and samplers kept for the replays), the record and a list of
+    problems."""
+    import torch
+    from graphvite_tpu_torch.solver import GraphSolver
+
+    with environ(env):
+        solver = GraphSolver(dim=DIM, float_type=float_type)
+        solver.build(graph, optimizer=optimizer, num_negative=1,
+                     batch_size=100000, episode_size=episode)
+        if samplers is not None:
+            solver._sampler_cache = samplers
+        t0 = time.perf_counter()
+        solver.train(num_epoch=3 * 100000 / graph.num_edge, **train_kw)
+        warm_s = time.perf_counter() - t0
+        eff = solver.effective_batch
+        reset_launches()
+        t0 = time.perf_counter()
+        solver.train(num_epoch=batches * eff / graph.num_edge + 1e-9,
+                     **train_kw)
+        elapsed = time.perf_counter() - t0
+        counts = read_launches()
+    run = solver.batch_id
+    micro = solver._batch_plan()[2]
+    losses = solver.batch_losses.double()
+    k = max(run // 10, 5)
+    step = getattr(solver._active_step_fn, "base", solver._active_step_fn)
+    rec = {"env": env, "float_type": float_type,
+           "optimizer": optimizer["type"], "model": train_kw["model"],
+           "batches": run, "effective_batch": eff, "micro_steps": micro,
+           "step": step.__qualname__.split(".")[0],
+           "sweeps": [solver._sweep_gather, solver._sweep_scatter,
+                      solver._sweep_context],
+           "fused_arena": solver._banded_fused,
+           "bulk": getattr(solver, "_active_bulk_fn", None) is not None,
+           "warmup_s": warm_s, "ms_per_batch": elapsed / run * 1e3,
+           "samples_per_s": run * eff / elapsed, "launches": counts,
+           "launches_per_batch": {n: c / run for n, c in counts.items()
+                                  if c},
+           "loss_first": float(losses[:k].mean()),
+           "loss_last": float(losses[-k:].mean()),
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": all(bool(torch.isfinite(t.float()).all())
+                                for t in solver.state["tables"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    problems = []
+    want = {n: per_batch.get(n, 0) * micro * run for n in counts}
+    if counts != want:
+        problems.append("kernel launches %r, want %r" % (counts, want))
+    if not rec["losses_finite"] or not rec["tables_finite"]:
+        problems.append("losses or tables not finite")
+    if falling and not rec["loss_last"] < rec["loss_first"]:
+        problems.append("losses not falling: %r" % rec)
+    return solver, rec, problems
+
+
+def bulk_check(solver, seed):
+    """The episode sampler of a GRAPHVITE_BULK_WALKS run on the card
+    against the same function on the CPU from the same draws (the chain's
+    uniforms for W * n lanes): every batch's ids and masks equal."""
+    import torch
+
+    fn = solver._active_bulk_fn
+    sampler = solver._active_sampler
+    gen = torch.Generator().manual_seed(seed)
+    lanes, L = fn.lanes, sampler.walk_length
+    if sampler.biased:
+        R, C = fn.chain_fn.proposals, fn.chain_fn.rounds_cap
+        draws = (torch.rand(lanes, generator=gen),
+                 torch.rand(lanes, generator=gen),
+                 torch.rand((L - 1, C, 3, R, lanes), generator=gen))
+    else:
+        draws = tuple(torch.rand(shape, generator=gen) for shape in
+                      ((lanes,), (lanes,), (L - 1, lanes), (L - 1, lanes)))
+    with torch.no_grad():
+        card = fn(*sampler.arrays(),
+                  draws=tuple(d.to(solver.device) for d in draws))
+        cpu = fn(*(a.cpu() for a in sampler.arrays()), draws=draws)
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    rec = {"batches": int(card[0].shape[0]), "lanes": lanes,
+           "shapes": [list(a.shape) for a in card], "equal": equal,
+           "valid_fraction": float(card[2].mean())}
+    return rec, ([] if equal else ["bulk sample differs card vs CPU"])
+
+
+def replay_band_engine(seed, W=2, dim=32, device="cuda"):
+    """GRAPHVITE_BF16_BAND in the walks engine on bf16 tables: W workers on
+    the card against W on the CPU from the same draws and state, one
+    batch each on a 20,000-vertex power-law graph: losses rtol 2e-5,
+    tables rtol 3e-4, atol 3e-6 plus 1 bf16 ulp (each device rounds its
+    own float32 sums once)."""
+    import torch
+    from graphvite_tpu_torch.models import GRAPH_MODELS
+    from graphvite_tpu_torch.optim import Optimizer
+    from graphvite_tpu_torch.parallel import mesh
+
+    graph = power_law_graph(20000, 150000, seed)
+    gen = torch.Generator().manual_seed(seed)
+    vertex = ((torch.rand((graph.num_vertex, dim), generator=gen) - 0.5)
+              * 2).bfloat16()
+    context = (torch.randn((graph.num_vertex, dim), generator=gen)
+               * 0.5).bfloat16()
+    part = mesh.VertexPartition(np.asarray(graph.degrees), W)
+    opt = Optimizer(type="SGD", lr=0.025, weight_decay=5e-3)
+    res = {}
+    draws = None
+    with environ({"GRAPHVITE_BF16_BAND": "1"}):
+        for where, dev in (("cuda", device), ("cpu", "cpu")):
+            group = mesh.DeviceGroup([torch.device(dev)] * W)
+            tr = mesh.ShardedGraphTrainer(
+                group, part, dim, GRAPH_MODELS["DeepWalk"], opt,
+                num_negative=1, negative_weight=5.0, batch_size=4 * 22 * 64,
+                ep_batches=1, sampler_mode="walks",
+                walk_cfg=dict(augmentation_step=2, walk_length=10,
+                              bidir=True, pool_size=64))
+            sample = tr.build_sample_state(graph)
+            state = tr.init_state(vertex, context)
+            neg = tr.init_negative_state(np.asarray(graph.vertex_weights))
+            if draws is None:
+                draws = tr.episode_draws(gen)
+            state, neg, ls = tr.run_episode(
+                state, sample, neg, 0, 1000, seed,
+                draws=mesh.draws_to(draws, group.devices))
+            res[where] = ([t.cpu().float() for t in tr.gather_tables(state)],
+                          torch.stack([l.cpu() for l in ls]).double())
+    (gt, gl), (ct, cl) = res["cuda"], res["cpu"]
+    ok = bool(((gl - cl).abs() <= 2e-5 * cl.abs()).all())
+    err = 0.0
+    for a, b in zip(gt, ct):
+        d = (a - b).abs()
+        tol = 3e-6 + 3e-4 * b.abs() + bf16_ulp(torch.maximum(a.abs(),
+                                                           b.abs()))
+        ok = ok and bool((d <= tol).all())
+        err = max(err, float(d.max()))
+    rec = {"workers": W, "dim": dim, "losses": gl.tolist(),
+           "cpu_losses": cl.tolist(), "max_abs_err": err,
+           "tolerance": "losses rtol 2e-5; tables rtol 3e-4, atol 3e-6, "
+                        "+ 1 bf16 ulp"}
+    return rec, ([] if ok else ["card and CPU disagree: %r" % rec])
+
+
+def opt_in_engine(graph, batches, device=None):
+    """(e)'s walks engine: DeepWalk at the deepwalk_youtube.yaml shape with
+    two workers on the card (GraphApplication gpus MESH_IDS), bf16 tables,
+    GRAPHVITE_BF16_BAND=1: kernel 1 once per worker-batch."""
+    import torch
+    from graphvite_tpu_torch import GraphApplication
+
+    with environ({"GRAPHVITE_BF16_BAND": "1"}):
+        app = GraphApplication(dim=DIM, gpus=MESH_IDS, float_type="bfloat16",
+                               device=device)
+        app.graph = graph
+        app.build(optimizer=SGD_YOUTUBE, num_negative=1, batch_size=100000,
+                  episode_size=25)
+        reset_launches()
+        app.train(num_epoch=batches * MESH_WALK_BATCH / graph.num_edge
+                  + 1e-9, log_frequency=10**9,
+                  **{k: v for k, v in DEEPWALK_YOUTUBE.items()
+                     if k != "log_frequency"})
+        counts = read_launches()
+    s = app.solver
+    run, st = s.batch_id, s.mesh_stats
+    losses = s.batch_losses.double()
+    rec = {"workers": st["workers"], "float_type": "bfloat16",
+           "batches": run, "batch": s.effective_batch,
+           "ms_per_worker_batch": st["loop_s"] / run * 1e3,
+           "valid_pairs_per_s": st["valid_pairs"] / st["loop_s"],
+           "launches": counts,
+           "losses_finite": bool(torch.isfinite(losses).all()),
+           "tables_finite": all(bool(torch.isfinite(t.float()).all())
+                                for t in s.state["tables"])}
+    problems = []
+    want = {n: (run if n == "scatter_add_" else 0) for n in counts}
+    if counts != want:
+        problems.append("engine launches %r, want %r" % (counts, want))
+    if not rec["losses_finite"] or not rec["tables_finite"]:
+        problems.append("engine losses or tables not finite")
+    del app, s
+    return rec, problems
+
+
+def opt_ins_phase(seed, shared):
+    """Each opt-in on the clones the earlier phases built, then its
+    replays. Returns the records."""
+    import torch
+
+    out, problems = {}, []
+    samplers = {"youtube": None,
+                "flickr": shared.pop("flickr_samplers", None)}
+    for (name, env, gname, float_type, opt, train_kw, batches, per_batch,
+         replay, falling) in OPT_IN_RUNS:
+        t0 = time.perf_counter()
+        graph = shared[gname]
+        solver, rec, bad = train_opt_in(
+            graph, env, float_type, opt, train_kw, batches, per_batch,
+            1000 if gname == "flickr" else 25, samplers[gname], falling)
+        samplers[gname] = solver._sampler_cache
+        bad = ["%s: %s" % (name, p) for p in bad]
+        if replay == "state":
+            rec["replay"], _, b = replay_edge_batch(solver, seed + 1,
+                                                    sorted_heads=False)
+        elif replay == "arena":
+            rec["replay"], _, b = replay_batch(solver, seed + 1)
+        elif replay == "walk":
+            rec["replay"], b = replay_walk_step(solver, seed + 1)
+        else:
+            rec["replay"], _, b = replay_edge_batch(solver, seed + 1)
+        bad += ["%s replay: %s" % (name, p) for p in b]
+        if rec["bulk"]:
+            rec["bulk_sample"], b = bulk_check(solver, seed + 2)
+            bad += ["%s: %s" % (name, p) for p in b]
+        elif name.startswith(("c_", "d_")):
+            bad.append("%s: no bulk sampler" % name)
+        del solver
+        torch.cuda.empty_cache()
+        if name == "e_bf16_band":
+            rec["engine"], b = opt_in_engine(graph, OPT_IN_ENGINE_BATCHES)
+            bad += ["%s engine: %s" % (name, p) for p in b]
+            rec["engine_replay"], b = replay_band_engine(seed)
+            bad += ["%s engine replay: %s" % (name, p) for p in b]
+            torch.cuda.empty_cache()
+        rec["phase_s"] = time.perf_counter() - t0
+        log("   %s:" % name, json.dumps(rec))
+        out[name] = rec
+        problems += bad
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
+def training_launches(results):
+    """Each wrapper's launches summed over every run record of the phases
+    that train (each dict under a "launches" key, nested records
+    included); the bench and the kernel comparisons are left out."""
+    total = dict.fromkeys(wrappers(), 0)
+
+    def walk(node):
+        if isinstance(node, dict):
+            got = node.get("launches")
+            if isinstance(got, dict):
+                for fn in total:
+                    total[fn] += got.get(fn, 0)
+            for value in node.values():
+                walk(value)
+        elif isinstance(node, (list, tuple)):
+            for value in node:
+                walk(value)
+
+    for phase, rec in results.items():
+        if phase not in ("device", "build", "row_access", "kernel"):
+            walk(rec)
+    return total
+
+
 def kernel_row(name, source, replaces, launches, by_path, cases, case):
     """One kernel's entry of the kernels line: `case` gives the top-level
     times, `cases` every case's by entry."""
@@ -4482,10 +4998,10 @@ def main():
     ap.add_argument("--edge-batches", type=int, default=1000)
     ap.add_argument("--kg-batches", type=int, default=50)
     ap.add_argument("--kg-big-batches", type=int, default=50)
-    ap.add_argument("--only", choices=["multihost"],
+    ap.add_argument("--only", choices=["multihost", "opt_ins"],
                     help="run the device and build phases and this phase "
-                    "alone (its graphs built here), print its record and "
-                    "no result line")
+                    "alone (its graphs built here; opt_ins after "
+                    "row_access), print its record and no result line")
     # a process of the multihost phase: ROOT PID PORT DEVICE CASES
     ap.add_argument("--multihost-child", nargs=5, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4517,7 +5033,7 @@ def run(args):
     import torch
 
     try:
-        from graphvite_tpu_torch.ops import gather, kernels, scatter
+        from graphvite_tpu_torch.ops import gather, kernels, row_access, scatter
     except ImportError as e:
         sys.stderr.write("chip_smoke: run from the root of a checkout of "
                          "the repository (%s)\n" % e)
@@ -4563,17 +5079,32 @@ def run(args):
                 if "registers" in line or "spill" in line:
                     log("   ptxas:", line.strip())
         log("built %d kernels in %.1f s" % (len(paths), secs))
-        if sorted(paths) != ["gather_sorted", "scatter_add",
+        if sorted(paths) != ["gather_sorted", "row_access", "scatter_add",
                              "scatter_update"]:
             raise AssertionError("kernels built: %r" % sorted(paths))
         scatter._library("scatter_add")
         scatter._library("scatter_update")
         gather._library()
+        row_access._library()
         return secs
     if not phase("build", build):
         return 1
 
+    # 3. the row-access bench and its kernels
+    if args.only != "multihost":
+        phase("row_access", lambda: row_access_phase(args.seed))
+
     shared = {}
+    if args.only == "opt_ins":
+        def graphs():
+            shared["flickr"] = power_law_graph(FLICKR_V, FLICKR_E, args.seed)
+            shared["youtube"] = power_law_graph(YOUTUBE_V, YOUTUBE_E,
+                                                args.seed)
+        ok = (phase("graphs", graphs)
+              and phase("opt_ins", lambda: opt_ins_phase(args.seed, shared))
+              and "row_access" in results)
+        log(card_line())
+        return 0 if ok else 1
     if args.only == "multihost":
         def graphs():
             from graphvite_tpu_torch.graph import KnowledgeGraph
@@ -4602,7 +5133,7 @@ def run(args):
             shared["youtube"] = graph
         return shared["youtube"]
 
-    # 3. main path (DeepWalk)
+    # 4. main path (DeepWalk)
     def main_path():
         graph = youtube_graph()
         out = {"batch_ids": []}
@@ -4651,7 +5182,7 @@ def run(args):
         return out
     phase("main", main_path)
 
-    # 4. node2vec at the node2vec_youtube.yaml shape
+    # 5. node2vec at the node2vec_youtube.yaml shape
     def node2vec_phase():
         rec, ids, problems = node2vec_path(youtube_graph(),
                                            args.node2vec_batches, args.seed)
@@ -4662,7 +5193,7 @@ def run(args):
         return {"record": rec, "ids": ids}
     phase("node2vec", node2vec_phase)
 
-    # 5. the pair and multitail layouts and the classic step (DeepWalk)
+    # 6. the pair and multitail layouts and the classic step (DeepWalk)
     def layouts_phase():
         out, problems = {}, []
         for name, env in WALK_LAYOUTS:
@@ -4680,7 +5211,7 @@ def run(args):
         shared["main_ms_per_batch"] = results["main"]["float32"][
             "ms_per_batch"]
 
-    # 6. the edge route (LINE)
+    # 7. the edge route (LINE)
     def edge_path():
         t0 = time.perf_counter()
         graph = power_law_graph(FLICKR_V, FLICKR_E, args.seed)
@@ -4720,12 +5251,21 @@ def run(args):
             torch.cuda.empty_cache()
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
         log("   edge phase peak device memory %.2f GB" % out["peak_mem_gb"])
+        shared["flickr_samplers"] = samplers    # for phase opt_ins
         if problems:
             raise AssertionError("; ".join(problems))
         return out
     phase("edge", edge_path)
 
-    # 7. knowledge graphs: RotatE at the rotate_fb15k.yaml shape
+    # 8. the reference's experimental walk opt-ins
+    def opt_ins():
+        if "flickr" not in shared:
+            shared["flickr"] = power_law_graph(FLICKR_V, FLICKR_E, args.seed)
+        youtube_graph()
+        return opt_ins_phase(args.seed, shared)
+    phase("opt_ins", opt_ins)
+
+    # 9. knowledge graphs: RotatE at the rotate_fb15k.yaml shape
     def kg_path():
         from graphvite_tpu_torch import KnowledgeGraphApplication
 
@@ -4765,7 +5305,7 @@ def run(args):
     phase("kg", kg_path)
     torch.cuda.empty_cache()
 
-    # 8. knowledge graphs: RotatE at the rotate_wikidata5m.yaml shape
+    # 10. knowledge graphs: RotatE at the rotate_wikidata5m.yaml shape
     def kg_big_path():
         from graphvite_tpu_torch import KnowledgeGraphApplication
 
@@ -4820,39 +5360,39 @@ def run(args):
     phase("kg_big", kg_big_path)
     torch.cuda.empty_cache()
 
-    # 9. LargeVis at the largevis_mnist_2d.yaml shape (exact KNN)
+    # 11. LargeVis at the largevis_mnist_2d.yaml shape (exact KNN)
     phase("vis", lambda: vis_phase(args.seed, shared))
     torch.cuda.empty_cache()
 
-    # 10. LargeVis at the largevis_imagenet.yaml shape (IVF KNN)
+    # 12. LargeVis at the largevis_imagenet.yaml shape (IVF KNN)
     phase("vis_big", lambda: vis_big_phase(args.seed))
     torch.cuda.empty_cache()
 
-    # 11. blocked episodes and the host master (LINE, friendster-small)
+    # 13. blocked episodes and the host master (LINE, friendster-small)
     phase("blocked", lambda: blocked_phase(args.seed, shared))
     torch.cuda.empty_cache()
 
-    # 12. the multi-device engines, two workers on the card, on the
+    # 14. the multi-device engines, two workers on the card, on the
     # graphs of main, vis and blocked
     phase("mesh", lambda: mesh_phase(args.seed, shared))
     torch.cuda.empty_cache()
 
-    # 13. the KG engines, two workers on the card, on kg_big's graph
+    # 15. the KG engines, two workers on the card, on kg_big's graph
     phase("kg_mesh", lambda: kg_mesh_phase(args.seed, shared))
     torch.cuda.empty_cache()
 
-    # 14. the engines over two processes on the graphs of edge, main and
+    # 16. the engines over two processes on the graphs of edge, main and
     # kg_big
     phase("multihost", lambda: multihost_phase(args.seed, shared))
     torch.cuda.empty_cache()
 
-    # 15. the host sampler backend on the graphs of edge, main, kg_big
+    # 17. the host sampler backend on the graphs of edge, main, kg_big
     # and vis
     phase("host", lambda: host_phase(args.seed, shared))
     shared.clear()
     torch.cuda.empty_cache()
 
-    # 16. each kernel against its plain version, on the paths' own ids
+    # 18. each kernel against its plain version, on the paths' own ids
     def kernel():
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         cases = {"scatter_add": [], "gather_sorted": [],
@@ -5018,7 +5558,7 @@ def run(args):
     else:
         failures.append("kernel (needs the paths' ids)")
 
-    # 17. quality
+    # 19. quality
     def quality_phase():
         out = {}
         for name, model, classic, blocked, host in (
@@ -5049,7 +5589,7 @@ def run(args):
         return out
     phase("quality", quality_phase)
 
-    # 18. the command line: three shipped configs through cmd, in process,
+    # 20. the command line: three shipped configs through cmd, in process,
     # and `cmd list` in a process of its own
     def cli_phase():
         root = os.environ["GRAPHVITE_DATASET_PATH"]
@@ -5089,7 +5629,7 @@ def run(args):
         log("FAILED phases: %s" % ", ".join(failures))
         return 1
 
-    # 19. summary: the card line, the kernels line, the result line
+    # 21. summary: the card line, the kernels line, the result line
     main_rec = results["main"]["float32"]
     edge = results["edge"]
     cases = results["kernel"]
@@ -5149,6 +5689,32 @@ def run(args):
           "host_largevis_mnist": (host["largevis_mnist"]["launches"]
                                   ["scatter_update_"])}
     k3 = {"edge_float32": edge["float32"]["launches"]["gather_sorted"]}
+    # the opt-ins' runs and the row-access bench's kernel 1 experiments
+    bench = results["row_access"]["launches"]
+    k1["row_access_bench"] = (bench["scatter_add_"]
+                              + bench["scatter_add_sorted_"])
+    for name, rec in results["opt_ins"].items():
+        la = rec["launches"]
+        if la["scatter_add_"] or la["scatter_add_sorted_"]:
+            k1["opt_ins_" + name] = (la["scatter_add_"]
+                                     + la["scatter_add_sorted_"])
+        if la["scatter_update_"] or la["scatter_update_sorted_"]:
+            k2["opt_ins_" + name] = (la["scatter_update_"]
+                                     + la["scatter_update_sorted_"])
+        if la["gather_sorted"]:
+            k3["opt_ins_" + name] = la["gather_sorted"]
+        if "engine" in rec:
+            k1["opt_ins_%s_engine" % name] = rec["engine"]["launches"][
+                "scatter_add_"]
+    # the row-access kernels run on the bench's path only: every training
+    # phase's runs hold them at 0, and the line shows the sum it read
+    trained = training_launches(results)
+    rows = {name: {"row_access_bench": bench[wrapper],
+                   "training_paths": trained[wrapper]}
+            for name, wrapper in (("gather_rows", "gather_rows"),
+                                  ("rmw_rows", "rmw_rows_"),
+                                  ("sweep_add_sorted", "sweep_add_sorted_"))}
+    ra_cases = results["row_access"]["cases"]
     kernels_line = {"kernels": [
         # the DeepWalk batch-100000 update, float32 table
         kernel_row("scatter_add", "graphvite_tpu_torch/csrc/scatter_add.cu",
@@ -5168,7 +5734,15 @@ def run(args):
                    "graphvite_tpu/ops/pallas_scatter.py:530",
                    sum(k2.values()), k2, cases["scatter_update"],
                    cases["scatter_update"][0]),
-    ]}
+    ] + [
+        # the reference experiment's shape, float32 table
+        kernel_row(name, "graphvite_tpu_torch/csrc/row_access.cu",
+                   "tools/pallas_bench.py:%d" % line,
+                   sum(rows[name].values()), rows[name],
+                   [c for c in ra_cases[name] if "ms" in c],
+                   ra_cases[name][0])
+        for name, line in (("gather_rows", 86), ("rmw_rows", 170),
+                           ("sweep_add_sorted", 265))]}
     log(json.dumps({"front_end": cases["front_end"]}))
     log(card_line())
     log(json.dumps(kernels_line))

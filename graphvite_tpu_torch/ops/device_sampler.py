@@ -645,10 +645,11 @@ class DeviceWalkSampler:
                self.vdeg, self.indices, self.nbr_prob, self.nbr_alias)
         return out + (self.memb,) if self.biased else out
 
-    def make_chain_fn(self):
+    def make_chain_fn(self, num_walk=None):
         return make_walk_chain_fn(self.uniform, self.walk_length,
-                                  self.num_walk, biased=self.biased,
-                                  p=self.p, q=self.q, bs_iters=self.bs_iters,
+                                  num_walk or self.num_walk,
+                                  biased=self.biased, p=self.p, q=self.q,
+                                  bs_iters=self.bs_iters,
                                   membership=self.membership)
 
     def make_sample_fn(self, batch_size: int):
@@ -687,4 +688,49 @@ class DeviceWalkSampler:
                 return (h[:batch_size], t[:batch_size],
                         m[:batch_size].float())
 
+        return sample
+
+    def make_episode_sample_fn(self, batch_size: int, n_batches: int):
+        """All `n_batches` batches' walks in ONE chain call of W * n lanes
+        (the reference's GRAPHVITE_BULK_WALKS=1 opt-in, device_sampler.py
+        make_episode_sample_fn there). fn(*arrays, generator=None,
+        draws=None) -> the layout's sample with a leading [n] axis: batch
+        g gets walks g*W .. (g+1)*W - 1, as the per-batch sampler would
+        draw them. `draws` are the chain's for W * n lanes. Banded and
+        pair layouts, node2vec's biased chain included; the
+        position-major (multitail) sampler has no bulk emitter."""
+        if batch_size != self.batch_size:
+            raise ValueError("sampler was built for batch_size %d, not %d"
+                             % (self.batch_size, batch_size))
+        if self.position_major:
+            raise NotImplementedError(
+                "episode-bulk generation supports pair-major and banded "
+                "layouts; the position-major (multitail) sampler has no "
+                "bulk emitter")
+        aug = self.augmentation_step
+        W, n = self.num_walk, int(n_batches)
+        chain_fn = self.make_chain_fn(W * n)
+
+        if self.banded:
+            bidir = self.bidir
+
+            def sample(*arrays, generator=None, draws=None):
+                chain, valid = chain_fn(*arrays, generator=generator,
+                                        draws=draws)
+                ct, pm = emit_walk_banded(chain, valid, aug, bidir=bidir)
+                L1 = ct.shape[1]
+                ct = ct.reshape(n, W, L1)
+                return ct, ct, pm.reshape(n, W, L1, -1)
+        else:
+            def sample(*arrays, generator=None, draws=None):
+                chain, valid = chain_fn(*arrays, generator=generator,
+                                        draws=draws)
+                # walk-major pairs: each batch takes its own W walks
+                h, t, m = emit_walk_pairs(chain, valid, aug)
+                return (h.reshape(n, -1)[:, :batch_size],
+                        t.reshape(n, -1)[:, :batch_size],
+                        m.reshape(n, -1)[:, :batch_size].float())
+
+        # what a caller needs to make the draws: the chain and its lanes
+        sample.chain_fn, sample.lanes = chain_fn, W * n
         return sample

@@ -177,19 +177,25 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
       sorted entry of kernel 1 (SGD) or kernel 2 (moment rules);
     * sweep_context: the context update (tails and pool rows, any order)
       runs the unsorted front end of kernel 1 or kernel 2;
+    * sort_heads: walk pairs arrive in emission order, so the step sorts
+      the batch by head first (the reference's front end for the sweeps,
+      GRAPHVITE_SWEEP_WALK=1): masked slots park at row V-1, and a stable
+      argsort of the heads carries the tails and the mask along;
     * off: `optim.apply_row_updates` (kernel 1 for SGD).
     The trust clip on pool-row gradients applies on every route. On the
     sweep routes masked slots carry zeroed gradients, and masked tails
     park at row V-1 with no touch count.
 
+    GRAPHVITE_BF16_COMPUTE=1 (the reference's experimental switch, read
+    when the step is built) rounds the operands of the three pool products
+    to bf16 on bf16 tables and multiplies them in float32: the product of
+    two bf16 values is exact in float32, so this is the reference's "bf16
+    operands, float32 accumulation" up to the order of the sums (a bf16
+    matmul would round its output too).
+
     step(state, heads [B], tails [B], lr, *neg_state, mask=None,
     generator=None, draws=None) -> (state, loss); B % pool_groups == 0;
     `draws` = (u1, u2) [G, M] pool uniforms (`step.pool_shape`)."""
-    if sort_heads:
-        raise NotImplementedError(
-            "sort_heads (the walk-pair sweep front end, "
-            "GRAPHVITE_SWEEP_WALK=1) is not ported yet (ROADMAP queue 1, "
-            "item 11)")
     k = num_negative
     M = int(pool_size)
     G = int(pool_groups)
@@ -203,16 +209,23 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
         vertex, context = state["tables"]
         v_moms, c_moms = state["moments"]
         if bf16_mm and vertex.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "GRAPHVITE_BF16_COMPUTE=1 (bf16 operands for the pool "
-                "step's products over bf16 tables, an experimental opt-in "
-                "of the reference) is not ported yet (ROADMAP queue 1, "
-                "item 11)")
+            def mm(x):
+                return x.bfloat16().float()
+        else:
+            def mm(x):
+                return x
         b = heads.shape[0]
         if b % G:
             raise ValueError("batch %d must divide into %d pool groups"
                              % (b, G))
         bg = b // G
+        if sort_heads:
+            if mask is not None:
+                heads = heads.masked_fill(mask <= 0, vertex.shape[0] - 1)
+            order = torch.argsort(heads, stable=True)
+            heads, tails = heads[order], tails[order]
+            if mask is not None:
+                mask = mask[order]
         pool_ids = _pool_ids(neg_state, G, M, vertex.device, generator,
                              draws)
 
@@ -225,7 +238,7 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
         P = context[pool_ids].float()                        # [G, M, D]
 
         pos_logit = (v * c).sum(dim=-1)                      # [G, Bg]
-        neg_logits = torch.bmm(v, P.transpose(1, 2))         # [G, Bg, M]
+        neg_logits = torch.bmm(mm(v), mm(P).transpose(1, 2))  # [G, Bg, M]
         gpos = torch.sigmoid(pos_logit) - 1.0
         gneg = torch.sigmoid(neg_logits) * neg_w
         if mask is not None:
@@ -245,10 +258,11 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
                      / (1.0 + k * negative_weight))
 
         wd = opt.weight_decay
-        dv = (gpos[..., None] * c + torch.bmm(gneg, P)
+        dv = (gpos[..., None] * c + torch.bmm(mm(gneg), mm(P))
               + wd * (1.0 + M * neg_w) * v)
         dc = gpos[..., None] * v + wd * c
-        dP = torch.bmm(gneg.transpose(1, 2), v) + wd * (neg_w * bg) * P
+        dP = (torch.bmm(mm(gneg).transpose(1, 2), mm(v))
+              + wd * (neg_w * bg) * P)
         if mask is not None and (sweep_vertex or sweep_context):
             # the sweep routes keep masked slots in range, so their weight
             # decay residue (the only unmasked term) is zeroed here
@@ -454,19 +468,28 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
     [B, L1, T], compute every gradient/count/square the banded step needs.
 
     Returns (core, (k, M, G, T, neg_w)); core(v, c, P, mask, lr,
-    pool_mask=None) returns a dict (`pool_mask` [G, M] zeroes the pool
-    slots whose rows could not be fetched, as the multi-device engine's
-    dropped requests): dv [B,L1,D], dc [B,L1,D], dP [G,M,D] (trust-clipped), cnt/cntc
-    [B,L1] head/context touch counts, loss_sum, n_active, and (moment rules
-    only) v_counts/v_sqs, c_counts_main/c_sqs_main, p_counts/p_sqs."""
+    table_bf16=False, pool_mask=None) returns a dict (`pool_mask` [G, M]
+    zeroes the pool slots whose rows could not be fetched, as the
+    multi-device engine's dropped requests): dv [B,L1,D], dc [B,L1,D], dP
+    [G,M,D] (trust-clipped), cnt/cntc [B,L1] head/context touch counts,
+    loss_sum, n_active, and (moment rules only) v_counts/v_sqs,
+    c_counts_main/c_sqs_main, p_counts/p_sqs.
+
+    GRAPHVITE_BF16_BAND=1 (the reference's experimental switch, read when
+    the core is built) rounds each band product v * c_shifted to bf16
+    before its float32 row sum, where the caller's `table_bf16` says the
+    rows came from bf16 tables. Such rows are exact in bf16 and the
+    product of two bf16 values is exact in float32, so rounding the
+    float32 product gives the reference's bf16 product."""
     k = num_negative
     M = int(pool_size)
     G = int(pool_groups)
     offs = walk_offsets(int(aug), bool(bidir))
     T = len(offs)
     neg_w = float(negative_weight) * k / M
+    bf16_band = os.environ.get("GRAPHVITE_BF16_BAND", "0") == "1"
 
-    def core(v, c, P, mask, lr, pool_mask=None):
+    def core(v, c, P, mask, lr, table_bf16=False, pool_mask=None):
         B, L1 = v.shape[0], v.shape[1]
         if B % G:
             raise ValueError("walk batch %d must divide into %d pool groups"
@@ -478,9 +501,13 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
         # positive band: per offset, shifted elementwise product
         gpos_list, csh_list = [], []
         pos_loss = 0.0
+        band_bf16 = bf16_band and table_bf16
         for t_i, kk in enumerate(offs):
             csh = walk_shift_fwd(c, kk)
-            logit = (v * csh).sum(dim=-1)
+            prod = v * csh
+            if band_bf16:
+                prod = prod.bfloat16().float()
+            logit = prod.sum(dim=-1)
             m = mask[..., t_i]
             gpos_list.append((torch.sigmoid(logit) - 1.0) * m)
             csh_list.append(csh)
@@ -587,7 +614,7 @@ def make_graph_banded_fused_step(opt: Optimizer, num_negative: int,
         c = rows[..., D:]
         P = vc[:, D:][pool_ids].float()                      # [G, M, D]
 
-        o = core(v, c, P, mask, lr)
+        o = core(v, c, P, mask, lr, table_bf16=vc.dtype == torch.bfloat16)
         # dead slots carry exactly-zero grads (masked in the core), so
         # in-range ids scatter-add as no-ops — no sentinel routing needed
         delta = torch.zeros((npos + G * M, 2 * D), dtype=torch.float32,
@@ -627,11 +654,20 @@ def make_graph_banded_walk_step(opt: Optimizer, num_negative: int,
     receives ONE accumulated update for all pairs it takes part in. Updates
     go through optim.apply_row_updates (the scatter kernel on SGD).
 
+    GRAPHVITE_SWEEP_BANDED=1 (the reference's experimental switch, read
+    when the step is built; SGD only): the vertex update, and the context
+    update over chain and pool rows, take kernel 1's unsorted front end
+    directly, ids unmasked (dead slots carry exactly-zero gradients). On
+    bf16 tables each delta is rounded to bf16 before the sum, as the
+    reference's front end permutes bf16 deltas.
+
     step(state, chain [B, L1], _ (chain again, ignored), lr, *neg_state,
          mask [B, L1, T]) -> (state, loss); B % pool_groups == 0."""
     core, (k, M, G, T, _) = make_graph_banded_core(
         opt, num_negative, negative_weight, aug, bidir, pool_size,
         pool_groups, trust)
+    sweep_banded = (os.environ.get("GRAPHVITE_SWEEP_BANDED", "0") == "1"
+                    and opt.num_moment == 0)
 
     def step(state, chain, _tails, lr, *neg_state, mask=None,
              generator=None, draws=None):
@@ -648,7 +684,8 @@ def make_graph_banded_walk_step(opt: Optimizer, num_negative: int,
         c = context[chain].float()
         P = context[pool_ids].float()                        # [G, M, D]
 
-        o = core(v, c, P, mask, lr)
+        o = core(v, c, P, mask, lr,
+                 table_bf16=vertex.dtype == torch.bfloat16)
         D = v.shape[-1]
 
         v_counts = v_sqs = c_counts = c_sqs = None
@@ -660,6 +697,18 @@ def make_graph_banded_walk_step(opt: Optimizer, num_negative: int,
             c_sqs = torch.cat([o["c_sqs_main"], o["p_sqs"].reshape(G * M, D)])
 
         flat_ids = chain.reshape(npos)
+        if sweep_banded:
+            def delta(x):
+                x = x.reshape(-1, D) * -lr
+                return (x.bfloat16().float() if vertex.dtype == torch.bfloat16
+                        else x)
+
+            scatter_add_(vertex, flat_ids, delta(o["dv"]))
+            scatter_add_(context,
+                         torch.cat([flat_ids, pool_ids.reshape(-1)]),
+                         delta(torch.cat([o["dc"].reshape(npos, D),
+                                          o["dP"].reshape(G * M, D)])))
+            return state, _mean_loss(o, k, negative_weight)
         head_mask = (o["cnt"] > 0).reshape(npos).float()
         new_vertex, new_v_moms = apply_row_updates(
             vertex, v_moms, _mask_ids(flat_ids, head_mask, vertex.shape[0]),
@@ -678,6 +727,7 @@ def make_graph_banded_walk_step(opt: Optimizer, num_negative: int,
                      "moments": (new_v_moms, new_c_moms)}
         return new_state, _mean_loss(o, k, negative_weight)
 
+    step.pool_shape = (G, M)   # the shape of each of the `draws`
     return step
 
 
@@ -1419,13 +1469,16 @@ def make_micro_step(step_fn, num_micro: int, has_relation: bool = False):
 
 def make_fused_runner(step_fn, sample_fn, opt: Optimizer, ep_groups: int,
                       positive_reuse: int = 1, state_pack=None,
-                      state_unpack=None):
+                      state_unpack=None, bulk_sample_fn=None):
     """Episode runner: trains `ep_groups * positive_reuse` batches per call,
     generating each group's positives on the device with `sample_fn` and
     reusing them `positive_reuse` times with fresh negatives. The sample
     is (heads, tails, mask), or (heads, tails, rels, mask) for the
     knowledge-graph steps: its ids go to the step as they come, where the
-    reference's runner branches on `has_relation`.
+    reference's runner branches on `has_relation`. With `bulk_sample_fn`
+    (a walk sampler's make_episode_sample_fn, GRAPHVITE_BULK_WALKS=1) all
+    groups' positives are drawn in one call before the loop, and group g
+    takes slice g.
 
     run(state, batch_id0, num_batch_total, generator, sampler_arrays,
     neg_state) -> (state, losses [ep_groups * positive_reuse]). Losses stay
@@ -1438,8 +1491,14 @@ def make_fused_runner(step_fn, sample_fn, opt: Optimizer, ep_groups: int,
             if state_pack is not None:
                 state = state_pack(state)
             losses = []
+            if bulk_sample_fn is not None:
+                pool = bulk_sample_fn(*sampler_arrays, generator=generator)
             for g in range(ep_groups):
-                *ids, mask = sample_fn(*sampler_arrays, generator=generator)
+                if bulk_sample_fn is not None:
+                    *ids, mask = (x[g] for x in pool)
+                else:
+                    *ids, mask = sample_fn(*sampler_arrays,
+                                           generator=generator)
                 for r in range(R):
                     lr = opt.schedule_lr(batch_id0 + g * R + r,
                                          num_batch_total)

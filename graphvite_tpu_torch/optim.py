@@ -90,6 +90,22 @@ class Optimizer:
         return tuple(torch.zeros(shape, dtype=torch.float32, device=device)
                      for _ in range(self.num_moment))
 
+    def info(self):
+        """The optimizer's settings as the reference prints them."""
+        s = ("optimizer: %s\nlearning rate: %g, lr schedule: %s\n"
+             "weight decay: %g" % (self.type, self.lr, self.schedule,
+                                   self.weight_decay))
+        if self.type == "Momentum":
+            s += "\nmomentum: %g" % self.momentum
+        if self.type in ("AdaGrad", "RMSprop"):
+            s += "\nepsilon: %g" % self.epsilon
+        if self.type == "RMSprop":
+            s += "\nalpha: %g" % self.alpha
+        if self.type == "Adam":
+            s += "\nbeta1: %g, beta2: %g, epsilon: %g" % (
+                self.beta1, self.beta2, self.epsilon)
+        return s
+
 
 def make_optimizer(spec, default: Optional[Optimizer] = None, **kwargs) -> Optimizer:
     """Resolve user input (auto | float lr | name | dict | Optimizer)."""

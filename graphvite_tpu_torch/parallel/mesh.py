@@ -1477,7 +1477,9 @@ class ShardedGraphTrainer:
                 pm = c_["pmask"] * fposf[..., None]
                 pm = pm * torch.stack([walk_shift_fwd(fposf, kk)
                                        for kk in self._offs], dim=-1)
-                o = self._core(v, c, Prows, pm, lr, pool_mask=fpool)
+                o = self._core(v, c, Prows, pm, lr,
+                               table_bf16=flat.dtype == torch.bfloat16,
+                               pool_mask=fpool)
                 losses[i].append(o["loss_sum"]
                                  / torch.clamp(o["n_active"], min=1.0)
                                  / (1.0 + k * nw))

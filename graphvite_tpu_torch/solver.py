@@ -24,9 +24,10 @@ num_worker > 1, node embedding trains on the sharded multi-device engine
 (parallel/mesh.py) and knowledge graphs on the tied-weights sharded one
 (parallel/kg.py), worker i on cuda:device_ids[i] or, for device="cpu",
 on the CPU. sampler_backend="host" trains every solver on pools from the
-host samplers (sampler.py, `_train_loop`). What later slices port raises
-NotImplementedError naming its ROADMAP item: the reference's
-experimental walk opt-ins. Tables that the host master leaves in host
+host samplers (sampler.py, `_train_loop`). The reference's experimental
+walk opt-ins (GRAPHVITE_SWEEP_WALK, GRAPHVITE_BULK_WALKS,
+GRAPHVITE_BF16_BAND, GRAPHVITE_SWEEP_BANDED, GRAPHVITE_BF16_COMPUTE) are
+off unless set, as there. Tables that the host master leaves in host
 memory are scored by `predict` in chunks of touched rows.
 """
 from __future__ import annotations
@@ -358,7 +359,15 @@ class SolverBase:
         # clamp so short runs don't overshoot by a whole episode
         ep_groups = max(min(self._episode_batches(), self.num_batch) // R, 1)
         sample_fn = sampler.make_sample_fn(batch_size)
+        # GRAPHVITE_BULK_WALKS=1 (the reference's experimental opt-in):
+        # the whole episode's walks in one chain call
+        bulk_fn = None
+        if (hasattr(sampler, "make_episode_sample_fn") and ep_groups > 1
+                and not getattr(sampler, "position_major", False)
+                and os.environ.get("GRAPHVITE_BULK_WALKS", "0") == "1"):
+            bulk_fn = sampler.make_episode_sample_fn(batch_size, ep_groups)
         self._active_sample_fn = sample_fn
+        self._active_bulk_fn = bulk_fn
         self._active_sampler = sampler
         # the step and negative sampler of this run, for callers that
         # replay one of its batches
@@ -366,7 +375,8 @@ class SolverBase:
         self._active_neg_state = neg_state
         runner = _steps.make_fused_runner(
             step_fn, sample_fn, self.optimizer, ep_groups, R,
-            state_pack=state_pack, state_unpack=state_unpack)
+            state_pack=state_pack, state_unpack=state_unpack,
+            bulk_sample_fn=bulk_fn)
         sampler_arrays = sampler.arrays()
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.seed + self.batch_id)
@@ -680,18 +690,24 @@ class GraphSolver(SolverBase):
                               sweep_enabled and big and negative_sharing,
                               sweep_context, negative_sharing, log_frequency)
             return
-        if (negative_sharing and sweep_enabled and big
-                and env("GRAPHVITE_SWEEP_WALK", "0") == "1"):
-            raise NotImplementedError(
-                "GRAPHVITE_SWEEP_WALK=1 (walk pairs with the sort_heads sweep "
-                "front end) is not ported yet (ROADMAP queue 1, item 11)")
+        # GRAPHVITE_SWEEP_WALK=1 (the reference's experimental opt-in):
+        # walk pairs sorted by head in the step (sort_heads) take the sweep
+        # routes where their gate holds, on the pair layout
+        sort_heads = (negative_sharing and sweep_enabled and big
+                      and env("GRAPHVITE_SWEEP_WALK", "0") == "1")
+        if sort_heads:
+            ctx_env = env("GRAPHVITE_SWEEP_CONTEXT", "")
+            self._sweep_scatter = True
+            self._sweep_context = ctx_env == "1" or (ctx_env != "0"
+                                                     and sweep_enabled)
+            self._sweep_gather = env("GRAPHVITE_SWEEP_GATHER", "1") != "0"
         # the pooled walk layouts, exact regroupings of one pair set:
         # "pair" (one slot per pair), "multitail" (one sample per walk
         # position with its T tails), "banded" (whole walks, the default)
         walk_step_mode = env("GRAPHVITE_WALK_STEP", "banded")
         if env("GRAPHVITE_MULTITAIL", "1") == "0":
             walk_step_mode = "pair"
-        walk_grouped = (negative_sharing
+        walk_grouped = (negative_sharing and not sort_heads
                         and walk_step_mode in ("banded", "multitail"))
         banded = walk_grouped and walk_step_mode == "banded"
         multitail = walk_grouped and walk_step_mode == "multitail"
@@ -702,13 +718,6 @@ class GraphSolver(SolverBase):
                       and env("GRAPHVITE_WALK_BIDIR", "1") != "0")
         num_tail = (augmentation_step * (2 if walk_bidir else 1)
                     if walk_grouped else 0)
-        for name, where in (("GRAPHVITE_BULK_WALKS", not multitail),
-                            ("GRAPHVITE_BF16_BAND", banded),
-                            ("GRAPHVITE_SWEEP_BANDED", banded)):
-            if where and env(name, "0") == "1":
-                raise NotImplementedError(
-                    "%s=1 (an experimental opt-in of the reference) is not "
-                    "ported yet (ROADMAP queue 1, item 11)" % name)
         self._multitail_T = num_tail if multitail else 0
         # banded batches come in whole-walk units of T * (L+1) slots
         self._walk_slot_unit = (num_tail * (random_walk_length + 1)
@@ -728,10 +737,12 @@ class GraphSolver(SolverBase):
             # fused (vertex|context) arena: ONE gather + ONE scatter per
             # batch. SGD only, and only where the trust clip is inactive
             # (its row-norm logic is per table); packed/unpacked once per
-            # episode
+            # episode. GRAPHVITE_SWEEP_BANDED=1 takes the separate tables
+            # through kernel 1's unsorted front end instead
             self._banded_fused = (
                 self.optimizer.num_moment == 0
                 and (trust is None or big)
+                and env("GRAPHVITE_SWEEP_BANDED", "0") != "1"
                 and env("GRAPHVITE_FUSED_ARENA", "1") != "0")
             if self._banded_fused:
                 step_fn = _steps.make_graph_banded_fused_step(
@@ -754,12 +765,15 @@ class GraphSolver(SolverBase):
                 num_tail, pool_size=pool_size, pool_groups=pool_groups,
                 trust=trust)
         elif negative_sharing:
-            # walk pairs arrive unsorted: the sweeps stay off
+            # walk pairs arrive unsorted: the sweeps stay off unless the
+            # step sorts them (sort_heads)
             step_fn = _steps.make_graph_pool_step(
                 self.optimizer, self.num_negative, float(negative_weight),
                 pool_size=pool_size,
                 pool_groups=_steps.graph_pool_groups(pool_batch),
-                trust=trust)
+                trust=trust, sweep_vertex=sort_heads,
+                sweep_context=self._sweep_context,
+                sweep_gather=self._sweep_gather, sort_heads=sort_heads)
         else:
             step_fn = _steps.make_graph_train_step(
                 GRAPH_MODELS[model], self.optimizer, self.num_negative,
@@ -913,7 +927,9 @@ class GraphSolver(SolverBase):
                tuple(self.worker_devices), batch_size, ep_batches,
                int(augmentation_step), int(random_walk_length), float(p),
                float(q), float(negative_sample_exponent), negative_sharing,
-               pool_size, bidir, trust, env("GRAPHVITE_WALK_ROUTE_SLACK", ""))
+               pool_size, bidir, trust, env("GRAPHVITE_WALK_ROUTE_SLACK", ""),
+               # the walks engine's core reads it when it is built
+               env("GRAPHVITE_BF16_BAND", ""))
         setup = {}
         if getattr(self, "_mesh_key", None) != key:
             t0 = time.perf_counter()

@@ -7,6 +7,8 @@ import logging
 import os
 import time
 
+import numpy as np
+
 # Sentinel meaning "deduce this hyperparameter automatically" (the
 # reference's kAuto = 0, so YAML configs with `auto` behave identically).
 auto = 0
@@ -56,6 +58,18 @@ def hbm_budget_bytes(limit=auto, device=None):
     return 12e9
 
 
+def sigmoid(x):
+    """Numerically safe sigmoid of a numpy array, in float64 (the
+    reference's util/math.h:30-33): 1 / (1 + e^-x) for x >= 0, e^x / (1 +
+    e^x) below, so neither branch overflows."""
+    out = np.empty_like(x, dtype=np.float64)
+    pos = x >= 0
+    out[pos] = 1.0 / (1.0 + np.exp(-x[pos]))
+    ex = np.exp(x[~pos])
+    out[~pos] = ex / (1.0 + ex)
+    return out
+
+
 class Monitor:
     """Wall-clock stage timer (the reference's Monitor)."""
 
@@ -75,6 +89,29 @@ class Monitor:
 
     def summary(self):
         return {k: {"total_s": t, "calls": c} for k, (t, c) in self.records.items()}
+
+
+@contextlib.contextmanager
+def device_profile(trace_dir):
+    """Profile the enclosed block with torch.profiler (the CPU, and CUDA
+    where a card is present) and write a Chrome trace into `trace_dir`
+    (view it in chrome://tracing or Perfetto). Yields the profiler."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        path = os.path.join(trace_dir, "trace_%d_%d.json"
+                            % (os.getpid(), time.time_ns()))
+        prof.export_chrome_trace(path)
+        logger.info("device trace written to %s", path)
 
 
 def recursive_map(obj, fn):

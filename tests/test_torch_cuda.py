@@ -1553,3 +1553,144 @@ def test_two_processes_on_card_equal_one(across_cards, tmp_path):
             for key in want:
                 np.testing.assert_array_equal(out[key], want[key],
                                               err_msg="%s %s" % (name, key))
+
+
+# ---------------------------------------------------------------------------
+# the row-access kernels (csrc/row_access.cu) and the walk opt-ins
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,n", [(70000, 128, 20000), (4099, 20, 1001),
+                                   (5000, 8, 1500)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_row_access_kernels_match_plain_versions(v, d, n, wide):
+    """gather_rows, rmw_rows_ (unique ids, 3 i + jitter) and
+    sweep_add_sorted_ (repeated ids, a partial last tile of 8192 rows) bit
+    for bit against their plain versions on the card; N not a multiple of
+    512, widths with and without 4-column vectors."""
+    from graphvite_tpu_torch.ops import row_access as ra
+
+    dev = _cuda()
+    rng = np.random.default_rng(v + d)
+    it = torch.int64 if wide else torch.int32
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32),
+                            device=dev)
+    upd = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                          device=dev)
+    ids = torch.as_tensor(rng.integers(-2, v + 2, n), device=dev).to(it)
+    counts = (ra.gather_rows.launches, ra.rmw_rows_.launches,
+              ra.sweep_add_sorted_.launches)
+    got = ra.gather_rows(table, ids)
+    assert torch.equal(got, ra.gather_rows_plain(table, ids))
+    uniq = torch.as_tensor((np.arange(n) * 3 + rng.integers(0, 3, n)) % v,
+                           device=dev).to(it)
+    got = ra.rmw_rows_(table.clone(), uniq, upd, check_unique=True)
+    assert torch.equal(got, ra.rmw_rows_plain(table.clone(), uniq, upd))
+    rep = torch.sort(torch.as_tensor(
+        np.concatenate([(rng.random(n - 64) ** 3 * (v + 10)).astype(
+            np.int64), np.full(64, v - 1)]), device=dev).to(it))[0]
+    got = ra.sweep_add_sorted_(table.clone(), rep, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ra.sweep_add_sorted_plain(table.clone(), rep,
+                                                      upd))
+    assert (ra.gather_rows.launches, ra.rmw_rows_.launches,
+            ra.sweep_add_sorted_.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+def test_rmw_rows_check_unique_raises_on_card():
+    from graphvite_tpu_torch.ops import row_access as ra
+
+    dev = _cuda()
+    table = torch.zeros((10, 4), device=dev)
+    with pytest.raises(ValueError, match="unique"):
+        ra.rmw_rows_(table, torch.tensor([1, 2, 1], device=dev),
+                     torch.ones((3, 4), device=dev), check_unique=True)
+    with pytest.raises(TypeError, match="float32"):
+        ra.gather_rows(table.bfloat16(), torch.tensor([1], device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["SGD", "Adam"])
+def test_sort_heads_step_on_card_matches_cpu(rule):
+    """GRAPHVITE_SWEEP_WALK's step: unsorted walk-pair heads with dead
+    slots, sorted in the step, through the three kernels on the card
+    against the plain versions on the CPU."""
+    dev = _cuda()
+    rng = np.random.default_rng(11)
+    V, D, B, G, M = 4000, 32, 2048, 8, 16
+    heads = (rng.random(B) ** 2 * V).astype(np.int32)
+    tails = (rng.random(B) ** 2 * V).astype(np.int32)
+    mask = (rng.random(B) > 0.1).astype(np.float32)
+    u1, u2 = rng.random((G, M), np.float32), rng.random((G, M), np.float32)
+    packed = np.stack([np.ones(V, np.float32),
+                       np.arange(V, dtype=np.float32)], axis=1)
+    opt = Optimizer(type=rule, lr=0.025 if rule == "SGD" else 1e-3,
+                    weight_decay=5e-3 if rule == "SGD" else 0.0)
+    tables = [rng.normal(0, 0.1, (V, D)).astype(np.float32)
+              for _ in range(2)]
+    moms = [[np.abs(rng.normal(0, 1e-3, (V, D))).astype(np.float32)
+             for _ in range(opt.num_moment)] for _ in range(2)]
+    step = steps.make_graph_pool_step(opt, 1, 5.0, M, G, sweep_vertex=True,
+                                      sweep_context=True, sweep_gather=True,
+                                      sort_heads=True)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        def t(a):
+            return torch.as_tensor(np.array(a), device=d)
+        state = {"tables": tuple(t(x) for x in tables),
+                 "moments": tuple(tuple(t(m) for m in g) for g in moms)}
+        with torch.no_grad():
+            new, loss = step(state, t(heads), t(tails), opt.lr, t(packed),
+                             mask=t(mask), draws=(t(u1), t(u2)))
+        out.append(([x.cpu().numpy() for x in new["tables"]]
+                    + [m.cpu().numpy() for g in new["moments"] for m in g],
+                    float(loss)))
+    (gpu, gl), (cpu, cl) = out
+    np.testing.assert_allclose(gl, cl, rtol=2e-5)
+    for a, b in zip(gpu, cpu):
+        np.testing.assert_allclose(a, b, rtol=3e-4, atol=3e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sweep_banded_step_on_card_matches_cpu(dtype, monkeypatch):
+    """GRAPHVITE_SWEEP_BANDED's walk step (SGD; bf16 deltas rounded before
+    the sum) on the card against the CPU: float32 tables rtol 3e-4, atol
+    3e-6; bfloat16 within 1 ulp."""
+    monkeypatch.setenv("GRAPHVITE_SWEEP_BANDED", "1")
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    V, D, Bw, L1, G, M = 4000, 32, 64, 9, 8, 16
+    T = 4
+    chain = (rng.random((Bw, L1)) ** 2 * V).astype(np.int64)
+    mask = (rng.random((Bw, L1, T)) > 0.2).astype(np.float32)
+    u1, u2 = rng.random((G, M), np.float32), rng.random((G, M), np.float32)
+    packed = np.stack([np.ones(V, np.float32),
+                       np.arange(V, dtype=np.float32)], axis=1)
+    opt = Optimizer(type="SGD", lr=0.025, weight_decay=5e-3)
+    tables = [rng.normal(0, 0.1, (V, D)).astype(np.float32)
+              for _ in range(2)]
+    step = steps.make_graph_banded_walk_step(opt, 1, 5.0, 2, True, M, G,
+                                             trust=None)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        def t(a):
+            return torch.as_tensor(np.array(a), device=d)
+        state = {"tables": tuple(t(x).to(dtype) for x in tables),
+                 "moments": ((), ())}
+        before = scatter.scatter_add_.launches
+        with torch.no_grad():
+            new, loss = step(state, t(chain), t(chain), opt.lr, t(packed),
+                             mask=t(mask), draws=(t(u1), t(u2)))
+        if d.type == "cuda":
+            assert scatter.scatter_add_.launches == before + 2
+        out.append(([x.float().cpu() for x in new["tables"]], float(loss)))
+    (gpu, gl), (cpu, cl) = out
+    np.testing.assert_allclose(gl, cl, rtol=2e-5)
+    for a, b in zip(gpu, cpu):
+        if dtype == torch.float32:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=3e-4,
+                                       atol=3e-6)
+        else:
+            assert bool(((a - b).abs() <= _bf16_ulp(b)).all())

@@ -279,12 +279,6 @@ def test_pool_step_bf16(rule, sweep):
             np.testing.assert_array_equal(a, _bf16_values(b32))
 
 
-def test_sort_heads_raises():
-    _, p_opt, _ = _opts("SGD")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_steps.make_graph_pool_step(p_opt, 1, 5.0, sort_heads=True)
-
-
 # ---------------------------------------------------------------------------
 # the sorted entry of the scatter-add
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port's host data against the JAX package: Graph CSR and name maps,
 alias tables (native and numpy construction) and device_sample, from the same
-inputs."""
+inputs; and the small host API (Optimizer.info, utils.common.sigmoid and
+device_profile)."""
 import numpy as np
 import pytest
 import torch
@@ -155,3 +156,50 @@ def test_first_level_draw_reaches_every_column():
     packed = torch.ones(()).expand(1000, 2)
     u1, _ = port_alias.alias_draws((packed,), (8,), gen)
     assert u1.is_floating_point()
+
+
+# ---------------------------------------------------------------------------
+# the small host API
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rule", ["SGD", "Momentum", "AdaGrad", "RMSprop",
+                                  "Adam"])
+def test_optimizer_info_matches_reference(rule):
+    import graphvite_tpu.optim as ref_optim
+    import graphvite_tpu_torch.optim as port_optim
+
+    kw = dict(type=rule, lr=0.0125, weight_decay=3e-4, schedule="constant",
+              momentum=0.9, alpha=0.95, beta1=0.8, beta2=0.999,
+              epsilon=1e-6)
+    assert (port_optim.Optimizer(**kw).info()
+            == ref_optim.Optimizer(**kw).info())
+    assert (port_optim.Optimizer(type=rule).info()
+            == ref_optim.Optimizer(type=rule).info())
+
+
+def test_sigmoid_matches_reference():
+    from graphvite_tpu.utils.common import sigmoid as ref_sigmoid
+    from graphvite_tpu_torch.utils.common import sigmoid
+
+    x = np.array([-800.0, -30.0, -1.5, 0.0, 0.25, 30.0, 800.0])
+    got = sigmoid(x)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(got, ref_sigmoid(x))
+    assert got[0] == 0.0 and got[3] == 0.5 and got[-1] == 1.0
+    assert np.isfinite(got).all()
+    x32 = np.linspace(-5, 5, 11, dtype=np.float32)
+    np.testing.assert_array_equal(sigmoid(x32), ref_sigmoid(x32))
+
+
+def test_device_profile_writes_a_trace(tmp_path, caplog):
+    from graphvite_tpu_torch.utils.common import device_profile
+
+    trace_dir = tmp_path / "trace"
+    with caplog.at_level("INFO", logger="graphvite_tpu_torch"):
+        with device_profile(str(trace_dir)):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    files = list(trace_dir.iterdir())
+    assert len(files) == 1 and files[0].suffix == ".json"
+    text = files[0].read_text()
+    assert "traceEvents" in text and "aten::mm" in text
+    assert str(files[0]) in caplog.text

@@ -500,6 +500,75 @@ def test_walks_episode_matches_reference(rule, biased, kernel_route,
                                                   rtr.pair_emitted)
 
 
+def _bf16_ulp(x):
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
+
+
+def _bf16_walk_episode(ptr, pg, vertex, context):
+    """One walks episode of the port on bf16 tables, on the reference's
+    draws; (losses [1, W], tables as float32 numpy, per-row touch counts
+    over the workers)."""
+    pss = ptr.build_sample_state(pg)
+    s = ptr._banded_shape
+    draws = _walk_episode_draws(3, 0, ptr.num_partition, 1, s["Bw"],
+                                s["L1"] - 1, s["G"], s["M"], False)
+    pneg = ptr.init_negative_state(np.asarray(pg.vertex_weights))
+    state = ptr.init_state(torch.as_tensor(vertex).bfloat16(),
+                           torch.as_tensor(context).bfloat16())
+    state, _, losses = ptr.run_episode(state, pss, pneg, 0, 100, 3,
+                                       draws=draws)
+    touches = np.zeros(pg.num_vertex, np.int64)
+    for i, dev in enumerate(ptr.group.devices):
+        chain_draws, pool_draws = draws[i][0]
+        chain, _ = ptr._chain_fn(*pss[dev][0], draws=chain_draws)
+        pool = port_mesh.device_sample(*pneg[dev], *pool_draws)
+        touches += np.bincount(torch.cat([chain.reshape(-1),
+                                          pool.reshape(-1)]).numpy(),
+                               minlength=pg.num_vertex)
+    return (torch.stack(losses).numpy(),
+            [t.float().numpy() for t in ptr.gather_tables(state)], touches)
+
+
+def test_walks_episode_bf16_band(monkeypatch):
+    """GRAPHVITE_BF16_BAND=1 on bf16 tables at W = 2: the walks engine
+    rounds each band product to bf16 as the reference's does (its mesh
+    step passes table_bf16 to the core), so one episode's losses equal the
+    reference's to rtol 1e-5, while the port's run without the switch is
+    further off than that. Rows of magnitude ~1 make the products large
+    enough for the rounding to show in the loss. The reference runs with
+    jit disabled: compiled for the CPU, XLA may keep a bf16 product in
+    float32 (its excess-precision rule), and its episode then trains as
+    if the switch were off. Tables: within n + 2
+    bf16 ulps of the reference's for a row touched n times (the reference
+    rounds each shipped delta to bf16 and adds in bf16; the port sums in
+    float32 and rounds once)."""
+    monkeypatch.setenv("GRAPHVITE_BF16_BAND", "1")
+    rg, pg, rtr, ptr = _walk_pair(2, "SGD", EP=1)
+    rng = np.random.default_rng(5)
+    vertex = torch.as_tensor(rng.uniform(-1, 1, (pg.num_vertex, 16)),
+                             dtype=torch.float32).bfloat16().float().numpy()
+    context = torch.as_tensor(rng.normal(0, 0.5, (pg.num_vertex, 16)),
+                              dtype=torch.float32).bfloat16().float().numpy()
+    rss = rtr.build_sample_state(rg)
+    rstate = rtr.init_state(vertex.astype(jnp.bfloat16),
+                            context.astype(jnp.bfloat16))
+    rneg = rtr.init_negative_state(np.asarray(rg.vertex_weights))
+    with jax.disable_jit():
+        rstate, _, rl = rtr.run_episode(rstate, rss, rneg, 0, 100, 3)
+    rl = np.asarray(rl)
+    pl, ptab, touches = _bf16_walk_episode(ptr, pg, vertex, context)
+    np.testing.assert_allclose(pl, rl, **LOSS_TOL)
+    for a, b, t0 in zip(ptab, rtr.gather_tables(rstate), (vertex, context)):
+        b = np.asarray(b, np.float32)
+        mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), np.abs(t0))
+        assert np.all(np.abs(a - b)
+                      <= (touches[:, None] + 2) * _bf16_ulp(mag))
+    monkeypatch.setenv("GRAPHVITE_BF16_BAND", "0")
+    _, pg0, _, ptr0 = _walk_pair(2, "SGD", EP=1)
+    pl0, _, _ = _bf16_walk_episode(ptr0, pg0, vertex, context)
+    assert not np.allclose(pl0, rl, **LOSS_TOL)
+
+
 def test_walk_pair_drop_accounting():
     """A route slack far below the load of a sink's owner drops requests:
     the dropped and emitted counts equal the reference's, the masked pairs train the same

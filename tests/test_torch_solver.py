@@ -1,8 +1,8 @@
 """The port's walk route as a whole (solver.py, application/), on the CPU:
 bridged reference weights score identically, DeepWalk and LINE learn the
 two-block graph as well as the reference does, checkpoints and embeddings
-round-trip, the application pipeline runs, and what later slices port
-raises NotImplementedError."""
+round-trip, the application pipeline runs, and the paths that earlier
+slices left to later ones now train."""
 import numpy as np
 import pytest
 import torch
@@ -246,14 +246,15 @@ def test_linear_classification_matches_reference():
 @pytest.mark.parametrize("kwargs,env,match", [
     # blocked episodes are ported: this case now trains
     (dict(augmentation_step=1, num_partition=2), {}, None),
-    # the reference's experimental walk opt-ins
-    (dict(model="node2vec"), {"GRAPHVITE_BULK_WALKS": "1"}, "item 11"),
-    (dict(), {"GRAPHVITE_BF16_BAND": "1"}, "item 11"),
-    (dict(), {"GRAPHVITE_SWEEP_BANDED": "1"}, "item 11"),
+    # the reference's experimental walk opt-ins are ported: these cases
+    # now train (tests/test_torch_opt_ins.py)
+    (dict(model="node2vec"), {"GRAPHVITE_BULK_WALKS": "1"}, None),
+    (dict(), {"GRAPHVITE_BF16_BAND": "1"}, None),
+    (dict(), {"GRAPHVITE_SWEEP_BANDED": "1"}, None),
     # bf16 operands for the pool step's products: they take effect on
-    # bf16 tables only, so a float32 run with the switch set trains
+    # bf16 tables only, so a float32 run with the switch set trains too
     (dict(augmentation_step=1, float_type="bfloat16"),
-     {"GRAPHVITE_BF16_COMPUTE": "1"}, "item 11"),
+     {"GRAPHVITE_BF16_COMPUTE": "1"}, None),
     (dict(augmentation_step=1), {"GRAPHVITE_BF16_COMPUTE": "1"}, None),
 ])
 def test_unported_training_paths_raise(kwargs, env, match, monkeypatch):
