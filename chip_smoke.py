@@ -26,12 +26,13 @@ Phases, in order (any failure exits non-zero and prints no result line):
             sweep_add_sorted_ bit for bit against their plain versions on
             the card at that shape (the sweep also on hub-skewed ids) and
             at the shapes the reference's kernels leave out (N 325,519,
-            not a multiple of 512; 4,099 x 20 with N 1,001: a partial
-            last 8192-row tile, no 4-column vectors; repeated ids and ids
-            >= V for the sweep), each timed at the reference's shape
-            beside its plain version, index_select or index_add_ and its
-            bytes bound; rmw_rows_(check_unique=True) must raise on a
-            repeated id.
+            not a multiple of 512 nor of the sweep's 64-position chunk;
+            4,099 x 20 with N 1,001: no 4-column vectors, so the sweep
+            stages rows without TMA; repeated ids and ids >= V for the
+            sweep), each timed at the reference's shape beside its plain
+            version, index_select or index_add_ and its bytes bound (the
+            sweep also beside kernel 1's sorted entry on the same ids);
+            rmw_rows_(check_unique=True) must raise on a repeated id.
 4. main     DeepWalk through GraphSolver.build/train at the
             config/graph/deepwalk_youtube.yaml hyperparameters (dim 128,
             SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5, walk 40,
@@ -4547,11 +4548,13 @@ def row_access_case(name, v, d, n, gen, timed, skewed=False):
     which clamp), RMW on the reference's unique ids (3 i + jitter), the
     sweep on the reference's sorted random ids or, `skewed`, on sorted
     hub-skewed ids (runs of up to ~1,300, ~15% of the ids in the first
-    tile, ids >= V dropped). With `timed`: the wrapper, the kernel alone
-    (the sweep without its searchsorted), the plain version and the
-    library call, beside the bytes bound."""
+    8192 rows, ids >= V dropped). With `timed`: the wrapper, the kernel
+    alone (the sweep's two kernels on scratch allocated once), the plain
+    version and the library call, beside the bytes bound; for the sweep
+    also kernel 1's sorted entry on the same ids, wrapper and alone."""
     import torch
     from graphvite_tpu_torch.ops import row_access as ra
+    from graphvite_tpu_torch.ops import scatter
 
     dev = torch.device("cuda")
     table = torch.randn((v, d), generator=gen, device=dev)
@@ -4588,13 +4591,17 @@ def row_access_case(name, v, d, n, gen, timed, skewed=False):
         ids = torch.sort(ids)[0]
         want = ra.sweep_add_sorted_plain(table.clone(), ids, upd)
         got = ra.sweep_add_sorted_(table.clone(), ids, upd)
-        bounds = ra.tile_bounds(ids, v)
+        scratch = ra.sweep_scratch(table, n)
         call = (lambda: ra.sweep_add_sorted_(table, ids, upd))
-        kernel = (lambda: ra._launch_sweep(table, ids, upd, bounds))
+        kernel = (lambda: ra._launch_sweep(table, ids, upd, scratch))
         plain = (lambda: ra.sweep_add_sorted_plain(table, ids, upd))
         keep = ids < v
         ids_in, upd_in = ids[keep], upd[keep]
         library = (lambda: table.index_add_(0, ids_in, upd_in))
+        # kernel 1's sorted entry computes the same function
+        kernel1 = (lambda: scatter.scatter_add_sorted_(table, ids, upd))
+        kernel1_alone = (lambda: scatter._launch_add(table, ids, upd,
+                                                     sort=False))
     torch.cuda.synchronize()
     max_err = float((got - want).abs().max())
     if not torch.equal(got, want):
@@ -4620,6 +4627,9 @@ def row_access_case(name, v, d, n, gen, timed, skewed=False):
                plain_ms=cuda_ms(plain, reps=5, warmup=1),
                library_ms=cuda_ms(library), bound_ms=bound_ms,
                bound_by=bound_by)
+    if name == "sweep_add_sorted":
+        rec.update(kernel1_ms=cuda_ms(kernel1),
+                   kernel1_kernel_ms=cuda_ms(kernel1_alone))
     return rec
 
 

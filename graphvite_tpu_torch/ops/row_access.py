@@ -6,7 +6,8 @@ of tools/pallas_bench.py, which the row-access bench
 * `rmw_rows_(table, ids, upd)`: table[ids[j]] += upd[j] in place, ids
   unique within the call (make_pallas_rmw);
 * `sweep_add_sorted_(table, sorted_ids, upd)`: table[sorted_ids[j]] +=
-  upd[j] in place, repeated ids summed in sorted order (make_pallas_sweep).
+  upd[j] in place for ascending ids, repeats summed in a fixed order
+  (make_pallas_sweep).
 
 Contract: table [V, D] float32 (any other type raises), contiguous on the
 card; ids [N] int32 or int64; upd [N, D]. gather_rows clamps ids outside
@@ -15,19 +16,29 @@ a repeated id, as the reference's kernel does; `check_unique=True` raises
 on one instead (a host sync). sweep_add_sorted_ needs ascending ids; on
 the card it does not check them (a host sync), on the CPU it does.
 
-Unlike the reference's kernels these do the whole job: every row of N is
-gathered or updated (the reference's grid covers N // chunk chunks), the
-sweep covers ceil(V / SWEEP_TILE_ROWS) tiles (the reference's V //
-tile_rows drops the rows of a partial last tile) and has no cap on a tile's
-updates.
+The sweep's order of sums: the N positions are cut into chunks of
+chunk_rows(D) (64 at D = 128); a run of equal ids is cut at the chunks'
+edges into parts; each part is summed in float32 from zero in sorted
+order, the parts are combined in chunk order, and the total is added to
+its row once. The order depends on the shape alone, so the result is a
+pure function of the inputs, and the kernel is bit-equal to
+sweep_add_sorted_plain, which does the same adds in the same order.
+Against the reference's sweep (which adds a run's updates to the row one
+by one) it is bit-equal where ids are unique (each row one add) and
+within 1e-6 of the largest magnitude where they repeat.
 
-On a CUDA tensor each wrapper launches its hand-written kernel in
+Unlike the reference's kernels these do the whole job: every row of N is
+gathered or updated (the reference's grid covers N // chunk chunks), and
+the sweep applies every update (the reference's V // tile_rows tiles drop
+the rows of a partial last tile, and its slab caps a tile's updates).
+
+On a CUDA tensor each wrapper launches its hand-written kernels in
 graphvite_tpu_torch/csrc/row_access.cu (built with nvcc for sm_90a at first
 use, bound with ctypes) or raises; on a CPU tensor it runs the plain
 version beside it (`*_plain`, which chip_smoke.py also holds the kernels
-against on the card). The sweep's per-tile position bounds come from
-torch.searchsorted on the card, as the reference computes its per-tile
-lo and cnt outside its kernel.
+against on the card). The sweep needs no bounds from the host: its CTAs
+split the sorted positions, and its scratch (sweep_scratch) is allocated
+by the wrapper.
 """
 from __future__ import annotations
 
@@ -38,9 +49,6 @@ import torch
 
 from graphvite_tpu_torch.ops import kernels
 
-# table rows per tile of the sweep (the reference experiment's 8192)
-SWEEP_TILE_ROWS = 8192
-
 
 @functools.lru_cache(maxsize=None)
 def _library():
@@ -48,7 +56,8 @@ def _library():
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.gv_gather_rows.argtypes = [vp, vp, i, vp, ll, ll, ll, i, vp]
     lib.gv_rmw_rows.argtypes = [vp, vp, i, vp, ll, ll, ll, i, vp]
-    lib.gv_sweep_add_sorted.argtypes = [vp, vp, i, vp, vp, ll, ll, ll, i, vp]
+    lib.gv_sweep_add_sorted.argtypes = [vp, vp, i, vp, vp, vp, ll, ll, ll,
+                                        i, i, vp]
     for fn in (lib.gv_gather_rows, lib.gv_rmw_rows, lib.gv_sweep_add_sorted):
         fn.restype = i
     return lib
@@ -185,72 +194,120 @@ def rmw_rows_(table, ids, upd, check_unique=False):
 
 
 # ---------------------------------------------------------------------------
-# tile sweep of sorted updates
+# sweep of sorted updates
 # ---------------------------------------------------------------------------
 
-def tile_bounds(sorted_ids, v):
-    """[T + 1] int64 positions, T = ceil(V / SWEEP_TILE_ROWS): tile t's ids
-    lie at [bounds[t], bounds[t + 1]) of the ascending `sorted_ids`."""
-    tiles = -(-v // SWEEP_TILE_ROWS)
-    edges = torch.arange(tiles + 1, dtype=sorted_ids.dtype,
-                         device=sorted_ids.device) * SWEEP_TILE_ROWS
-    return torch.searchsorted(sorted_ids, edges)
+# update bytes one chunk stages in shared memory, at most (a stage of the
+# kernel's ring)
+SWEEP_STAGE_BYTES = 32768
+
+
+def chunk_rows(d):
+    """Positions per chunk of the sweep at width D: the largest of 256,
+    128, 64, 32 whose update rows (min(D, 128) columns, one pass) fit in
+    SWEEP_STAGE_BYTES. It depends on the shape alone, so the order of
+    every sum is fixed: 64 at D = 128, 256 at D <= 32."""
+    cols = min(d, 128)
+    c = 256
+    while c > 32 and c * cols * 4 > SWEEP_STAGE_BYTES:
+        c //= 2
+    return c
+
+
+def sweep_scratch(table, n):
+    """Uninitialized scratch for one sweep over N positions: the head and
+    tail slots' ids [chunks, 2] int32 and partial sums [chunks, 2, D]
+    float32 (the kernel writes every slot's id, so nothing is zeroed)."""
+    d = table.shape[1]
+    chunks = -(-n // chunk_rows(d))
+    return (torch.empty((chunks, 2), dtype=torch.int32, device=table.device),
+            torch.empty((chunks, 2, d), dtype=torch.float32,
+                        device=table.device))
+
+
+def _add_in_step_order(out, group, step, values, start):
+    """out[group[i]] += values[i] for every i with step[i] >= start, one
+    step at a time: each group's adds in ascending step."""
+    for k in range(start, int(step.max()) + 1):
+        at = torch.nonzero(step == k).squeeze(1)
+        out[group[at]] = out[group[at]] + values[at]
+    return out
 
 
 def sweep_add_sorted_plain(table, sorted_ids, upd):
     """The sweep by indexing (the CPU path and what the kernel is held
-    against): each run of equal ids summed in float32 from zero in sorted
-    order, one update row per step of a loop over the position in the
-    run, then added to its row once; ids outside [0, V) dropped. The same
-    adds in the same order as the kernel, on any device."""
+    against), with the kernel's adds in the kernel's order: the positions
+    are cut into chunks of chunk_rows(D); each run of equal ids is cut at
+    the chunks' edges into parts; each part is summed in float32 from zero
+    in sorted order (one update row per step of a loop over the position
+    in the part, at most chunk_rows(D) steps); a run's parts are combined
+    in chunk order, the first as it is; the total is added to its row
+    once. Ids outside [0, V) dropped. Any device."""
     _check(table, sorted_ids, upd)
     v, d = table.shape
-    ids = sorted_ids.long()
-    keep = (ids >= 0) & (ids < v)
-    ids, upd = ids[keep], upd[keep]
-    if ids.numel() == 0:
+    n = sorted_ids.shape[0]
+    if n == 0:
         return table
-    rows, counts = torch.unique_consecutive(ids, return_counts=True)
-    run = torch.repeat_interleave(
-        torch.arange(rows.numel(), device=ids.device), counts)
-    pos = (torch.arange(ids.numel(), device=ids.device)
-           - (torch.cumsum(counts, 0) - counts)[run])
-    acc = torch.zeros((rows.numel(), d), dtype=torch.float32,
-                      device=table.device)
-    for k in range(int(counts.max())):
-        at = torch.nonzero(pos == k).squeeze(1)
-        acc[run[at]] = acc[run[at]] + upd[at]
-    table[rows] = table[rows] + acc
+    dev = table.device
+    ids = sorted_ids.long()
+    key = torch.where((ids >= 0) & (ids < v), ids, -1)   # as the kernel reads
+    pos = torch.arange(n, device=dev)
+    cut = pos % chunk_rows(d) == 0
+    cut[1:] |= key[1:] != key[:-1]
+    part = torch.cumsum(cut, 0) - 1
+    starts = torch.nonzero(cut).squeeze(1)
+    sums = _add_in_step_order(
+        torch.zeros((starts.numel(), d), dtype=torch.float32, device=dev),
+        part, pos - starts[part], upd, 0)
+    pkey = key[starts]
+    first = torch.ones(starts.numel(), dtype=torch.bool, device=dev)
+    first[1:] = pkey[1:] != pkey[:-1]
+    run = torch.cumsum(first, 0) - 1
+    lead = torch.nonzero(first).squeeze(1)
+    j = torch.arange(starts.numel(), device=dev) - lead[run]
+    total = _add_in_step_order(sums[lead], run, j, sums, 1)
+    rows = pkey[lead]
+    live = rows >= 0
+    rows, total = rows[live], total[live]
+    table[rows] = table[rows] + total
     return table
 
 
 def sweep_add_sorted_(table, sorted_ids, upd):
-    """In place: table[sorted_ids[j]] += upd[j] for ascending ids, each
-    run of equal ids summed in float32 in sorted order and its row written
-    once; ids outside [0, V) dropped. One CTA per tile of SWEEP_TILE_ROWS
-    table rows. Returns `table`."""
+    """In place: table[sorted_ids[j]] += upd[j] for ascending ids, ids
+    outside [0, V) dropped, each distinct row written once; repeats summed
+    in the order of sweep_add_sorted_plain. On the card: persistent CTAs
+    over chunks of chunk_rows(D) positions, then one warp per run that
+    crosses a chunk's edge. Returns `table`."""
     _check(table, sorted_ids, upd)
     if not _on_card(table, "sweep_add_sorted_"):
         _check_sorted(sorted_ids)
         return sweep_add_sorted_plain(table, sorted_ids, upd)
-    if sorted_ids.shape[0] and table.shape[1]:
+    n = sorted_ids.shape[0]
+    if n and table.shape[1]:
         with torch.cuda.device(table.device):
-            ids = sorted_ids.contiguous()
-            _launch_sweep(table, ids, upd.contiguous(),
-                          tile_bounds(ids, table.shape[0]))
+            _launch_sweep(table, sorted_ids.contiguous(), upd.contiguous(),
+                          sweep_scratch(table, n))
         sweep_add_sorted_.launches += 1
     return table
 
 
-def _launch_sweep(table, sorted_ids, upd, bounds):
-    """The sweep kernel alone, on contiguous ids and updates and the tiles'
-    position bounds (tile_bounds)."""
+def _launch_sweep(table, sorted_ids, upd, scratch):
+    """The sweep's two kernels alone, on contiguous ids and updates and
+    the scratch of sweep_scratch."""
     v, d = table.shape
-    _, wide, vec = _args(table, sorted_ids, upd)
+    part_id, part = scratch
+    chunks = -(-sorted_ids.numel() // chunk_rows(d))
+    if part_id.shape != (chunks, 2) or part.shape != (chunks, 2, d):
+        raise ValueError("sweep scratch %s, %s does not fit N %d, width %d"
+                         % (tuple(part_id.shape), tuple(part.shape),
+                            sorted_ids.numel(), d))
+    _, wide, vec = _args(table, sorted_ids, upd, part)
     lib = _library()
     rc = lib.gv_sweep_add_sorted(
         table.data_ptr(), sorted_ids.data_ptr(), wide, upd.data_ptr(),
-        bounds.data_ptr(), bounds.numel() - 1, v, d, vec, _stream(table))
+        part_id.data_ptr(), part.data_ptr(), sorted_ids.numel(), v, d,
+        chunk_rows(d), vec, _stream(table))
     kernels.check_launch(lib, rc, "sweep_add_sorted")
 
 

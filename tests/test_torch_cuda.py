@@ -1565,9 +1565,9 @@ def test_two_processes_on_card_equal_one(across_cards, tmp_path):
 @pytest.mark.parametrize("wide", [False, True])
 def test_row_access_kernels_match_plain_versions(v, d, n, wide):
     """gather_rows, rmw_rows_ (unique ids, 3 i + jitter) and
-    sweep_add_sorted_ (repeated ids, a partial last tile of 8192 rows) bit
-    for bit against their plain versions on the card; N not a multiple of
-    512, widths with and without 4-column vectors."""
+    sweep_add_sorted_ (repeated ids, ids >= V dropped) bit for bit against
+    their plain versions on the card; N not a multiple of 512 nor of the
+    sweep's chunk, widths with and without 4-column vectors."""
     from graphvite_tpu_torch.ops import row_access as ra
 
     dev = _cuda()
@@ -1595,6 +1595,81 @@ def test_row_access_kernels_match_plain_versions(v, d, n, wide):
                                                       upd))
     assert (ra.gather_rows.launches, ra.rmw_rows_.launches,
             ra.sweep_add_sorted_.launches) == tuple(c + 1 for c in counts)
+
+
+def _chunked_sweep_ids(rng, v, c):
+    """Ascending ids over chunks of c positions (c a multiple of 4):
+    dropped ids at both ends; repeats in [0, 10) up to the first chunk's
+    edge; a hub run of 7 c + 5 positions from there (chunks wholly inside
+    it); repeats up to the edge at 9 c; runs of 4 over two chunks, so
+    runs end on chunk edges; random repeats; N = 17 c + 10, not a
+    multiple of c."""
+    def rand(lo, hi, size):
+        return np.sort(rng.integers(lo, hi, size))
+
+    return np.concatenate([
+        [-7, -1], rand(0, 10, c - 2), np.full(7 * c + 5, 11),
+        rand(12, 100, c - 5), np.repeat(np.arange(100, 100 + c // 2), 4),
+        rand(400, v, 6 * c + 7), [v, v, v + 3]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 20, 3, 200, 130])
+@pytest.mark.parametrize("wide", [False, True])
+def test_sweep_chunks_match_plain_version(d, wide):
+    """The sweep's chunked kernels bit for bit against
+    sweep_add_sorted_plain: a hub run across many chunks, runs ending on
+    chunk edges, dropped ids, a partial last chunk; widths with TMA
+    staging (128, 200: two column passes) and without (20, 3, 130), int32
+    and int64 ids; two calls give the same bits."""
+    from graphvite_tpu_torch.ops import row_access as ra
+
+    dev = _cuda()
+    rng = np.random.default_rng(d + wide)
+    v, c = 3000, ra.chunk_rows(d)
+    it = torch.int64 if wide else torch.int32
+    ids = torch.as_tensor(_chunked_sweep_ids(rng, v, c), device=dev).to(it)
+    n = ids.numel()
+    assert n % c and n > 16 * c
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32),
+                            device=dev)
+    upd = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                          device=dev)
+    count = ra.sweep_add_sorted_.launches
+    got = ra.sweep_add_sorted_(table.clone(), ids, upd)
+    again = ra.sweep_add_sorted_(table.clone(), ids, upd)
+    want = ra.sweep_add_sorted_plain(table.clone(), ids, upd)
+    torch.cuda.synchronize()
+    assert ra.sweep_add_sorted_.launches == count + 2
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_sweep_chunks_unaligned_pointers():
+    """Update rows and ids 4 bytes off 16-byte alignment at width 128: the
+    kernel stages rows without TMA and reads the ids from device memory,
+    bit-equal to the plain version all the same."""
+    from graphvite_tpu_torch.ops import row_access as ra
+
+    dev = _cuda()
+    rng = np.random.default_rng(9)
+    v, d = 3000, 128
+    ids = _chunked_sweep_ids(rng, v, ra.chunk_rows(d))
+    n = ids.size
+    id_buf = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    id_buf[1:] = torch.as_tensor(ids, device=dev)
+    upd_buf = torch.zeros(n * d + 1, device=dev)
+    upd_buf[1:] = torch.as_tensor(rng.normal(size=n * d).astype(np.float32),
+                                  device=dev)
+    sid, upd = id_buf[1:], upd_buf[1:].view(n, d)
+    assert sid.data_ptr() % 16 and upd.data_ptr() % 16
+    table = torch.as_tensor(rng.normal(size=(v, d)).astype(np.float32),
+                            device=dev)
+    got = ra.sweep_add_sorted_(table.clone(), sid, upd)
+    want = ra.sweep_add_sorted_plain(table.clone(), sid, upd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

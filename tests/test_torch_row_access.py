@@ -200,9 +200,11 @@ def test_sweep_slab_cap(monkeypatch):
 
 def test_sweep_pad_rows_and_repeats_against_index_add():
     """The reference experiment's pad rows (cap zero updates at id V - 1)
-    and long runs of one id, any number in a tile, V not a multiple of
-    SWEEP_TILE_ROWS: table.index_add_ within 1e-6 of the largest
-    magnitude, and ids outside [0, V) dropped."""
+    and long runs of one id, any number in a tile, V not a multiple of the
+    reference's tile: table.index_add_ within 1e-6 of the largest
+    magnitude, and ids outside [0, V) dropped. The chunks are cut by
+    position, dropped ones included, so the dropped head is one whole
+    chunk: the live ids keep their parts and give the same bits."""
     rng = np.random.default_rng(5)
     v, d = 5000, 24
     ids = np.sort(np.concatenate([
@@ -217,8 +219,10 @@ def test_sweep_pad_rows_and_repeats_against_index_add():
                                        torch.from_numpy(upd))
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-6 * float(want.abs().max()))
-    wide = np.concatenate([[-3, -1], ids, [v, v + 9]])
-    upd2 = np.concatenate([np.ones((2, d), np.float32), upd,
+    c = row_access.chunk_rows(d)
+    head = np.repeat([-3, -1], [c - c // 2, c // 2])
+    wide = np.concatenate([head, ids, [v, v + 9]])
+    upd2 = np.concatenate([np.ones((c, d), np.float32), upd,
                            np.ones((2, d), np.float32)])
     again = row_access.sweep_add_sorted_(table.clone(),
                                          torch.from_numpy(wide),
@@ -226,12 +230,102 @@ def test_sweep_pad_rows_and_repeats_against_index_add():
     torch.testing.assert_close(again, got, rtol=0, atol=0)
 
 
-def test_tile_bounds():
-    t = row_access.SWEEP_TILE_ROWS
-    ids = torch.tensor([0, 3, t - 1, t, t, 3 * t + 5, 4 * t + 99],
-                       dtype=torch.int32)
-    b = row_access.tile_bounds(ids, 4 * t + 100)
-    assert b.tolist() == [0, 3, 5, 5, 6, 7]
+def test_chunk_rows():
+    """The sweep's chunk follows the width alone: the largest of 256,
+    128, 64, 32 positions whose rows (one pass of at most 128 columns)
+    fit in one 32 KB stage."""
+    got = {d: row_access.chunk_rows(d) for d in (1, 3, 20, 32, 64, 100,
+                                                 128, 200, 2048)}
+    assert got == {1: 256, 3: 256, 20: 256, 32: 256, 64: 128, 100: 64,
+                   128: 64, 200: 64, 2048: 64}
+    for d, c in got.items():
+        assert c % 4 == 0 and c * min(d, 128) * 4 <= (
+            row_access.SWEEP_STAGE_BYTES)
+
+
+def _chunk_layout(layout, c, seed=6):
+    """4 tiles of 1024 rows with exactly 384 sorted updates each (the
+    reference's slab is 384 rows), N = 24 chunks of c = 64:
+      long_run: tile 0 holds a run of 5 c + 3 positions of one id;
+      inside_run: a run of 3 c from position c / 2, so chunks 1 and 2 lie
+        wholly inside it;
+      edge_runs: tiles 1-3 are runs of 4, so runs end on every chunk edge;
+      dropped_tail: ids >= V after the 4 tiles (the reference has no tile
+        for them)."""
+    rng = np.random.default_rng(seed)
+    tiles = [t * 1024 + np.sort(rng.integers(0, 1024, 384))
+             for t in range(4)]
+    if layout == "long_run":
+        tiles[0] = np.sort(np.concatenate([np.full(5 * c + 3, 17),
+                                           rng.integers(0, 1024,
+                                                        384 - 5 * c - 3)]))
+    elif layout == "inside_run":
+        tiles[0] = np.concatenate([np.sort(rng.integers(0, 40, c // 2)),
+                                   np.full(3 * c, 41),
+                                   np.sort(rng.integers(42, 1024,
+                                                        384 - 3 * c - c // 2))])
+    elif layout == "edge_runs":
+        tiles[1:] = [t * 1024 + np.repeat(np.sort(rng.choice(1024, 96,
+                                                              replace=False)),
+                                          4) for t in (1, 2, 3)]
+    ids = np.concatenate(tiles)
+    if layout == "dropped_tail":
+        ids = np.concatenate([ids, [4096, 4096, 5000]])
+    return ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", ["long_run", "inside_run", "edge_runs",
+                                    "dropped_tail"])
+def test_sweep_chunks_against_reference(layout, monkeypatch):
+    """The port's chunked order (parts summed per chunk, combined in chunk
+    order) on runs that cross chunks, fill them, end on their edges, and
+    on a dropped tail: within 1e-6 of the largest magnitude of the
+    reference's interpreted sweep and of a float64 sum."""
+    v, d = 4096, 128
+    c = row_access.chunk_rows(d)
+    ids = _chunk_layout(layout, c)
+    n = ids.size
+    if layout == "long_run":      # the run touches 6 or 7 chunks
+        at = np.flatnonzero(ids == 17)
+        assert at.size == 5 * c + 3 and at[-1] // c - at[0] // c >= 5
+    if layout == "inside_run":
+        assert (ids[c:3 * c] == 41).all() and ids[c - 1] == ids[3 * c] == 41
+    if layout == "edge_runs":
+        assert all(ids[k * c - 1] != ids[k * c] for k in range(7, 24))
+    ref = _reference_tool(monkeypatch, v, d, n)
+    table = _table(v, d)
+    upd = np.random.default_rng(7).normal(size=(n, d)).astype(np.float32)
+    kept = ids < v
+    got = np.asarray(ref.make_pallas_sweep(1024, 384)(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(upd)))
+    port = row_access.sweep_add_sorted_(
+        torch.from_numpy(table.copy()), torch.from_numpy(ids),
+        torch.from_numpy(upd)).numpy()
+    want = table.astype(np.float64)
+    np.add.at(want, ids[kept], upd[kept].astype(np.float64))
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(port, got, rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(port, want, rtol=0, atol=1e-6 * scale)
+    rows, counts = np.unique(ids[kept], return_counts=True)
+    once = rows[counts == 1]          # one add each: bit-equal
+    np.testing.assert_array_equal(port[once], got[once])
+
+
+def test_sweep_same_bits_twice():
+    """Two calls on the same inputs give the same bits: the order of the
+    sums depends on the shape alone."""
+    rng = np.random.default_rng(8)
+    v, d = 3000, 20
+    c = row_access.chunk_rows(d)
+    ids = np.sort(np.concatenate([np.full(3 * c + 1, 5),
+                                  rng.integers(0, v + 5, 2 * c)]))
+    upd = torch.from_numpy(rng.normal(size=(ids.size, d)).astype(np.float32))
+    table = torch.from_numpy(_table(v, d))
+    a = row_access.sweep_add_sorted_(table.clone(), torch.from_numpy(ids),
+                                     upd)
+    b = row_access.sweep_add_sorted_(table.clone(), torch.from_numpy(ids),
+                                     upd)
+    assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +345,9 @@ def test_wrapper_contract():
     with pytest.raises(ValueError, match="ascending"):
         row_access.sweep_add_sorted_(t, torch.tensor([2, 1]),
                                      torch.zeros((2, 4)))
+    with pytest.raises(ValueError, match="scratch"):   # before any launch
+        row_access._launch_sweep(t, torch.tensor([1, 2]), torch.zeros((2, 4)),
+                                 row_access.sweep_scratch(t, 1000))
     # out-of-range ids: the gather clamps, the RMW drops
     got = row_access.gather_rows(torch.arange(40.).reshape(10, 4),
                                  torch.tensor([-5, 3, 99]))
