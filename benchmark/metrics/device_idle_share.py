@@ -1,0 +1,9 @@
+"""Device idle share of the traced call: 1 minus the union of device
+kernel, copy and set intervals over the call's wall time, in %."""
+
+
+def read(ctx):
+    s = ctx.summary
+    if s["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - s["busy_s"] / s["window_s"])
