@@ -385,6 +385,9 @@ FLICKR_E = 22_613_981
 WIDTH = 256          # the fused (vertex|context) arena row: 2 x dim 128
 DIM = 128
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the program's spans, whose device-side copies a profile lists beside the
+# kernels (utils/tracing.py): no device activity of their own
+SPANS = ("graphvite::", "mesh::")
 
 
 def log(*args):
@@ -651,9 +654,9 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     return solver, rec, problems
 
 
-def trace_episode(solver, ms_per_batch, train_kwargs, batches=10):
+def trace_episode(solver, train_kwargs, batches=10):
     """Device kernel time per batch over a short training call
-    (torch.profiler), and its share of the unprofiled batch time."""
+    (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -666,7 +669,8 @@ def trace_episode(solver, ms_per_batch, train_kwargs, batches=10):
     run = solver.batch_id
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+        if (ev.device_type == DeviceType.CUDA and ev.self_device_time_total
+                and not ev.key.startswith(SPANS)):
             rows.append((ev.self_device_time_total, ev.count, ev.key))
     if not rows:
         raise AssertionError("the profiler recorded no device time")
@@ -675,7 +679,6 @@ def trace_episode(solver, ms_per_batch, train_kwargs, batches=10):
     device_ms = sum(r[0] for r in rows) / 1e3 / run
     return {"batches": run, "device_ms_per_batch": device_ms,
             "kernels_per_batch": launches,
-            "busy_share": device_ms / ms_per_batch,
             "top": [{"kernel": name[:70], "ms_per_batch": us / 1e3 / run,
                      "calls_per_batch": c / run}
                     for us, c, name in rows[:15]]}
@@ -859,8 +862,7 @@ def node2vec_path(graph, batches, seed):
         problems.append("losses or tables not finite")
     if not rec["loss_last"] < rec["loss_first"]:
         problems.append("losses not falling")
-    rec["trace"] = trace_episode(solver, rec["ms_per_batch"],
-                                 NODE2VEC_YOUTUBE)
+    rec["trace"] = trace_episode(solver, NODE2VEC_YOUTUBE)
     rec["chain"] = chain_record(solver, seed)
     if sampler.membership != "cuckoo":
         problems.append("membership %r, not the cuckoo table"
@@ -959,8 +961,7 @@ def walk_layout_path(graph, name, env, batches, seed):
                "launches": counts,
                "losses_finite": bool(torch.isfinite(
                    solver.batch_losses).all())}
-        rec["trace"] = trace_episode(solver, rec["ms_per_batch"],
-                                     DEEPWALK_YOUTUBE, batches=5)
+        rec["trace"] = trace_episode(solver, DEEPWALK_YOUTUBE, batches=5)
         rep, problems = replay_walk_step(solver, seed)
         rec["replay"] = rep
     want = {n: (2 * micro * run if n == "scatter_add_" else 0)
@@ -1861,7 +1862,8 @@ def front_end_breakdown(name, call, calls=20):
         launches, seen, sort_us, kernel_us, other = 0, 0, 0.0, 0.0, []
         for ev in prof.key_averages():
             if (ev.device_type != DeviceType.CUDA
-                    or not ev.self_device_time_total):
+                    or not ev.self_device_time_total
+                    or ev.key.startswith(SPANS)):
                 continue
             launches += ev.count
             if "scatter_add_" in ev.key or "scatter_update_" in ev.key:
@@ -2175,8 +2177,7 @@ def vis_phase(seed, shared=None):
             if name == "sgd":
                 out["ids"] = ids
         if name == "adam":
-            out["trace"] = trace_episode(app.solver, rec["ms_per_batch"],
-                                         LARGEVIS, batches=20)
+            out["trace"] = trace_episode(app.solver, LARGEVIS, batches=20)
             log("   trace:", json.dumps(out["trace"]))
         del app
     if shared is not None:
@@ -2229,8 +2230,7 @@ def vis_big_phase(seed):
     out["adam"] = rec
     out["knn"]["stages_s"]["alias"] = rec["sampler_build_s"]
     problems += ["adam: " + p for p in bad]
-    out["trace"] = trace_episode(app.solver, rec["ms_per_batch"], LARGEVIS,
-                                 batches=10)
+    out["trace"] = trace_episode(app.solver, LARGEVIS, batches=10)
     log("   trace:", json.dumps(out["trace"]))
     del app, graph
     torch.cuda.empty_cache()
@@ -2343,13 +2343,12 @@ def train_blocked(graph, optimizer, app_kw, build_kw, env, per_batch,
     return app, rec, problems
 
 
-def trace_blocked_episode(app, ms_per_batch, env):
+def trace_blocked_episode(app, env):
     """One more episode of a blocked run (resumed, 68 batches: the
     episode length of 1,092 batches at GRAPHVITE_MIN_SWEEPS=1) under
     torch.profiler: kernels (copies not counted) and device time per
-    batch, and their share of the run's unprofiled batch time, with and
-    without the staging copies (a resumed host-master run stages both
-    shards in and out: two misses in 68 batches)."""
+    batch, with and without the staging copies (a resumed host-master
+    run stages both shards in and out: two misses in 68 batches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2365,7 +2364,8 @@ def trace_blocked_episode(app, ms_per_batch, env):
     run = s.batch_id - n0
     rows = [(ev.self_device_time_total, ev.count, ev.key)
             for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total]
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total
+            and not ev.key.startswith(SPANS)]
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     rows.sort(reverse=True)
@@ -2377,8 +2377,6 @@ def trace_blocked_episode(app, ms_per_batch, env):
             "device_ms_per_batch": device_ms,
             "copy_ms_per_batch": copy_ms,
             "kernels_per_batch": (sum(r[1] for r in rows) - copies) / run,
-            "busy_share": device_ms / ms_per_batch,
-            "kernel_busy_share": (device_ms - copy_ms) / ms_per_batch,
             "top": [{"kernel": name[:70], "ms_per_batch": us / 1e3 / run,
                      "calls_per_batch": c / run}
                     for us, c, name in rows[:12]]}
@@ -2456,8 +2454,7 @@ def blocked_phase(seed, shared=None):
         problems.append("a: losses not falling")
     want = [t.cpu() for t in s.state["tables"]]
     want_losses = s.batch_losses.cpu()
-    out["trace_a"] = trace_blocked_episode(app, rec["ms_per_batch"],
-                                           {"GRAPHVITE_HOST_MASTER": "0"})
+    out["trace_a"] = trace_blocked_episode(app, {"GRAPHVITE_HOST_MASTER": "0"})
     log("   (a) trace of one episode:", json.dumps(out["trace_a"]))
     prep = {name: getattr(s, name) for name in BLOCKED_PREP}
     out["ids"] = blocked_batch_ids(s, seed + 1)
@@ -2500,7 +2497,7 @@ def blocked_phase(seed, shared=None):
     if not np.allclose(scores, manual, rtol=1e-4, atol=1e-4):
         problems.append("b: host-row predict differs from manual scoring "
                         "by %g" % rec["predict_max_abs_diff"])
-    out["trace_b"] = trace_blocked_episode(app, rec["ms_per_batch"], {})
+    out["trace_b"] = trace_blocked_episode(app, {})
     log("   (b) trace of one episode:", json.dumps(out["trace_b"]))
     del app, s, vertex, context
     torch.cuda.empty_cache()
@@ -2635,7 +2632,8 @@ def trace_mesh_episode(episode, worker_batches):
                               "device_s": ev.device_time_total / 1e6,
                               "host_s": ev.cpu_time_total / 1e6}
         elif (ev.device_type == DeviceType.CUDA
-              and ev.self_device_time_total):
+              and ev.self_device_time_total
+              and not ev.key.startswith(SPANS)):
             rows.append((ev.self_device_time_total, ev.count, ev.key))
     if not rows:
         raise AssertionError("the profiler recorded no device time")
@@ -2720,8 +2718,6 @@ def train_mesh_graph(graph, model, optimizer, batches, build_kw, train_kw,
     if syncs:
         problems.append("%g host syncs per worker-batch: %r"
                         % (syncs, sites))
-    trace["busy_share"] = (trace["device_ms_per_worker_batch"]
-                           / rec["ms_per_worker_batch"])
     if st["requests"] and not rec["drop_share"] < 0.01:
         problems.append("drop share %.4f >= 1%%" % rec["drop_share"])
     return app, rec, calls, problems
@@ -3209,8 +3205,6 @@ def train_kg_mesh(graph, name, neg_pool, optimizer, batches, eff, per_batch,
            "losses_finite": bool(torch.isfinite(losses).all()),
            "tables_finite": all(np.isfinite(x) for x in extremes),
            "peak_mem_gb": peak_gb}
-    trace["busy_share"] = (trace["device_ms_per_worker_batch"]
-                           / rec["ms_per_worker_batch"])
     problems = []
     want = {n: per_batch.get(n, 0) * run for n in counts}
     if counts != want:
@@ -4335,7 +4329,7 @@ def trace_and_update_ids(app, cfg, rec, batches=10):
 
     s = app.solver
     kw = {k: v for k, v in cfg["train"].items() if k != "num_epoch"}
-    rec["trace"] = trace_episode(s, rec["ms_per_batch"], kw, batches)
+    rec["trace"] = trace_episode(s, kw, batches)
     calls, launch = [], optim.scatter_add_
 
     def record(table, ids, upd):
@@ -5161,8 +5155,7 @@ def run(args):
         log("   float32:", json.dumps(rec))
         out["float32"] = rec
         problems += ["float32: " + p for p in bad]
-        out["trace"] = trace_episode(solver, rec["ms_per_batch"],
-                                     DEEPWALK_YOUTUBE)
+        out["trace"] = trace_episode(solver, DEEPWALK_YOUTUBE)
         log("   trace:", json.dumps(out["trace"]))
         out["batch_ids"].append(replay(solver, "float32"))
         del solver
@@ -5248,8 +5241,7 @@ def run(args):
             out[name] = rec
             problems += ["%s: %s" % (name, p) for p in bad]
             if name == "float32":
-                out["trace"] = trace_episode(solver, rec["ms_per_batch"],
-                                             LINE_FLICKR)
+                out["trace"] = trace_episode(solver, LINE_FLICKR)
                 log("   trace:", json.dumps(out["trace"]))
             rep, ids, bad = replay_edge_batch(solver, args.seed + 1)
             log("   %s batch, card vs CPU:" % name, json.dumps(rep))
@@ -5296,8 +5288,7 @@ def run(args):
         log("   float32 Adam:", json.dumps(rec))
         out["float32"] = rec
         problems += bad
-        out["trace"] = trace_episode(app.solver, rec["ms_per_batch"],
-                                     ROTATE_FB15K)
+        out["trace"] = trace_episode(app.solver, ROTATE_FB15K)
         log("   trace:", json.dumps(out["trace"]))
         rep, ids, bad = replay_kg_batch(app.solver, args.seed + 1,
                                         compact=False)
@@ -5351,8 +5342,8 @@ def run(args):
             out[name] = rec
             problems += ["%s: %s" % (name, p) for p in bad]
             if name == "float32":
-                out["trace"] = trace_episode(app.solver, rec["ms_per_batch"],
-                                             ROTATE_WIKIDATA5M, batches=5)
+                out["trace"] = trace_episode(app.solver, ROTATE_WIKIDATA5M,
+                                             batches=5)
                 log("   trace:", json.dumps(out["trace"]))
             rep, ids, bad = replay_kg_batch(app.solver, args.seed + 1,
                                             compact=True)

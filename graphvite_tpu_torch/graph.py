@@ -15,6 +15,7 @@ import re
 
 import numpy as np
 
+from graphvite_tpu_torch.utils import tracing
 from graphvite_tpu_torch.utils.common import logger
 
 
@@ -128,6 +129,7 @@ class Graph:
         self.edge_weights = w.astype(np.float32)
         self._finalize(normalization)
 
+    @tracing.setup_stage(tracing.GRAPH_FINALIZE)
     def _finalize(self, normalization):
         """Normalize weights (optionally) and build the CSR index from the
         flat edge arrays; callers that fill `edge_heads/edge_tails/

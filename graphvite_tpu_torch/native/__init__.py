@@ -19,10 +19,13 @@ import tempfile
 
 import numpy as np
 
+from graphvite_tpu_torch.utils import tracing
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "sampler.cpp")
 
 
+@tracing.setup_stage(tracing.NATIVE_BUILD)
 def _build() -> str:
     with open(_SRC, "rb") as f:
         src_digest = hashlib.sha256(f.read()).hexdigest()[:16]

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from graphvite_tpu_torch import native as _native
+from graphvite_tpu_torch.utils import tracing
 
 
 def build_alias(weights: np.ndarray):
@@ -62,7 +63,10 @@ class AliasTable:
 
     def __init__(self, weights: np.ndarray):
         self.count = int(np.asarray(weights).size)
-        self.prob, self.alias = build_alias(np.asarray(weights))
+        with tracing.span(tracing.ALIAS_BUILD) as sp:
+            self.prob, self.alias = build_alias(np.asarray(weights))
+            if sp is not tracing.OFF:
+                sp.set("native", _native.load() is not None)
 
     def sample(self, rng: np.random.Generator, size) -> np.ndarray:
         u1 = rng.random(size)

@@ -32,6 +32,7 @@ import torch
 from graphvite_tpu_torch.ops.alias import (AliasTable, PackedAliasTables,
                                            alias_draws, device_alias_arrays,
                                            device_sample)
+from graphvite_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -68,6 +69,7 @@ class DeviceEdgeSampler:
     sorted_stream: bool = False
 
     @classmethod
+    @tracing.setup_stage(tracing.SAMPLER_BUILD)
     def build(cls, graph, with_relation=False, sort_stream=None,
               device="cpu"):
         w = graph.edge_weights
@@ -537,6 +539,7 @@ class DeviceWalkSampler:
     banded: bool = False
 
     @classmethod
+    @tracing.setup_stage(tracing.SAMPLER_BUILD)
     def build(cls, graph, augmentation_step, walk_length, batch_size,
               biased=False, p=1.0, q=1.0, position_major=False, bidir=False,
               banded=False, device="cpu"):

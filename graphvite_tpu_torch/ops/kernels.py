@@ -17,6 +17,8 @@ import os
 import subprocess
 import tempfile
 
+from graphvite_tpu_torch.utils import tracing
+
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PACKAGE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PACKAGE), "build",
@@ -48,6 +50,7 @@ def library_path(name):
                                                         h.hexdigest()[:16]))
 
 
+@tracing.setup_stage(tracing.KERNELS_BUILD)
 def build(verbose=False):
     """Compile every kernel whose library is missing (every kernel with
     `verbose`, which adds -Xptxas -v) in parallel; raise if any nvcc

@@ -45,6 +45,7 @@ from graphvite_tpu_torch.ops.scatter import (scatter_add_,
                                              scatter_update_sorted_)
 from graphvite_tpu_torch.optim import Optimizer, apply_row_updates
 from graphvite_tpu_torch.models.visualization import SMOOTH_TERM
+from graphvite_tpu_torch.utils import tracing
 from graphvite_tpu_torch.utils.common import EPSILON
 
 
@@ -100,9 +101,10 @@ def make_graph_train_step(model, opt: Optimizer, num_negative: int,
         v_moms, c_moms = state["moments"]
         b = heads.shape[0]
         dev = vertex.device
-        if draws is None:
-            draws = alias_draws(neg_state, (b, k), generator, dev)
-        negs = device_sample(*neg_state, *draws)             # [B, K]
+        with tracing.span(tracing.NEGATIVES):
+            if draws is None:
+                draws = alias_draws(neg_state, (b, k), generator, dev)
+            negs = device_sample(*neg_state, *draws)         # [B, K]
 
         v = vertex[heads].float()                            # [B, D]
         ctx_ids = torch.cat([negs, tails[:, None].long()], dim=1)
@@ -112,23 +114,24 @@ def make_graph_train_step(model, opt: Optimizer, num_negative: int,
             logits, k, negative_weight, mask)
 
         gv, gc = model.backward(v[:, None, :], c, gradient)
-        w = weight[..., None]
-        wd = opt.weight_decay
-        per_touch_v = w * (gv + wd * v[:, None, :])          # [B, K+1, D]
-        reg_v = per_touch_v.sum(dim=1)
-        reg_c = w * gc + wd * w * c
-        v_counts = v_sqs = None
-        if opt.num_moment > 0:
-            v_counts = torch.full((b,), k + 1.0, device=dev)
-            v_sqs = (per_touch_v * per_touch_v).sum(dim=1)
-        new_vertex, new_v_moms = apply_row_updates(
-            vertex, v_moms, _mask_ids(heads.long(), mask, vertex.shape[0]),
-            reg_v, opt, lr, entry_counts=v_counts, entry_sqs=v_sqs,
-            trust=trust)
-        new_context, new_c_moms = apply_row_updates(
-            context, c_moms,
-            _mask_ids(ctx_ids, mask, context.shape[0]).reshape(-1),
-            reg_c.reshape(b * (k + 1), -1), opt, lr, trust=trust)
+        with tracing.span(tracing.UPDATE):
+            w = weight[..., None]
+            wd = opt.weight_decay
+            per_touch_v = w * (gv + wd * v[:, None, :])          # [B, K+1, D]
+            reg_v = per_touch_v.sum(dim=1)
+            reg_c = w * gc + wd * w * c
+            v_counts = v_sqs = None
+            if opt.num_moment > 0:
+                v_counts = torch.full((b,), k + 1.0, device=dev)
+                v_sqs = (per_touch_v * per_touch_v).sum(dim=1)
+            new_vertex, new_v_moms = apply_row_updates(
+                vertex, v_moms, _mask_ids(heads.long(), mask, vertex.shape[0]),
+                reg_v, opt, lr, entry_counts=v_counts, entry_sqs=v_sqs,
+                trust=trust)
+            new_context, new_c_moms = apply_row_updates(
+                context, c_moms,
+                _mask_ids(ctx_ids, mask, context.shape[0]).reshape(-1),
+                reg_c.reshape(b * (k + 1), -1), opt, lr, trust=trust)
         new_state = {"tables": (new_vertex, new_context),
                      "moments": (new_v_moms, new_c_moms)}
         return new_state, _mean_sample_loss(sample_loss, mask)
@@ -246,9 +249,11 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
             gpos = gpos * m2
             gneg = gneg * m2[..., None]
             n_active = mask.sum()
+            tracing.count(tracing.VALID_PAIRS, n_active)
         else:
             m2 = None
             n_active = torch.full((), float(b), device=vertex.device)
+            tracing.count(tracing.VALID_PAIRS, b)
         # reported loss on the K-draw scale
         loss_terms = (F.softplus(-pos_logit)
                       + neg_w * F.softplus(neg_logits).sum(dim=-1))
@@ -278,50 +283,58 @@ def make_graph_pool_step(opt: Optimizer, num_negative: int,
             dP = dP * torch.clamp(limit / torch.clamp(dnorm, min=EPSILON),
                                   max=1.0)
 
-        v_counts = v_sqs = c_counts = c_sqs = None
-        if opt.num_moment > 0:
-            # emulated K-draw touch counts (v: K+1, tail: 1, pool row:
-            # Bg*K/M expected draws); squares rescale by M/K
-            sq_scale = M / max(k, 1)
-            v_counts = torch.full((b,), k + 1.0, device=vertex.device)
-            p_counts = torch.full((G, M), bg * k / M, device=vertex.device)
-            tail_cnt = torch.ones((b,), device=vertex.device)
-            if mask is not None:
-                v_counts = v_counts * mask
-                p_counts = (m2.sum(dim=1)[:, None] * (k / M)).expand(G, M)
-                tail_cnt = mask.float()
-            v_sqs = ((gpos[..., None] * c) ** 2
-                     + sq_scale * torch.bmm(gneg ** 2, P ** 2)).reshape(b, -1)
-            c_counts = torch.cat([tail_cnt, p_counts.reshape(-1)])
-            p_sqs = sq_scale * torch.bmm((gneg ** 2).transpose(1, 2), v ** 2)
-            c_sqs = torch.cat([(dc ** 2).reshape(b, -1),
-                               p_sqs.reshape(G * M, -1)])
+        with tracing.span(tracing.UPDATE):
+            v_counts = v_sqs = c_counts = c_sqs = None
+            if opt.num_moment > 0:
+                # emulated K-draw touch counts (v: K+1, tail: 1, pool row:
+                # Bg*K/M expected draws); squares rescale by M/K
+                sq_scale = M / max(k, 1)
+                v_counts = torch.full((b,), k + 1.0, device=vertex.device)
+                p_counts = torch.full((G, M), bg * k / M,
+                                      device=vertex.device)
+                tail_cnt = torch.ones((b,), device=vertex.device)
+                if mask is not None:
+                    v_counts = v_counts * mask
+                    p_counts = (m2.sum(dim=1)[:, None]
+                                * (k / M)).expand(G, M)
+                    tail_cnt = mask.float()
+                v_sqs = ((gpos[..., None] * c) ** 2
+                         + sq_scale * torch.bmm(gneg ** 2, P ** 2)
+                         ).reshape(b, -1)
+                c_counts = torch.cat([tail_cnt, p_counts.reshape(-1)])
+                p_sqs = sq_scale * torch.bmm((gneg ** 2).transpose(1, 2),
+                                             v ** 2)
+                c_sqs = torch.cat([(dc ** 2).reshape(b, -1),
+                                   p_sqs.reshape(G * M, -1)])
 
-        dv = dv.reshape(b, -1)
-        if sweep_vertex:
-            new_vertex, new_v_moms = scatter_update_sorted_(
-                vertex, v_moms, heads, dv, opt, lr, entry_counts=v_counts,
-                entry_sqs=v_sqs)
-        else:
-            new_vertex, new_v_moms = apply_row_updates(
-                vertex, v_moms, _mask_ids(heads, mask, vertex.shape[0]), dv,
-                opt, lr, entry_counts=v_counts, entry_sqs=v_sqs, trust=trust)
-        if sweep_context and mask is not None:
-            # sweep ids stay in range: masked tails park at row V-1
-            # (zeroed rows, zero counts) instead of the drop sentinel
-            tails = tails.masked_fill(mask <= 0, context.shape[0] - 1)
-        elif not sweep_context:
-            tails = _mask_ids(tails, mask, context.shape[0])
-        ctx_ids = torch.cat([tails, pool_ids.reshape(-1).to(tails.dtype)])
-        ctx_grads = torch.cat([dc.reshape(b, -1), dP.reshape(G * M, -1)])
-        if sweep_context:
-            new_context, new_c_moms = scatter_update_(
-                context, c_moms, ctx_ids, ctx_grads, opt, lr,
-                entry_counts=c_counts, entry_sqs=c_sqs)
-        else:
-            new_context, new_c_moms = apply_row_updates(
-                context, c_moms, ctx_ids, ctx_grads, opt, lr,
-                entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
+            dv = dv.reshape(b, -1)
+            if sweep_vertex:
+                new_vertex, new_v_moms = scatter_update_sorted_(
+                    vertex, v_moms, heads, dv, opt, lr,
+                    entry_counts=v_counts, entry_sqs=v_sqs)
+            else:
+                new_vertex, new_v_moms = apply_row_updates(
+                    vertex, v_moms, _mask_ids(heads, mask, vertex.shape[0]),
+                    dv, opt, lr, entry_counts=v_counts, entry_sqs=v_sqs,
+                    trust=trust)
+            if sweep_context and mask is not None:
+                # sweep ids stay in range: masked tails park at row V-1
+                # (zeroed rows, zero counts) instead of the drop sentinel
+                tails = tails.masked_fill(mask <= 0, context.shape[0] - 1)
+            elif not sweep_context:
+                tails = _mask_ids(tails, mask, context.shape[0])
+            ctx_ids = torch.cat([tails,
+                                 pool_ids.reshape(-1).to(tails.dtype)])
+            ctx_grads = torch.cat([dc.reshape(b, -1),
+                                   dP.reshape(G * M, -1)])
+            if sweep_context:
+                new_context, new_c_moms = scatter_update_(
+                    context, c_moms, ctx_ids, ctx_grads, opt, lr,
+                    entry_counts=c_counts, entry_sqs=c_sqs)
+            else:
+                new_context, new_c_moms = apply_row_updates(
+                    context, c_moms, ctx_ids, ctx_grads, opt, lr,
+                    entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
         new_state = {"tables": (new_vertex, new_context),
                      "moments": (new_v_moms, new_c_moms)}
         return new_state, mean_loss
@@ -381,6 +394,7 @@ def make_graph_pool_multitail_step(opt: Optimizer, num_negative: int,
         gneg_u = torch.sigmoid(neg_logits) * neg_w
         gneg = gneg_u * cnt[..., None]
         n_active = mask.sum()
+        tracing.count(tracing.VALID_PAIRS, n_active)
         loss_terms = ((m3 * F.softplus(-pos_logit)).sum(dim=-1)
                       + cnt * (neg_w * F.softplus(neg_logits).sum(dim=-1)))
         mean_loss = (loss_terms.sum() / torch.clamp(n_active, min=1.0)
@@ -402,34 +416,35 @@ def make_graph_pool_multitail_step(opt: Optimizer, num_negative: int,
             dP = dP * torch.clamp(limit / torch.clamp(dnorm, min=EPSILON),
                                   max=1.0)
 
-        v_counts = v_sqs = c_counts = c_sqs = None
-        if opt.num_moment > 0:
-            sq_scale = M / max(k, 1)
-            v_counts = ((k + 1.0) * cnt).reshape(b)
-            v_sqs = (((gpos * gpos)[..., None] * (c * c)).sum(dim=2)
-                     + sq_scale * cnt[..., None]
-                     * torch.bmm(gneg_u ** 2, P ** 2)).reshape(b, -1)
-            p_counts = (cnt.sum(dim=1)[:, None] * (k / M)).expand(G, M)
-            c_counts = torch.cat([mask.reshape(-1), p_counts.reshape(-1)])
-            p_sqs = sq_scale * torch.bmm(
-                (gneg_u ** 2 * cnt[..., None]).transpose(1, 2), v ** 2)
-            c_sqs = torch.cat([(dc ** 2).reshape(b * T, -1),
-                               p_sqs.reshape(G * M, -1)])
+        with tracing.span(tracing.UPDATE):
+            v_counts = v_sqs = c_counts = c_sqs = None
+            if opt.num_moment > 0:
+                sq_scale = M / max(k, 1)
+                v_counts = ((k + 1.0) * cnt).reshape(b)
+                v_sqs = (((gpos * gpos)[..., None] * (c * c)).sum(dim=2)
+                         + sq_scale * cnt[..., None]
+                         * torch.bmm(gneg_u ** 2, P ** 2)).reshape(b, -1)
+                p_counts = (cnt.sum(dim=1)[:, None] * (k / M)).expand(G, M)
+                c_counts = torch.cat([mask.reshape(-1), p_counts.reshape(-1)])
+                p_sqs = sq_scale * torch.bmm(
+                    (gneg_u ** 2 * cnt[..., None]).transpose(1, 2), v ** 2)
+                c_sqs = torch.cat([(dc ** 2).reshape(b * T, -1),
+                                   p_sqs.reshape(G * M, -1)])
 
-        head_mask = (cnt > 0).reshape(b).float()
-        new_vertex, new_v_moms = apply_row_updates(
-            vertex, v_moms, _mask_ids(heads, head_mask, vertex.shape[0]),
-            dv.reshape(b, -1), opt, lr, entry_counts=v_counts,
-            entry_sqs=v_sqs, trust=trust)
-        flat_tails = _mask_ids(tails.reshape(-1), mask.reshape(-1),
-                               context.shape[0])
-        ctx_ids = torch.cat([flat_tails,
-                             pool_ids.reshape(-1).to(flat_tails.dtype)])
-        ctx_grads = torch.cat([dc.reshape(b * T, -1),
-                               dP.reshape(G * M, -1)])
-        new_context, new_c_moms = apply_row_updates(
-            context, c_moms, ctx_ids, ctx_grads, opt, lr,
-            entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
+            head_mask = (cnt > 0).reshape(b).float()
+            new_vertex, new_v_moms = apply_row_updates(
+                vertex, v_moms, _mask_ids(heads, head_mask, vertex.shape[0]),
+                dv.reshape(b, -1), opt, lr, entry_counts=v_counts,
+                entry_sqs=v_sqs, trust=trust)
+            flat_tails = _mask_ids(tails.reshape(-1), mask.reshape(-1),
+                                   context.shape[0])
+            ctx_ids = torch.cat([flat_tails,
+                                 pool_ids.reshape(-1).to(flat_tails.dtype)])
+            ctx_grads = torch.cat([dc.reshape(b * T, -1),
+                                   dP.reshape(G * M, -1)])
+            new_context, new_c_moms = apply_row_updates(
+                context, c_moms, ctx_ids, ctx_grads, opt, lr,
+                entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
         new_state = {"tables": (new_vertex, new_context),
                      "moments": (new_v_moms, new_c_moms)}
         return new_state, mean_loss
@@ -451,11 +466,13 @@ def walk_shift_fwd(x, kk):
 
 
 def _pool_ids(neg_state, G, M, device, generator, draws):
-    """[G, M] negative-pool ids from the alias tensors `neg_state`."""
-    if draws is None:
-        draws = alias_draws(neg_state, (G, M), generator, device)
-    u1, u2 = draws
-    return device_sample(*neg_state, u1, u2)
+    """[G, M] negative-pool ids from the alias tensors `neg_state` (a
+    `negatives` span)."""
+    with tracing.span(tracing.NEGATIVES):
+        if draws is None:
+            draws = alias_draws(neg_state, (G, M), generator, device)
+        u1, u2 = draws
+        return device_sample(*neg_state, u1, u2)
 
 
 def make_graph_banded_core(opt: Optimizer, num_negative: int,
@@ -580,6 +597,7 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
 
 
 def _mean_loss(o, k, negative_weight):
+    tracing.count(tracing.VALID_PAIRS, o["n_active"])
     return (o["loss_sum"] / torch.clamp(o["n_active"], min=1.0)
             / (1.0 + k * negative_weight))
 
@@ -615,15 +633,16 @@ def make_graph_banded_fused_step(opt: Optimizer, num_negative: int,
         P = vc[:, D:][pool_ids].float()                      # [G, M, D]
 
         o = core(v, c, P, mask, lr, table_bf16=vc.dtype == torch.bfloat16)
-        # dead slots carry exactly-zero grads (masked in the core), so
-        # in-range ids scatter-add as no-ops — no sentinel routing needed
-        delta = torch.zeros((npos + G * M, 2 * D), dtype=torch.float32,
-                            device=vc.device)
-        delta[:npos, :D] = o["dv"].reshape(npos, D)
-        delta[:npos, D:] = o["dc"].reshape(npos, D)
-        delta[npos:, D:] = o["dP"].reshape(G * M, D)
-        ids = torch.cat([chain.reshape(npos), pool_ids.reshape(-1)])
-        scatter_add_(vc, ids, delta.mul_(-lr))
+        with tracing.span(tracing.UPDATE):
+            # dead slots carry exactly-zero grads (masked in the core), so
+            # in-range ids scatter-add as no-ops — no sentinel routing needed
+            delta = torch.zeros((npos + G * M, 2 * D), dtype=torch.float32,
+                                device=vc.device)
+            delta[:npos, :D] = o["dv"].reshape(npos, D)
+            delta[:npos, D:] = o["dc"].reshape(npos, D)
+            delta[npos:, D:] = o["dP"].reshape(G * M, D)
+            ids = torch.cat([chain.reshape(npos), pool_ids.reshape(-1)])
+            scatter_add_(vc, ids, delta.mul_(-lr))
         return state, _mean_loss(o, k, negative_weight)
 
     step.pool_shape = (G, M)   # the shape of each of the `draws`
@@ -688,41 +707,44 @@ def make_graph_banded_walk_step(opt: Optimizer, num_negative: int,
                  table_bf16=vertex.dtype == torch.bfloat16)
         D = v.shape[-1]
 
-        v_counts = v_sqs = c_counts = c_sqs = None
-        if opt.num_moment > 0:
-            v_counts = o["v_counts"]
-            v_sqs = o["v_sqs"]
-            c_counts = torch.cat([o["c_counts_main"],
-                                  o["p_counts"].reshape(-1)])
-            c_sqs = torch.cat([o["c_sqs_main"], o["p_sqs"].reshape(G * M, D)])
+        with tracing.span(tracing.UPDATE):
+            v_counts = v_sqs = c_counts = c_sqs = None
+            if opt.num_moment > 0:
+                v_counts = o["v_counts"]
+                v_sqs = o["v_sqs"]
+                c_counts = torch.cat([o["c_counts_main"],
+                                      o["p_counts"].reshape(-1)])
+                c_sqs = torch.cat([o["c_sqs_main"],
+                                   o["p_sqs"].reshape(G * M, D)])
 
-        flat_ids = chain.reshape(npos)
-        if sweep_banded:
-            def delta(x):
-                x = x.reshape(-1, D) * -lr
-                return (x.bfloat16().float() if vertex.dtype == torch.bfloat16
-                        else x)
+            flat_ids = chain.reshape(npos)
+            if sweep_banded:
+                def delta(x):
+                    x = x.reshape(-1, D) * -lr
+                    return (x.bfloat16().float()
+                            if vertex.dtype == torch.bfloat16 else x)
 
-            scatter_add_(vertex, flat_ids, delta(o["dv"]))
-            scatter_add_(context,
-                         torch.cat([flat_ids, pool_ids.reshape(-1)]),
-                         delta(torch.cat([o["dc"].reshape(npos, D),
-                                          o["dP"].reshape(G * M, D)])))
-            return state, _mean_loss(o, k, negative_weight)
-        head_mask = (o["cnt"] > 0).reshape(npos).float()
-        new_vertex, new_v_moms = apply_row_updates(
-            vertex, v_moms, _mask_ids(flat_ids, head_mask, vertex.shape[0]),
-            o["dv"].reshape(npos, D), opt, lr,
-            entry_counts=v_counts, entry_sqs=v_sqs, trust=trust)
-        ctx_mask = (o["cntc"] > 0).reshape(npos).float()
-        ctx_ids = torch.cat(
-            [_mask_ids(flat_ids, ctx_mask, context.shape[0]),
-             pool_ids.reshape(-1)])
-        ctx_grads = torch.cat(
-            [o["dc"].reshape(npos, D), o["dP"].reshape(G * M, D)])
-        new_context, new_c_moms = apply_row_updates(
-            context, c_moms, ctx_ids, ctx_grads, opt, lr,
-            entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
+                scatter_add_(vertex, flat_ids, delta(o["dv"]))
+                scatter_add_(context,
+                             torch.cat([flat_ids, pool_ids.reshape(-1)]),
+                             delta(torch.cat([o["dc"].reshape(npos, D),
+                                              o["dP"].reshape(G * M, D)])))
+                return state, _mean_loss(o, k, negative_weight)
+            head_mask = (o["cnt"] > 0).reshape(npos).float()
+            new_vertex, new_v_moms = apply_row_updates(
+                vertex, v_moms,
+                _mask_ids(flat_ids, head_mask, vertex.shape[0]),
+                o["dv"].reshape(npos, D), opt, lr,
+                entry_counts=v_counts, entry_sqs=v_sqs, trust=trust)
+            ctx_mask = (o["cntc"] > 0).reshape(npos).float()
+            ctx_ids = torch.cat(
+                [_mask_ids(flat_ids, ctx_mask, context.shape[0]),
+                 pool_ids.reshape(-1)])
+            ctx_grads = torch.cat(
+                [o["dc"].reshape(npos, D), o["dP"].reshape(G * M, D)])
+            new_context, new_c_moms = apply_row_updates(
+                context, c_moms, ctx_ids, ctx_grads, opt, lr,
+                entry_counts=c_counts, entry_sqs=c_sqs, trust=trust)
         new_state = {"tables": (new_vertex, new_context),
                      "moments": (new_v_moms, new_c_moms)}
         return new_state, _mean_loss(o, k, negative_weight)
@@ -745,9 +767,13 @@ def _adversarial_weights(logits, temperature, uniform):
 
 
 def _mean_sample_loss(sample_loss, mask):
+    """The mean loss over the valid samples, which it counts."""
     if mask is None:
+        tracing.count(tracing.VALID_PAIRS, sample_loss.numel())
         return sample_loss.mean()
-    return sample_loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    n_active = mask.sum()
+    tracing.count(tracing.VALID_PAIRS, n_active)
+    return sample_loss.sum() / torch.clamp(n_active, min=1.0)
 
 
 def make_kg_train_step(model, opt: Optimizer, num_negative: int,
@@ -1130,8 +1156,9 @@ def make_kg_pool_step(model, opt: Optimizer, num_negative: int,
         if negatives is not None:
             cand_ids = negatives
         else:
-            cand_ids = torch.randint(0, num_entity, (G, M),
-                                     generator=generator, device=dev)
+            with tracing.span(tracing.NEGATIVES):
+                cand_ids = torch.randint(0, num_entity, (G, M),
+                                         generator=generator, device=dev)
 
         # ---- positive pairs: one [B, D]-wide pass, no K dimension ------
         h_pos = entity[heads].float()
@@ -1174,48 +1201,50 @@ def make_kg_pool_step(model, opt: Optimizer, num_negative: int,
         msum = (torch.full((G,), float(bg), device=dev) if m3 is None
                 else m3.sum(dim=1))
 
-        # ---- assemble entity updates -----------------------------------
-        head_grad = reg_hp + outs["head"].reshape(b, -1)
-        tail_grad = reg_tp + outs["tail"].reshape(b, -1)
-        cand_grad = outs["cand"].reshape(G * M, -1)
-        if trust is not None:
-            # a shared candidate row accumulates Bg coherent sample
-            # gradients at one stale point
-            dnorm = torch.linalg.vector_norm(cand_grad, dim=-1, keepdim=True)
-            limit = (trust * (torch.linalg.vector_norm(
-                cand.reshape(G * M, -1), dim=-1, keepdim=True) + 1e-2)
-                / max(lr, EPSILON))
-            cand_grad = cand_grad * torch.clamp(
-                limit / torch.clamp(dnorm, min=EPSILON), max=1.0)
-        ent_ids = torch.cat([
-            _mask_ids(heads, mask, num_entity).long(),
-            _mask_ids(tails, mask, num_entity).long(),
-            cand_ids.reshape(-1).long()])
-        ent_grads = torch.cat([head_grad, tail_grad, cand_grad])
-        rel_grad = reg_rp + outs["rel"].reshape(b, -1)
+        with tracing.span(tracing.UPDATE):
+            # ---- assemble entity updates -------------------------------
+            head_grad = reg_hp + outs["head"].reshape(b, -1)
+            tail_grad = reg_tp + outs["tail"].reshape(b, -1)
+            cand_grad = outs["cand"].reshape(G * M, -1)
+            if trust is not None:
+                # a shared candidate row accumulates Bg coherent sample
+                # gradients at one stale point
+                dnorm = torch.linalg.vector_norm(cand_grad, dim=-1,
+                                                 keepdim=True)
+                limit = (trust * (torch.linalg.vector_norm(
+                    cand.reshape(G * M, -1), dim=-1, keepdim=True) + 1e-2)
+                    / max(lr, EPSILON))
+                cand_grad = cand_grad * torch.clamp(
+                    limit / torch.clamp(dnorm, min=EPSILON), max=1.0)
+            ent_ids = torch.cat([
+                _mask_ids(heads, mask, num_entity).long(),
+                _mask_ids(tails, mask, num_entity).long(),
+                cand_ids.reshape(-1).long()])
+            ent_grads = torch.cat([head_grad, tail_grad, cand_grad])
+            rel_grad = reg_rp + outs["rel"].reshape(b, -1)
 
-        ent_counts = ent_sqs = r_counts = r_sqs = None
-        if need_sq:
-            kf = float(k)
-            # positives: 1 own touch + K/2 expected stay-side touches;
-            # each pool slot stands for msum * K / M emulated draws
-            ent_counts = torch.cat([
-                torch.full((2 * b,), 1.0 + kf / 2.0, device=dev),
-                (msum * (kf / M)).repeat_interleave(M)])
-            ent_sqs = torch.cat([
-                reg_hp * reg_hp + outs["head_sqs"].reshape(b, -1),
-                reg_tp * reg_tp + outs["tail_sqs"].reshape(b, -1),
-                outs["cand_sqs"].reshape(G * M, -1)])
-            r_counts = torch.full((b,), kf + 1.0, device=dev)
-            r_sqs = reg_rp * reg_rp + outs["rel_sqs"].reshape(b, -1)
+            ent_counts = ent_sqs = r_counts = r_sqs = None
+            if need_sq:
+                kf = float(k)
+                # positives: 1 own touch + K/2 expected stay-side touches;
+                # each pool slot stands for msum * K / M emulated draws
+                ent_counts = torch.cat([
+                    torch.full((2 * b,), 1.0 + kf / 2.0, device=dev),
+                    (msum * (kf / M)).repeat_interleave(M)])
+                ent_sqs = torch.cat([
+                    reg_hp * reg_hp + outs["head_sqs"].reshape(b, -1),
+                    reg_tp * reg_tp + outs["tail_sqs"].reshape(b, -1),
+                    outs["cand_sqs"].reshape(G * M, -1)])
+                r_counts = torch.full((b,), kf + 1.0, device=dev)
+                r_sqs = reg_rp * reg_rp + outs["rel_sqs"].reshape(b, -1)
 
-        new_entity, new_e_moms = apply_row_updates(
-            entity, e_moms, ent_ids, ent_grads, opt, lr,
-            entry_counts=ent_counts, entry_sqs=ent_sqs)
-        new_relation, new_r_moms = apply_row_updates(
-            relation, r_moms, _mask_ids(rels, mask, relation.shape[0]),
-            rel_grad, opt, lr, lr_scale=relation_lr_multiplier,
-            entry_counts=r_counts, entry_sqs=r_sqs)
+            new_entity, new_e_moms = apply_row_updates(
+                entity, e_moms, ent_ids, ent_grads, opt, lr,
+                entry_counts=ent_counts, entry_sqs=ent_sqs)
+            new_relation, new_r_moms = apply_row_updates(
+                relation, r_moms, _mask_ids(rels, mask, relation.shape[0]),
+                rel_grad, opt, lr, lr_scale=relation_lr_multiplier,
+                entry_counts=r_counts, entry_sqs=r_sqs)
         new_state = {"tables": (new_entity, new_relation),
                      "moments": (new_e_moms, new_r_moms)}
         sample_loss = (pos_loss + outs["loss"].reshape(b)) / 2.0
@@ -1370,9 +1399,11 @@ def make_vis_pool_step(opt: Optimizer, num_negative: int,
             gpos = gpos * m2
             gneg = gneg * m2[..., None]
             n_active = mask.sum()
+            tracing.count(tracing.VALID_PAIRS, n_active)
         else:
             m2 = None
             n_active = torch.full((), float(b), device=dev)
+            tracing.count(tracing.VALID_PAIRS, b)
 
         # loss on the K-draw scale (as make_vis_train_step reports it)
         loss_terms = (torch.log1p(x_pos)
@@ -1383,56 +1414,57 @@ def make_vis_pool_step(opt: Optimizer, num_negative: int,
         mean_loss = (loss_terms.sum() / torch.clamp(n_active, min=1.0)
                      / (1.0 + k * negative_weight))
 
-        wd = opt.weight_decay
-        gneg64 = gneg.double()
-        # sum_m gneg (h - P_m) and sum_b gneg (P - h_b), in float64
-        h_neg = (gneg64.sum(dim=-1)[..., None] * h64
-                 - torch.bmm(gneg64, P64)).float()
-        p_neg = (gneg64.sum(dim=1)[..., None] * P64
-                 - torch.bmm(gneg64.transpose(1, 2), h64)).float()
-        dh = gpos[..., None] * d + h_neg + wd * (1.0 + M * neg_w) * h
-        dt = -gpos[..., None] * d + wd * t
-        dP = p_neg + wd * (neg_w * bg) * P
+        with tracing.span(tracing.UPDATE):
+            wd = opt.weight_decay
+            gneg64 = gneg.double()
+            # sum_m gneg (h - P_m) and sum_b gneg (P - h_b), in float64
+            h_neg = (gneg64.sum(dim=-1)[..., None] * h64
+                     - torch.bmm(gneg64, P64)).float()
+            p_neg = (gneg64.sum(dim=1)[..., None] * P64
+                     - torch.bmm(gneg64.transpose(1, 2), h64)).float()
+            dh = gpos[..., None] * d + h_neg + wd * (1.0 + M * neg_w) * h
+            dt = -gpos[..., None] * d + wd * t
+            dP = p_neg + wd * (neg_w * bg) * P
 
-        counts = sqs = None
-        if opt.num_moment > 0:
-            # EMULATED K-draw touch counts: a moment rule moves a row by
-            # ~lr * count, so counts follow the K-draw scheme this step
-            # emulates, not its M pool terms. Per-draw grad = (M/K) x
-            # per-term grad, so summed squares rescale by M/K.
-            sq_scale = M / max(k, 1)
-            g2 = gneg64 * gneg64
-            h_neg_sqs = (g2.sum(dim=-1)[..., None] * (h64 * h64)
-                         - 2.0 * h64 * torch.bmm(g2, P64)
-                         + torch.bmm(g2, P64 * P64)).float()
-            t_sqs = (gpos[..., None] * d) ** 2
-            h_sqs = t_sqs + sq_scale * h_neg_sqs
-            g2T = g2.transpose(1, 2)
-            p_sqs = sq_scale * (g2.sum(dim=1)[..., None] * (P64 * P64)
-                                - 2.0 * P64 * torch.bmm(g2T, h64)
-                                + torch.bmm(g2T, h64 * h64)).float()
-            if m2 is None:
-                p_counts = torch.full((G, M), bg * k / M, device=dev)
-            else:
-                p_counts = (m2.sum(dim=1)[:, None] * (k / M)).expand(G, M)
-            counts = torch.cat([torch.full((b,), k + 1.0, device=dev),
-                                torch.ones(b, device=dev),
-                                p_counts.reshape(-1)])
-            # squared-gradient sums are nonnegative by construction; the
-            # expanded (a-b)^2 forms can dip below zero in floating point
-            sqs = torch.clamp(torch.cat([h_sqs.reshape(b, -1),
-                                         t_sqs.reshape(b, -1),
-                                         p_sqs.reshape(G * M, -1)]),
-                              min=0.0)
+            counts = sqs = None
+            if opt.num_moment > 0:
+                # EMULATED K-draw touch counts: a moment rule moves a row by
+                # ~lr * count, so counts follow the K-draw scheme this step
+                # emulates, not its M pool terms. Per-draw grad = (M/K) x
+                # per-term grad, so summed squares rescale by M/K.
+                sq_scale = M / max(k, 1)
+                g2 = gneg64 * gneg64
+                h_neg_sqs = (g2.sum(dim=-1)[..., None] * (h64 * h64)
+                             - 2.0 * h64 * torch.bmm(g2, P64)
+                             + torch.bmm(g2, P64 * P64)).float()
+                t_sqs = (gpos[..., None] * d) ** 2
+                h_sqs = t_sqs + sq_scale * h_neg_sqs
+                g2T = g2.transpose(1, 2)
+                p_sqs = sq_scale * (g2.sum(dim=1)[..., None] * (P64 * P64)
+                                    - 2.0 * P64 * torch.bmm(g2T, h64)
+                                    + torch.bmm(g2T, h64 * h64)).float()
+                if m2 is None:
+                    p_counts = torch.full((G, M), bg * k / M, device=dev)
+                else:
+                    p_counts = (m2.sum(dim=1)[:, None] * (k / M)).expand(G, M)
+                counts = torch.cat([torch.full((b,), k + 1.0, device=dev),
+                                    torch.ones(b, device=dev),
+                                    p_counts.reshape(-1)])
+                # squared-gradient sums are nonnegative by construction; the
+                # expanded (a-b)^2 forms can dip below zero in floating point
+                sqs = torch.clamp(torch.cat([h_sqs.reshape(b, -1),
+                                             t_sqs.reshape(b, -1),
+                                             p_sqs.reshape(G * M, -1)]),
+                                  min=0.0)
 
-        ids = torch.cat([_mask_ids(heads.long(), mask, v),
-                         _mask_ids(tails.long(), mask, v),
-                         pool_ids.reshape(-1)])
-        grads = torch.cat([dh.reshape(b, -1), dt.reshape(b, -1),
-                           dP.reshape(G * M, -1)])
-        new_coord, new_moms = apply_row_updates(
-            coord, moms, ids, grads, opt, lr, entry_counts=counts,
-            entry_sqs=sqs, trust=trust)
+            ids = torch.cat([_mask_ids(heads.long(), mask, v),
+                             _mask_ids(tails.long(), mask, v),
+                             pool_ids.reshape(-1)])
+            grads = torch.cat([dh.reshape(b, -1), dt.reshape(b, -1),
+                               dP.reshape(G * M, -1)])
+            new_coord, new_moms = apply_row_updates(
+                coord, moms, ids, grads, opt, lr, entry_counts=counts,
+                entry_sqs=sqs, trust=trust)
         return ({"tables": (new_coord,), "moments": (new_moms,)},
                 mean_loss)
 
@@ -1482,28 +1514,37 @@ def make_fused_runner(step_fn, sample_fn, opt: Optimizer, ep_groups: int,
 
     run(state, batch_id0, num_batch_total, generator, sampler_arrays,
     neg_state) -> (state, losses [ep_groups * positive_reuse]). Losses stay
-    on the device: nothing in the loop waits for the card."""
+    on the device: nothing in the loop waits for the card. Each call is an
+    `episode` span, each group's sampling a `sample` span and each batch a
+    `step` span (utils/tracing.py); each batch counts its pair slots (the
+    mask's entries, or the batch's samples)."""
     R = max(int(positive_reuse), 1)
 
     def run(state, batch_id0, num_batch_total, generator, sampler_arrays,
             neg_state):
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span(tracing.EPISODE):
             if state_pack is not None:
                 state = state_pack(state)
             losses = []
             if bulk_sample_fn is not None:
-                pool = bulk_sample_fn(*sampler_arrays, generator=generator)
+                with tracing.span(tracing.SAMPLE, batch=batch_id0):
+                    pool = bulk_sample_fn(*sampler_arrays,
+                                          generator=generator)
             for g in range(ep_groups):
+                b0 = batch_id0 + g * R
                 if bulk_sample_fn is not None:
                     *ids, mask = (x[g] for x in pool)
                 else:
-                    *ids, mask = sample_fn(*sampler_arrays,
-                                           generator=generator)
+                    with tracing.span(tracing.SAMPLE, batch=b0):
+                        *ids, mask = sample_fn(*sampler_arrays,
+                                               generator=generator)
+                slots = ids[0].shape[0] if mask is None else mask.numel()
                 for r in range(R):
-                    lr = opt.schedule_lr(batch_id0 + g * R + r,
-                                         num_batch_total)
-                    state, loss = step_fn(state, *ids, lr, *neg_state,
-                                          mask=mask, generator=generator)
+                    lr = opt.schedule_lr(b0 + r, num_batch_total)
+                    tracing.count(tracing.PAIR_SLOTS, slots)
+                    with tracing.span(tracing.STEP, batch=b0 + r):
+                        state, loss = step_fn(state, *ids, lr, *neg_state,
+                                              mask=mask, generator=generator)
                     losses.append(loss)
             if state_unpack is not None:
                 state = state_unpack(state)
@@ -1522,22 +1563,27 @@ def make_pool_runner(step_fn, num_batch_total: int, opt: Optimizer,
     each [N, B] on the device; batch i trains at lr = schedule(batch_id0
     + i, num_batch_total) with no mask. `draws`: per batch, the step's own
     draws (a KG step's `negatives`, otherwise its `draws`), or None for
-    draws from `generator`. Losses stay on the device."""
+    draws from `generator`. Losses stay on the device. Spans and counters
+    as make_fused_runner's, without `sample` (the pool is made on the
+    host)."""
 
     def run(state, pool, batch_id0, generator, *neg_state, draws=None):
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span(tracing.EPISODE):
             losses = []
+            slots = pool[0].shape[1]
             for i in range(pool[0].shape[0]):
                 lr = opt.schedule_lr(batch_id0 + i, num_batch_total)
                 d = None if draws is None else draws[i]
-                if has_relation:
-                    state, loss = step_fn(state, pool[0][i], pool[1][i],
-                                          pool[2][i], lr, negatives=d,
-                                          generator=generator)
-                else:
-                    state, loss = step_fn(state, pool[0][i], pool[1][i], lr,
-                                          *neg_state, generator=generator,
-                                          draws=d)
+                tracing.count(tracing.PAIR_SLOTS, slots)
+                with tracing.span(tracing.STEP, batch=batch_id0 + i):
+                    if has_relation:
+                        state, loss = step_fn(state, pool[0][i], pool[1][i],
+                                              pool[2][i], lr, negatives=d,
+                                              generator=generator)
+                    else:
+                        state, loss = step_fn(state, pool[0][i], pool[1][i],
+                                              lr, *neg_state,
+                                              generator=generator, draws=d)
                 losses.append(loss)
             return state, torch.stack(losses)
 

@@ -44,7 +44,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from graphvite_tpu_torch.ops.alias import (AliasTable, PackedAliasTables,
                                            alias_draws, device_sample)
@@ -59,6 +58,7 @@ from graphvite_tpu_torch.ops.device_sampler import (emit_walk_banded,
                                                     make_walk_chain_fn,
                                                     walk_offsets)
 from graphvite_tpu_torch.optim import Optimizer, apply_row_updates
+from graphvite_tpu_torch.utils import tracing
 from graphvite_tpu_torch.utils.common import logger
 
 
@@ -541,14 +541,15 @@ class DeviceGroup:
                     else self._land(got[i], j) for i in range(self.size)]
                 for j in self.local}
 
-    # each collective runs under a profiler range of its name (mesh::...),
-    # so a trace shows its copies' device time
+    # each collective runs in a span of its name (mesh::..., a profiler
+    # range under a profiler: utils/tracing.py), so a trace shows its
+    # copies' device time
 
     def ring_shift(self, xs):
         P = self.size
         if P == 1:
             return list(xs)
-        with record_function("mesh::ring_shift"):
+        with tracing.span("mesh::ring_shift"):
             pairs = [((j + 1) % P, j) for j in range(P)]
             got = self._routed(pairs, lambda i, j: xs[i],
                                lambda j, i: xs[j])
@@ -561,7 +562,7 @@ class DeviceGroup:
         P = self.size
         if P == 1:
             return list(chunks)
-        with record_function("mesh::all_to_all"):
+        with tracing.span("mesh::all_to_all"):
             pairs = [(i, j) for i in range(P) for j in range(P)]
             got = self._routed(pairs, lambda i, j: chunks[i][j],
                                lambda j, i: chunks[j][i])
@@ -575,7 +576,7 @@ class DeviceGroup:
         P = self.size
         if P == 1:
             return list(xs)
-        with record_function("mesh::sum"):
+        with tracing.span("mesh::sum"):
             out = [None] * P
             for j, parts in self._everyone(xs).items():
                 with self.worker(j):
@@ -591,7 +592,7 @@ class DeviceGroup:
         if P == 1:
             return [xs[0] if 0 in src_of else xs[0].new_zeros(()).expand_as(
                 xs[0])]
-        with record_function("mesh::permute"):
+        with tracing.span("mesh::permute"):
             got = self._routed([(i, j) for j, i in sorted(src_of.items())],
                                lambda i, j: xs[i], lambda j, i: xs[j])
             out = [None] * P
@@ -607,7 +608,7 @@ class DeviceGroup:
         P = self.size
         if P == 1:
             return list(xs)
-        with record_function("mesh::all_gather"):
+        with tracing.span("mesh::all_gather"):
             out = [None] * P
             for j, parts in self._everyone(xs).items():
                 with self.worker(j):
@@ -618,7 +619,7 @@ class DeviceGroup:
         P = self.size
         if P == 1:
             return list(xs)
-        with record_function("mesh::reduce_scatter"):
+        with tracing.span("mesh::reduce_scatter"):
             C = xs[self.local[0]].shape[0] // P
 
             def chunk(i, j):

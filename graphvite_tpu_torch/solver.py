@@ -32,6 +32,7 @@ memory are scored by `predict` in chunks of touched rows.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 import pickle
@@ -58,6 +59,7 @@ from graphvite_tpu_torch.parallel.mesh import (BlockEdgeTables,
                                                make_sharded_graph_step)
 from graphvite_tpu_torch.sampler import (EdgeSampler, PrefetchingPool,
                                          RandomWalkSampler)
+from graphvite_tpu_torch.utils import tracing
 from graphvite_tpu_torch.utils.common import auto, hbm_budget_bytes, logger
 
 EXPECTED_DEGREE = 1600  # graph.cuh:55, used by the augmentation auto-rule
@@ -129,6 +131,18 @@ def state_to_numpy(state):
     return {"tables": tuple(_numpy_from_tensor(t) for t in state["tables"]),
             "moments": tuple(tuple(_numpy_from_tensor(m) for m in group)
                              for group in state["moments"])}
+
+
+def _traced_call(train):
+    """A solver's train entry as one `train` span whose first stage,
+    `prepare`, runs until the loop's first episode; the loop's `finish`
+    stage runs from its last episode to the return (utils/tracing.py)."""
+    @functools.wraps(train)
+    def traced(self, *args, **kwargs):
+        with tracing.span(tracing.TRAIN, device=self.device):
+            tracing.stage(tracing.PREPARE)
+            return train(self, *args, **kwargs)
+    return traced
 
 
 def _one_process(loop):
@@ -233,6 +247,7 @@ class SolverBase:
         raise NotImplementedError
 
     # -- build ---------------------------------------------------------------
+    @tracing.setup_stage(tracing.SOLVER_BUILD)
     def build(self, graph, optimizer=auto, num_partition=auto, num_negative=1,
               batch_size=100000, episode_size=auto):
         """Allocate embedding/moment tables. `num_partition` is accepted for
@@ -385,6 +400,7 @@ class SolverBase:
                     self.model, self.num_batch, batch_size, ep_groups, R)
         next_log = log_frequency
         losses_acc, all_losses = [], []
+        tracing.stage(None)
         while self.batch_id < self.num_batch:
             self.state, losses = runner(self.state, self.batch_id,
                                         self.num_batch, generator,
@@ -399,10 +415,12 @@ class SolverBase:
                             self.num_batch, mean_loss)
                 losses_acc = []
                 next_log = self.batch_id + log_frequency
+        tracing.stage(tracing.FINISH)
         # per-batch losses of this train() call, still on the device
         self.batch_losses = torch.cat(all_losses)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        tracing.resolve()
 
     def _train_loop(self, step_fn, sampler, has_relation, neg_state,
                     num_epoch, positive_reuse, log_frequency):
@@ -434,6 +452,7 @@ class SolverBase:
         next_log = log_frequency
         losses_acc, all_losses = [], []
         t0 = time.perf_counter()
+        tracing.stage(None)
         try:
             while self.batch_id < self.num_batch:
                 pool = []
@@ -459,9 +478,11 @@ class SolverBase:
                     next_log = self.batch_id + log_frequency
         finally:
             prefetch.close()
+        tracing.stage(tracing.FINISH)
         self.batch_losses = torch.cat(all_losses)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        tracing.resolve()
         self.host_stats = {"pools": prefetch.pools, "ep_batches": ep_batches,
                            "produce_s": prefetch.produce_s,
                            "wait_s": prefetch.wait_s,
@@ -578,6 +599,7 @@ class GraphSolver(SolverBase):
     def context_embeddings(self):
         return self.table(1)
 
+    @_traced_call
     def train(self, model="LINE", num_epoch=2000, resume=False,
               augmentation_step=auto, random_walk_length=40,
               random_walk_batch_size=100, shuffle_base=auto, p=1.0, q=1.0,
@@ -999,6 +1021,7 @@ class GraphSolver(SolverBase):
         losses_acc, all_losses = [], []
         episodes = 0
         t0 = time.perf_counter()
+        tracing.stage(None)
         while self.batch_id < self.num_batch:
             state, neg_state, losses = trainer.run_episode(
                 state, self._mesh_sample_state, neg_state, self.batch_id,
@@ -1019,6 +1042,7 @@ class GraphSolver(SolverBase):
                             float(l.mean()) if l.numel() else 0.0)
                 losses_acc = []
                 next_log = self.batch_id + log_frequency
+        tracing.stage(tracing.FINISH)
         for d in group.distinct:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
@@ -1282,6 +1306,7 @@ class GraphSolver(SolverBase):
         next_log = log_frequency
         losses_acc, all_losses = [], []
         t0 = time.perf_counter()
+        tracing.stage(None)
         while self.batch_id < self.num_batch:
             blk = int(rng.choice(block_p.size, p=block_p))
             i, j = blk // P_, blk % P_
@@ -1320,6 +1345,7 @@ class GraphSolver(SolverBase):
                             self.num_batch, mean_loss)
                 losses_acc = []
                 next_log = self.batch_id + log_frequency
+        tracing.stage(tracing.FINISH)
         if host_master:
             write_back(vcache, vparts, vmoms)
             write_back(ccache, cparts, cmoms)
@@ -1521,6 +1547,7 @@ class KnowledgeGraphSolver(SolverBase):
                    self.optimizer.init_moments((nr, d), self.device))
         self.state = {"tables": tables, "moments": moments}
 
+    @_traced_call
     def train(self, model="RotatE", num_epoch=2000, resume=False,
               relation_lr_multiplier=1.0, margin=12.0,
               l3_regularization=2e-3, sample_batch_size=2000,
@@ -1716,6 +1743,7 @@ class KnowledgeGraphSolver(SolverBase):
         losses_acc, all_losses = [], []
         episodes = 0
         t0 = time.perf_counter()
+        tracing.stage(None)
         while self.batch_id < self.num_batch:
             state, losses = trainer.run_episode(
                 state, self._kgmesh_prep[2], self.batch_id, self.num_batch,
@@ -1733,6 +1761,7 @@ class KnowledgeGraphSolver(SolverBase):
                             float(torch.cat(losses_acc).mean()))
                 losses_acc = []
                 next_log = self.batch_id + log_frequency
+        tracing.stage(tracing.FINISH)
         for d in group.distinct:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
@@ -1844,6 +1873,7 @@ class VisualizationSolver(SolverBase):
     def coordinates(self):
         return self.table(0)[:, :self.dim]
 
+    @_traced_call
     def train(self, model="LargeVis", num_epoch=50, resume=False,
               sample_batch_size=2000, positive_reuse=5,
               negative_sample_exponent=0.75, negative_weight=5.0,
@@ -1945,6 +1975,7 @@ class VisualizationSolver(SolverBase):
         next_log = log_frequency
         losses_acc, all_losses = [], []
         t0 = time.perf_counter()
+        tracing.stage(None)
         while self.batch_id < self.num_batch:
             tables, moments, losses = trainer.run_episode(
                 tables, moments, self._vismesh_edges, neg_state,
@@ -1960,6 +1991,7 @@ class VisualizationSolver(SolverBase):
                             float(torch.cat(losses_acc).mean()))
                 losses_acc = []
                 next_log = self.batch_id + log_frequency
+        tracing.stage(tracing.FINISH)
         for d in group.distinct:
             if d.type == "cuda":
                 torch.cuda.synchronize(d)

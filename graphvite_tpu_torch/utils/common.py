@@ -9,6 +9,8 @@ import time
 
 import numpy as np
 
+from graphvite_tpu_torch.utils import tracing
+
 # Sentinel meaning "deduce this hyperparameter automatically" (the
 # reference's kAuto = 0, so YAML configs with `auto` behave identically).
 auto = 0
@@ -71,7 +73,8 @@ def sigmoid(x):
 
 
 class Monitor:
-    """Wall-clock stage timer (the reference's Monitor)."""
+    """Wall-clock stage timer (the reference's Monitor); each stage is
+    also a span of its name (utils/tracing.py) in a recording session."""
 
     def __init__(self):
         self.records = {}
@@ -80,7 +83,8 @@ class Monitor:
     def stage(self, name):
         start = time.perf_counter()
         try:
-            yield
+            with tracing.span(name):
+                yield
         finally:
             elapsed = time.perf_counter() - start
             total, count = self.records.get(name, (0.0, 0))
@@ -94,8 +98,10 @@ class Monitor:
 @contextlib.contextmanager
 def device_profile(trace_dir):
     """Profile the enclosed block with torch.profiler (the CPU, and CUDA
-    where a card is present) and write a Chrome trace into `trace_dir`
-    (view it in chrome://tracing or Perfetto). Yields the profiler."""
+    where a card is present) inside a recording session of the program's
+    spans (utils/tracing.py), and write a Chrome trace into `trace_dir`
+    (view it in chrome://tracing or Perfetto), where the `graphvite::`
+    ranges sit over the kernels. Yields the profiler."""
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -105,7 +111,8 @@ def device_profile(trace_dir):
     prof = torch.profiler.profile(activities=activities)
     prof.start()
     try:
-        yield prof
+        with tracing.recording():
+            yield prof
     finally:
         prof.stop()
         path = os.path.join(trace_dir, "trace_%d_%d.json"
