@@ -3,17 +3,20 @@
     python3 chip_smoke.py [--seed N] [--main-batches N]
                           [--node2vec-batches N] [--layout-batches N]
                           [--edge-batches N] [--kg-batches N]
-                          [--kg-big-batches N] [--only multihost|opt_ins]
+                          [--kg-big-batches N]
+                          [--only multihost|opt_ins|rotate_pool]
 
 (--only multihost runs the device and build phases, builds the three
 graphs that phase reads, runs it, and prints no result line; --only
-opt_ins the same for phases row_access and opt_ins.)
+opt_ins the same for phases row_access and opt_ins; --only rotate_pool
+the same for phase rotate_pool, which needs no graph.)
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
 1. device   require CUDA; print the card's name and power limit; TF32 off.
 2. build    compile the hand-written CUDA kernels (csrc/*.cu: scatter_add,
-            gather_sorted, scatter_update, row_access) with nvcc, one
+            gather_sorted, scatter_update, row_access, rotate_pool) with
+            nvcc, one
             process each, all started together, from the checkout's
             sources.
 3. row_access the row-access bench
@@ -112,8 +115,9 @@ Phases, in order (any failure exits non-zero and prints no result line):
             deterministic maps mod the prime 14,951). --kg-batches (50)
             measured batches. The pooled step,
             batch 14,848 as 2 micro-steps of 7,424, 16 groups of 464
-            sharing 128 candidates, the RotatE isometry body, the dense
-            moment route (so no kernel of the port is on this path, and
+            sharing 128 candidates, the RotatE isometry body (its two
+            kernels once per micro-step, checked), the dense moment
+            route (so no update kernel of the port is on this path, and
             the run checks that none launched). Falling loss, finite
             tables, moving moments; a torch.profiler trace of 10 batches;
             one captured micro-step replayed on the card against the CPU
@@ -135,7 +139,15 @@ Phases, in order (any failure exits non-zero and prints no result line):
             every batch ends in scatter_update_ on the entity table. From
             each run one batch is captured and replayed on the card
             against the CPU, which holds a renumbered copy of the touched
-            rows.
+            rows. Every run: the RotatE body's two kernels once a batch.
+            Then phase rotate_pool: the body's kernels
+            (ops/rotate_pool.py) at this batch (128 groups of 476, pools
+            of 128, Dh 256, SGD) and at kg's micro-step (16 groups of
+            464, Dh 1024, Adam's squared sums), against the plain version
+            on the groups of its first pass, two calls the same bits;
+            event-timed wrapper, kernels alone, the plain version over
+            the step's passes, and the bound (benchmark/counts/rotate.py's
+            14 operations a pair and dimension at the float32 peak).
 11. vis      LargeVis through VisualizationApplication.load/build/train at
             the config/visualization/largevis_mnist_2d.yaml
             hyperparameters (dim 2 padded to 8 columns, num_neighbor 200,
@@ -1244,6 +1256,7 @@ def train_kg_path(app, train_kw, batches, per_batch, want_plan, falling):
     batch, micro batch, micro steps, G, M). Returns the record and a list
     of problems."""
     import torch
+    from graphvite_tpu_torch.ops import rotate_pool
 
     solver, graph = app.solver, app.graph
     t0 = time.perf_counter()
@@ -1253,10 +1266,13 @@ def train_kg_path(app, train_kw, batches, per_batch, want_plan, falling):
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
+    pool_sums = rotate_pool.pool_sums
+    pool_before = pool_sums.launches
     t0 = time.perf_counter()
     app.train(num_epoch=batches * eff / graph.num_edge + 1e-9, **train_kw)
     elapsed = time.perf_counter() - t0      # train() ends synchronized
     counts = read_launches()
+    pool_launches = pool_sums.launches - pool_before
     peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
     run = solver.batch_id
     losses = solver.batch_losses.double()
@@ -1277,6 +1293,7 @@ def train_kg_path(app, train_kw, batches, per_batch, want_plan, falling):
            "fast_body": base.fast_rotate, "warmup_s": warm_s,
            "elapsed_s": elapsed, "ms_per_batch": elapsed / run * 1e3,
            "triplets_per_s": run * eff / elapsed, "launches": counts,
+           "rotate_pool_launches": pool_launches,
            "loss_first": float(losses[:k].mean()),
            "loss_last": float(losses[-k:].mean()),
            "losses_finite": bool(torch.isfinite(losses).all()),
@@ -1291,6 +1308,10 @@ def train_kg_path(app, train_kw, batches, per_batch, want_plan, falling):
     want = {name: per_batch.get(name, 0) * run for name in counts}
     if counts != want:
         problems.append("kernel launches %r, want %r" % (counts, want))
+    # the RotatE body: its two kernels once per micro-step
+    if pool_launches != 2 * plan[2] * run:
+        problems.append("rotate_pool launches %d, want %d"
+                        % (pool_launches, 2 * plan[2] * run))
     if not rec["losses_finite"] or not tables_finite:
         problems.append("losses or tables not finite")
     if falling and not rec["loss_last"] < rec["loss_first"]:
@@ -4627,6 +4648,116 @@ def row_access_case(name, v, d, n, gen, timed, skewed=False):
     return rec
 
 
+ROTATE_POOL_SHAPES = (
+    # name, G, Bg, M, Dh, need_sq, groups per pass of the plain version
+    ("rotate_wikidata5m", 128, 476, 128, 256, False, 4),
+    ("rotate_fb15k", 16, 464, 128, 1024, True, 1))
+
+
+def rotate_pool_phase(seed):
+    """The pooled RotatE body's two kernels (ops/rotate_pool.py) at
+    rotate_wikidata5m.yaml's batch and rotate_fb15k.yaml's micro-step:
+    against the plain version on the groups of its first pass (largest
+    errors over their tolerances), two calls for the same bits, then
+    event-timed ms of the wrapper (a fixed gn: the step's adversarial tail
+    is left out), of its two kernels alone (their C functions on
+    preallocated outputs), of the plain version over all of the step's
+    passes, and the bound: the body's share of benchmark/counts/rotate.py
+    (14 operations a pair and complex dimension) at the float32 peak."""
+    import torch
+    from graphvite_tpu_torch.ops import kernels
+    from graphvite_tpu_torch.ops import rotate_pool as rp
+    from graphvite_tpu_torch.utils.common import EPSILON
+
+    out, problems = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, G, Bg, M, Dh, need_sq, per_pass in ROTATE_POOL_SHAPES:
+        x = [torch.randn(G, n, Dh, device="cuda", generator=gen) * 0.3
+             for n in (Bg, Bg, Bg, Bg, M, M)]
+        gn = torch.rand(G, Bg, M, device="cuda", generator=gen) / M
+        fixed = (None, gn.sum(dim=-1), gn)
+        seen = []
+
+        def outs(logits):
+            seen.append(logits)
+            return fixed
+
+        before = rp.pool_sums.launches
+        got = [rp.pool_sums(*x, 6.0, outs, need_sq) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = (torch.equal(seen[0], seen[1])
+                and all(torch.equal(a[k], b[k]) for a, b
+                        in zip(got[0][1:], got[1][1:]) for k in a))
+        first = [t[:per_pass].contiguous() for t in x]
+        plain_seen = []
+        _, sh, st = rp.pool_sums_plain(
+            *first, 6.0, lambda lg: (plain_seen.append(lg), fixed[0],
+                                     fixed[1][:per_pass],
+                                     gn[:per_pass])[1:], need_sq)
+        lg_err = float(((seen[0][:per_pass] - plain_seen[0]).abs()
+                        / (2e-5 * (6.0 - plain_seen[0]).abs() + 1e-6))
+                       .max())
+        sum_err = 0.0
+        M2 = M // 2
+        for side, want in enumerate((sh, st)):
+            g = gn[:per_pass, :, side * M2:(side + 1) * M2]
+            bound = {"E": g.sum(dim=2)[..., None],
+                     "S": (g * g).sum(dim=2)[..., None],
+                     "B": g.sum(dim=1)[..., None],
+                     "B2": (g * g).sum(dim=1)[..., None]}
+            for key, ref in want.items():
+                kind = "B2" if key in ("B_rr", "B_ii") else key[0]
+                err = (got[0][1 + side][key][:per_pass] - ref).abs()
+                sum_err = max(sum_err, float(
+                    (err / (1e-5 * bound[kind] + 1e-12)).max()))
+        del sh, st, plain_seen
+        lib = rp._library()
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = [t.data_ptr() for t in x]
+        eps2 = EPSILON * EPSILON
+        logits = torch.empty(G, Bg, M, device="cuda")
+        qe, qb = (5, 4) if need_sq else (2, 2)
+        e_out = torch.empty(qe, -(-M2 // rp.SLICE), 2, G, Bg, Dh,
+                            device="cuda")
+        b_out = torch.empty(qb, G, M, Dh, device="cuda")
+
+        def kernels_alone():
+            kernels.check_launch(lib, lib.gv_rotate_pool_logits(
+                *ptrs, logits.data_ptr(), G, Bg, M2, Dh, 6.0, eps2,
+                int(Dh % 4 == 0), stream), "logits")
+            kernels.check_launch(lib, lib.gv_rotate_pool_grads(
+                *ptrs, gn.data_ptr(), e_out.data_ptr(), b_out.data_ptr(), G,
+                Bg, M2, Dh, eps2, int(need_sq), stream), "grads")
+
+        def plain_passes():
+            for g0 in range(0, G, per_pass):
+                sl = slice(g0, g0 + per_pass)
+                rp.pool_sums_plain(*[t[sl] for t in x], 6.0,
+                                   lambda lg: (None, None, gn[sl]), need_sq)
+
+        rec = {"shape": [G, Bg, M, Dh], "need_sq": need_sq,
+               "same_bits": same, "logits_err_over_tol": lg_err,
+               "sums_err_over_tol": sum_err,
+               "ms": cuda_ms(lambda: rp.pool_sums(*x, 6.0, outs, need_sq)),
+               "kernel_ms": cuda_ms(kernels_alone),
+               "plain_ms": cuda_ms(plain_passes, reps=3, warmup=1)}
+        seen.clear()
+        rec["launches"] = rp.pool_sums.launches - before
+        ops = 14 * Dh * G * Bg * M
+        rec["bound_ms"], rec["bound_by"] = bytes_bound(0, ops)
+        rec["kernel_share_of_bound"] = rec["bound_ms"] / rec["kernel_ms"]
+        log("   %s:" % name, json.dumps(rec))
+        out[name] = rec
+        if not same or lg_err > 1 or sum_err > 1:
+            problems.append("%s: same bits %r, errors over tolerance %.3g, "
+                            "%.3g" % (name, same, lg_err, sum_err))
+        del x, gn, got, logits, e_out, b_out
+        torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def row_access_phase(seed):
     """The bench's experiments (the path of this phase), then each kernel
     bit for bit against its plain version at the reference's shape and at
@@ -5002,7 +5133,8 @@ def main():
     ap.add_argument("--edge-batches", type=int, default=1000)
     ap.add_argument("--kg-batches", type=int, default=50)
     ap.add_argument("--kg-big-batches", type=int, default=50)
-    ap.add_argument("--only", choices=["multihost", "opt_ins"],
+    ap.add_argument("--only", choices=["multihost", "opt_ins",
+                                       "rotate_pool"],
                     help="run the device and build phases and this phase "
                     "alone (its graphs built here; opt_ins after "
                     "row_access), print its record and no result line")
@@ -5037,7 +5169,8 @@ def run(args):
     import torch
 
     try:
-        from graphvite_tpu_torch.ops import gather, kernels, row_access, scatter
+        from graphvite_tpu_torch.ops import (gather, kernels, rotate_pool,
+                                             row_access, scatter)
     except ImportError as e:
         sys.stderr.write("chip_smoke: run from the root of a checkout of "
                          "the repository (%s)\n" % e)
@@ -5083,16 +5216,22 @@ def run(args):
                 if "registers" in line or "spill" in line:
                     log("   ptxas:", line.strip())
         log("built %d kernels in %.1f s" % (len(paths), secs))
-        if sorted(paths) != ["gather_sorted", "row_access", "scatter_add",
-                             "scatter_update"]:
+        if sorted(paths) != ["gather_sorted", "rotate_pool", "row_access",
+                             "scatter_add", "scatter_update"]:
             raise AssertionError("kernels built: %r" % sorted(paths))
         scatter._library("scatter_add")
         scatter._library("scatter_update")
         gather._library()
         row_access._library()
+        rotate_pool._library()
         return secs
     if not phase("build", build):
         return 1
+
+    if args.only == "rotate_pool":
+        ok = phase("rotate_pool", lambda: rotate_pool_phase(args.seed))
+        log(card_line())
+        return 0 if ok else 1
 
     # 3. the row-access bench and its kernels
     if args.only != "multihost":
@@ -5359,6 +5498,8 @@ def run(args):
             raise AssertionError("; ".join(problems))
         return out
     phase("kg_big", kg_big_path)
+    torch.cuda.empty_cache()
+    phase("rotate_pool", lambda: rotate_pool_phase(args.seed))
     torch.cuda.empty_cache()
 
     # 11. LargeVis at the largevis_mnist_2d.yaml shape (exact KNN)

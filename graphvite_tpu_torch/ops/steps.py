@@ -36,6 +36,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from graphvite_tpu_torch.ops import rotate_pool
 from graphvite_tpu_torch.ops.alias import alias_draws, device_sample
 from graphvite_tpu_torch.ops.device_sampler import walk_offsets
 from graphvite_tpu_torch.ops.gather import gather_sorted
@@ -923,7 +924,8 @@ def kg_pool_groups(batch_size: int, target_group: int = 512,
 # the pooled step scores several groups in one pass while one
 # [g, Bg, M/2, D/2] intermediate stays under this many elements (128 MiB
 # in float32): one group per pass at the rotate_fb15k.yaml shape (464 x 64
-# x 1024), four at rotate_wikidata5m.yaml's (476 x 64 x 256)
+# x 1024), four at rotate_wikidata5m.yaml's (476 x 64 x 256). The RotatE
+# body's kernels on the card hold no such intermediate: one pass.
 GROUP_PASS_ELEMS = 1 << 25
 
 
@@ -969,7 +971,9 @@ def make_kg_pool_step(model, opt: Optimizer, num_negative: int,
     Where the reference scans the G groups one at a time, this step takes
     several per pass: as many as keep one intermediate under
     GROUP_PASS_ELEMS elements (a divisor of G). The sums are per group
-    either way.
+    either way. On the card the isometry body's pair work runs in two
+    hand-written kernels over all G groups at once (ops/rotate_pool.py),
+    with no [g, Bg, M/2, D/2] tensor in device memory: one pass.
 
     step(state, heads [B], tails [B], rels [B], lr, mask=None,
     negatives=None, generator=None) -> (state, loss); B % pool_groups ==
@@ -1021,49 +1025,12 @@ def make_kg_pool_step(model, opt: Optimizer, num_negative: int,
         w_re = h_re * cosp - h_im * sinp
         w_im = h_re * sinp + h_im * cosp
         c_re, c_im = _halves(cand)                           # [g, M, Dh]
-
-        def side(fixed_re, fixed_im, cs_re, cs_im, head_side):
-            """One corruption side: d = c - u (head) or w - c (tail) per
-            (sample, candidate, dim); logits and what the gradients need."""
-            if head_side:
-                d_re = cs_re[:, None] - fixed_re[:, :, None]
-                d_im = cs_im[:, None] - fixed_im[:, :, None]
-            else:
-                d_re = fixed_re[:, :, None] - cs_re[:, None]
-                d_im = fixed_im[:, :, None] - cs_im[:, None]
-            sq = d_re * d_re + d_im * d_im                   # [g, Bg, M2, Dh]
-            rinv = torch.rsqrt(torch.clamp(sq, min=EPSILON * EPSILON))
-            logits = margin_or_l3 - (sq * rinv).sum(dim=-1)
-            return d_re, d_im, rinv, logits
-
-        dh_re, dh_im, rinv_h, lg_h = side(u_re, u_im, c_re[:, :M2],
-                                          c_im[:, :M2], True)
-        dt_re, dt_im, rinv_t, lg_t = side(w_re, w_im, c_re[:, M2:],
-                                          c_im[:, M2:], False)
-        logits = torch.cat([lg_h, lg_t], dim=-1)             # [g, Bg, M]
-        _, loss_neg, gn = negative_outs(logits, m_g)
-
-        def side_grads(gn_s, d_re, d_im, rinv):
-            """z = (gn / rho) * d; sums of z over the samples (candidate
-            side, B_*) and over the candidates (sample side, E_*), and of
-            its squares for the moment rules."""
-            alpha = gn_s[..., None] * rinv                   # [g, Bg, M2, Dh]
-            z_re = alpha * d_re
-            z_im = alpha * d_im
-            out = {"B_re": z_re.sum(dim=1), "B_im": z_im.sum(dim=1),
-                   "E_re": z_re.sum(dim=2), "E_im": z_im.sum(dim=2)}
-            if need_sq:
-                zr2 = z_re * z_re
-                zi2 = z_im * z_im
-                out.update(B_rr=zr2.sum(dim=1), B_ii=zi2.sum(dim=1),
-                           S_rr=zr2.sum(dim=2), S_ii=zi2.sum(dim=2),
-                           S_ri=(z_re * z_im).sum(dim=2))
-            return out
-
-        sh = side_grads(gn[..., :M2], dh_re, dh_im, rinv_h)
-        del dh_re, dh_im, rinv_h
-        st = side_grads(gn[..., M2:], dt_re, dt_im, rinv_t)
-        del dt_re, dt_im, rinv_t
+        # logits, the adversarial tail and the gradient sums of every
+        # (sample, candidate) pair: the kernels on the card, plain
+        # PyTorch on the CPU
+        loss_neg, sh, st = rotate_pool.pool_sums(
+            u_re, u_im, w_re, w_im, c_re, c_im, margin_or_l3,
+            lambda logits: negative_outs(logits, m_g), need_sq)
 
         # head-corrupt: d = c - u, dL/dc = -z, dL/dt = +R^{+phi}(z);
         # tail-corrupt: d = w - c, dL/dc = +z, dL/dh = -R^{-phi}(z)
@@ -1180,10 +1147,13 @@ def make_kg_pool_step(model, opt: Optimizer, num_negative: int,
         reg_rp = grp + wp * (wd * r_pos)
 
         # ---- negatives, `gp` groups per pass ---------------------------
-        width = dim // 2 if fast_rotate else dim
-        gp = min(max(GROUP_PASS_ELEMS // max(bg * M2 * width, 1), 1), G)
-        while G % gp:
-            gp -= 1
+        if fast_rotate and dev.type == "cuda":
+            gp = G      # the kernels hold no [g, Bg, M/2, D/2] tensor
+        else:
+            width = dim // 2 if fast_rotate else dim
+            gp = min(max(GROUP_PASS_ELEMS // max(bg * M2 * width, 1), 1), G)
+            while G % gp:
+                gp -= 1
         h3 = h_pos.reshape(G, bg, dim)
         t3 = t_pos.reshape(G, bg, dim)
         r3 = r_pos.reshape(G, bg, dim)
@@ -1194,8 +1164,8 @@ def make_kg_pool_step(model, opt: Optimizer, num_negative: int,
             sl = slice(g0, g0 + gp)
             parts.append(run(h3[sl], t3[sl], r3[sl], cand[sl],
                              None if m3 is None else m3[sl]))
-        outs = {key: torch.cat([p[key] for p in parts])
-                for key in parts[0]}
+        outs = parts[0] if len(parts) == 1 else {
+            key: torch.cat([p[key] for p in parts]) for key in parts[0]}
         # active samples per group (touch counts are NOT weight-scaled:
         # each draw is one optimizer touch however small its weight)
         msum = (torch.full((G,), float(bg), device=dev) if m3 is None

@@ -19,14 +19,20 @@ tests hold the port to the reference (loss rtol 2e-5; tables and moments
 rtol 3e-4, atol 3e-6). The run layouts chosen against the tiles of the
 segmented reduction (test_segmented_*) use values on a grid of 1/64, so
 every order of a float32 sum gives the same bits: there the scatter-add
-must equal its plain version exactly, in float32 and in bfloat16."""
+must equal its plain version exactly, in float32 and in bfloat16. The
+pooled RotatE kernels (ops/rotate_pool.py) against their plain version:
+float32 sums in another order, so logits within 2e-5 of the sum of the
+moduli, E and B sums within 1e-5 of the sum of their terms' bound (|z| <=
+gn, |z|^2 <= gn^2), and two calls the same bits; the whole step through
+them within the CPU tests' tolerances."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import graphvite_tpu_torch.optim as optim_mod
 from graphvite_tpu_torch.models import KG_MODELS
-from graphvite_tpu_torch.ops import gather, scatter, steps
+from graphvite_tpu_torch.ops import gather, rotate_pool, scatter, steps
 from graphvite_tpu_torch.optim import Optimizer
 
 
@@ -582,12 +588,17 @@ def test_kg_step_on_card_matches_cpu(rule, step_kind, big_table, monkeypatch):
                else t(negatives))
         before = (scatter.scatter_add_.launches
                   + scatter.scatter_update_.launches)
+        pool_before = rotate_pool.pool_sums.launches
         with torch.no_grad():
             new, loss = step(state, t(heads), t(tails), t(rels), opt.lr,
                              mask=t(mask), negatives=neg)
         _sync(device)
         after = (scatter.scatter_add_.launches
                  + scatter.scatter_update_.launches)
+        # the RotatE body's two kernels, once for all G groups, on the card
+        pool_want = 2 if (step_kind == "pool_fast"
+                          and device.type == "cuda") else 0
+        assert rotate_pool.pool_sums.launches - pool_before == pool_want
         if device.type == "cuda":
             # SGD: both tables on kernel 1; Adam: kernel 2 where the table
             # is above the dense-update size
@@ -599,6 +610,147 @@ def test_kg_step_on_card_matches_cpu(rule, step_kind, big_table, monkeypatch):
     (gpu, gl), (cpu, cl) = out
     np.testing.assert_allclose(gl, cl, rtol=2e-5)
     for a, b_ in zip(gpu, cpu):
+        np.testing.assert_allclose(a, b_, rtol=3e-4, atol=3e-6)
+
+
+def _pool_inputs(G, Bg, M, Dh, seed, dev):
+    """Frames u, w [G, Bg, Dh] and candidates [G, M, Dh] as halves, and a
+    mask [G, Bg] with ~20% of the samples off."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return torch.as_tensor((rng.normal(size=shape) * 0.3)
+                               .astype(np.float32), device=dev)
+    x = [f(G, Bg, Dh) for _ in range(4)] + [f(G, M, Dh) for _ in range(2)]
+    mask = torch.as_tensor((rng.random((G, Bg)) > 0.2).astype(np.float32),
+                           device=dev)
+    return x, mask
+
+
+def _adversarial_outs(mask, M, seen, fixed=None):
+    """The pooled step's negative_outs (temperature 2), recording the
+    logits it gets; with `fixed` it returns those outputs instead, so both
+    versions sum the same gn."""
+    def outs(logits):
+        seen.append(logits)
+        if fixed is not None:
+            return fixed
+        w = steps._adversarial_weights(logits, 2.0, 1.0 / M)
+        if mask is not None:
+            w = w * mask[..., None]
+        return (w, (w * F.softplus(logits)).sum(dim=-1),
+                torch.sigmoid(logits) * w)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("G,Bg,M,Dh,need_sq", [
+    (4, 476, 128, 256, False),    # rotate_wikidata5m.yaml's groups, SGD
+    (2, 464, 128, 1024, True),    # rotate_fb15k.yaml's, Adam's squares
+    (3, 37, 26, 19, True),        # ragged: Bg, M/2 13, odd Dh
+    (2, 50, 160, 36, False),      # two candidate slices, ragged chunks
+])
+def test_rotate_pool_kernels_match_plain_version(G, Bg, M, Dh, need_sq,
+                                                 masked):
+    dev = _cuda()
+    x, mask = _pool_inputs(G, Bg, M, Dh, 17, dev)
+    mask = mask if masked else None
+    seen_p = []
+    loss_p, sh_p, st_p = rotate_pool.pool_sums_plain(
+        *x, 6.0, _adversarial_outs(mask, M, seen_p), need_sq)
+    fixed = _adversarial_outs(mask, M, [])(seen_p[0])
+    gn = fixed[2]
+    runs = []
+    for _ in range(2):
+        seen = []
+        before = rotate_pool.pool_sums.launches
+        out = rotate_pool.pool_sums(*x, 6.0,
+                                    _adversarial_outs(mask, M, seen, fixed),
+                                    need_sq)
+        torch.cuda.synchronize()
+        assert rotate_pool.pool_sums.launches - before == 2
+        runs.append((seen[0],) + out)
+    # two calls on the same inputs: the same bits
+    (lg, loss, sh, st), (lg2, _, sh2, st2) = runs
+    assert torch.equal(lg, lg2)
+    for a, b in ((sh, sh2), (st, st2)):
+        assert all(torch.equal(a[key], b[key]) for key in a)
+    # logits: margin - a sum of Dh moduli
+    lg_p = seen_p[0]
+    err = (lg - lg_p).abs()
+    assert bool((err <= 2e-5 * (6.0 - lg_p).abs() + 1e-6).all()), \
+        float(err.max())
+    assert torch.equal(loss, loss_p)          # `fixed` outputs
+    M2 = M // 2
+    for side, (got, want) in enumerate(((sh, sh_p), (st, st_p))):
+        g_side = gn[..., side * M2:(side + 1) * M2]
+        bound = {"E": g_side.sum(dim=2)[..., None],          # over cands
+                 "S": (g_side * g_side).sum(dim=2)[..., None],
+                 "B": g_side.sum(dim=1)[..., None],           # over samples
+                 "B2": (g_side * g_side).sum(dim=1)[..., None]}
+        assert sorted(got) == sorted(want)
+        for key in want:
+            kind = "B2" if key in ("B_rr", "B_ii") else key[0]
+            err = (got[key] - want[key]).abs()
+            assert got[key].shape == want[key].shape, key
+            assert bool((err <= 1e-5 * bound[kind] + 1e-12).all()), \
+                (side, key, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("rule", ["SGD", "Adam"])
+def test_fast_rotate_step_kernels_match_plain_body_on_card(rule, masked,
+                                                           monkeypatch):
+    """The whole pooled RotatE step on the card through the kernels
+    against the same step with the plain body on the card, from the same
+    state, triplets and candidates (Bg 60, M 40, D 72: ragged tiles).
+    Tolerances of the CPU tests. The kernel step twice gives the same bits
+    on SGD (kernel 1 updates both tables); Adam's small tables take the
+    dense moment route, whose index_add_ sums in no fixed order."""
+    dev = _cuda()
+    monkeypatch.delenv("GRAPHVITE_KG_FAST", raising=False)
+    rng = np.random.default_rng(23)
+    v, r, d, b, k, G, M = 2000, 30, 72, 240, 8, 4, 40
+    opt = Optimizer(type=rule, lr=0.05 if rule == "SGD" else 1e-3,
+                    weight_decay=0.0)
+    step = steps.make_kg_pool_step(KG_MODELS["RotatE"], opt, k, 6.0, 2.0,
+                                   0.5, pool_size=M, pool_groups=G)
+    assert step.fast_rotate
+    t = lambda a: torch.as_tensor(a, device=dev)
+    heads, tails = t(rng.integers(0, v, b)), t(rng.integers(0, v, b))
+    rels, cand = t(rng.integers(0, r, b)), t(rng.integers(0, v, (G, M)))
+    mask = t((rng.random(b) > 0.2).astype(np.float32)) if masked else None
+    ent = (rng.normal(size=(v, d)) * 0.3).astype(np.float32)
+    rel = (rng.normal(size=(r, d)) * 0.3).astype(np.float32)
+    moms = [[(np.abs(rng.normal(size=(n, d))) * 1e-2 + 1e-3)
+             .astype(np.float32) for _ in range(opt.num_moment)]
+            for n in (v, r)]
+
+    def run():
+        state = {"tables": (t(ent.copy()), t(rel.copy())),
+                 "moments": tuple(tuple(t(m.copy()) for m in g)
+                                  for g in moms)}
+        with torch.no_grad():
+            new, loss = step(state, heads, tails, rels, opt.lr, mask=mask,
+                             negatives=cand)
+        torch.cuda.synchronize()
+        return ([x.cpu().numpy() for x in new["tables"]]
+                + [m.cpu().numpy() for g in new["moments"] for m in g],
+                float(loss))
+
+    before = rotate_pool.pool_sums.launches
+    kern, kern2 = run(), run()
+    assert rotate_pool.pool_sums.launches - before == 4
+    if rule == "SGD":
+        assert kern[1] == kern2[1]
+        assert all(np.array_equal(a, b_) for a, b_ in zip(kern[0], kern2[0]))
+    monkeypatch.setattr(rotate_pool, "pool_sums",
+                        rotate_pool.pool_sums_plain)
+    plain = run()
+    np.testing.assert_allclose(kern[1], plain[1], rtol=2e-5)
+    for a, b_ in zip(kern[0], plain[0]):
         np.testing.assert_allclose(a, b_, rtol=3e-4, atol=3e-6)
 
 
