@@ -12,20 +12,32 @@ window call are recorded, the draws replayed from a copy of the
 generator's state taken before the step (`record_step`).
 `check(dtype)` hands what was recorded to the configuration's plain
 reference after the program is freed.
+
+Two hooks say where the harness reaches into the program, each as
+(module, attribute) pairs, so that a job on another route or engine
+names its own: `recorded_runner()`, the runner factory whose steps are
+recorded, and `fault_points()`, where faults.py plants each fault.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import importlib
 
 import numpy as np
 import torch
 
-from benchmark import init
+from benchmark import init, trace
 from benchmark.reference import common
 
 
 class TrainingJob:
     """What the graph and knowledge-graph jobs share."""
+
+    # the faults this job's cells can have (benchmark/tests plants each);
+    # a job with one more (say, the exchange between cards left out) adds
+    # its name here and plants it in `plant`
+    FAULTS = ("unchanged", "half_batch", "token", "own_draws")
 
     def __init__(self, cfg, traffic, seed, device):
         self.cfg, self.traffic = cfg, traffic
@@ -41,6 +53,27 @@ class TrainingJob:
         self._unwrap = None
 
     # -- hooks of an application -------------------------------------------
+    def recorded_runner(self):
+        """(module, attribute) of the program's runner factory whose steps
+        are recorded: it takes the step as its first argument and calls
+        it as step(state, *args, mask=..., generator=...)."""
+        return ("graphvite_tpu_torch.ops.steps", "make_fused_runner")
+
+    def fault_points(self):
+        """Where faults.py plants each fault in this job's program, made
+        from its configuration: {"step": (module, attribute) of the step
+        factory whose steps half_batch and own_draws wrap, "sampler":
+        (module, class) whose make_sample_fn the token fault wraps,
+        "token": (output, index) of the id it alters in each batch,
+        "update": (module, attribute) of the table-update entry that
+        unchanged empties}."""
+        raise NotImplementedError
+
+    def plant(self, fault):
+        """A context in which `fault`, a name of this job's FAULTS that
+        faults.py does not plant itself, is planted in the program."""
+        raise ValueError("no fault %r" % fault)
+
     def step_inputs(self, step, state, args, mask, replay):
         """What the reference needs of one step's inputs ({name: tensor},
         with its "lr"), the step's own draws made again from `replay`, a
@@ -124,12 +157,12 @@ class TrainingJob:
         self.calls.append((list(range(b0, total)), total))
 
     def _wrap_runners(self):
-        """Every runner that `ops/steps.py:make_fused_runner` makes from
-        now on calls the program's step through `_step`, which passes the
-        call on unchanged and records the steps that `_record` counts."""
-        from graphvite_tpu_torch.ops import steps
-
-        make = steps.make_fused_runner
+        """Every runner that the factory `recorded_runner()` names makes
+        from now on calls the program's step through `_step`, which passes
+        the call on unchanged and records the steps that `_record`
+        counts."""
+        module, name = self.recorded_runner()
+        make = getattr(importlib.import_module(module), name)
 
         def make_recorded(step_fn, *args, **kwargs):
             def step(state, *rest, mask=None, generator=None):
@@ -141,11 +174,9 @@ class TrainingJob:
                                         generator)
             return make(step, *args, **kwargs)
 
-        steps.make_fused_runner = make_recorded
-
-        def unwrap():
-            steps.make_fused_runner = make
-        self._unwrap = unwrap
+        stack = contextlib.ExitStack()
+        stack.enter_context(trace.replaced((module, name), make_recorded))
+        self._unwrap = stack.close
 
     def record_step(self, step, state, args, mask, generator):
         """Run the program's `step` as the runner does, keeping its inputs

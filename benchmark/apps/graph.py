@@ -41,6 +41,23 @@ class Job(TrainingJob):
         self.solver.build(g, **cfg["build"])
         self.install_init(self.solver)
 
+    def fault_points(self):
+        """The walk route's step on the fused arena (SGD, tables above the
+        dense-update size: the cell's, and its tiny copy's on the CPU),
+        the walk sampler altering a walk's sixth vertex, and kernel 1. A
+        configuration on another route (the edge route, or a moment
+        optimizer's separate tables) needs a job that names its own."""
+        train, opt = self.cfg["train"], self.cfg["build"]["optimizer"]
+        if int(train["augmentation_step"]) < 2 or opt["type"] != "SGD":
+            raise ValueError("%s does not train the walk route's fused arena"
+                             % self.cfg["name"])
+        return {"step": ("graphvite_tpu_torch.ops.steps",
+                         "make_graph_banded_fused_step"),
+                "sampler": ("graphvite_tpu_torch.ops.device_sampler",
+                            "DeviceWalkSampler"),
+                "token": (0, (0, 5)),
+                "update": ("graphvite_tpu_torch.ops.scatter", "scatter_add_")}
+
     def step_inputs(self, step, state, args, mask, replay):
         from graphvite_tpu_torch.ops.alias import alias_draws, device_sample
 

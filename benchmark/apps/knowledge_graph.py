@@ -39,6 +39,15 @@ class Job(TrainingJob):
         self.solver.build(kg, **cfg["build"])
         self.install_init(self.solver)
 
+    def fault_points(self):
+        """The pooled KG step, the edge sampler with relations altering a
+        triplet's tail, and kernel 1."""
+        return {"step": ("graphvite_tpu_torch.ops.steps", "make_kg_pool_step"),
+                "sampler": ("graphvite_tpu_torch.ops.device_sampler",
+                            "DeviceEdgeSampler"),
+                "token": (1, (0,)),
+                "update": ("graphvite_tpu_torch.ops.scatter", "scatter_add_")}
+
     def step_inputs(self, step, state, args, mask, replay):
         heads, tails, rels, lr = args[:4]
         # the candidates the step draws for itself, drawn again

@@ -1,6 +1,13 @@
 """pytest settings of the benchmark's own tests (python -m pytest
 benchmark/tests): the `cuda` marker, the checkout on sys.path, and tiny
-copies of the cells for the CPU."""
+copies of the cells for the CPU.
+
+A configuration's tiny copy is `tiny/<config>.json`: its file under
+`configs/` with each group of the tiny file laid over the group of the
+same name (the same jobs, widths and limits; fewer vertices, relations,
+triplets and batches, and dimension and batch cut for time). `init` maps
+a table's position in the configuration's `init` list to the keys that
+change in it."""
 import copy
 import json
 import os
@@ -11,21 +18,6 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
-
-# the cells at sizes a CPU test holds: the same jobs, widths and limits,
-# fewer vertices, relations, triplets and batches; dimension and batch
-# cut for time
-TINY = {
-    "deepwalk_youtube": {"dataset": {"num_vertex": 5000, "num_edge": 25000},
-                         "resource": {"dim": 32},
-                         "build": {"episode_size": 4}},
-    "rotate_wikidata5m": {"dataset": {"num_vertex": 2000,
-                                      "num_relation": 20,
-                                      "num_edge": 20000},
-                          "resource": {"dim": 32},
-                          "build": {"episode_size": 4, "batch_size": 1024},
-                          "init": {1: {"cols_drawn": 16}}},
-}
 
 
 def pytest_configure(config):
@@ -38,13 +30,20 @@ def manifest():
         return json.load(f)
 
 
-def tiny_config(name):
-    with open(os.path.join(ROOT, "benchmark", "configs", name + ".json")) as f:
+def tiny_path(name):
+    return os.path.join(ROOT, "benchmark", "tiny", name + ".json")
+
+
+def tiny_config(entry):
+    """The tiny copy of the configuration of a BENCHMARK.json entry."""
+    with open(os.path.join(ROOT, entry["file"])) as f:
         cfg = json.load(f)
-    for group, values in TINY[name].items():
+    with open(tiny_path(entry["name"])) as f:
+        tiny = json.load(f)
+    for group, values in tiny.items():
         if group == "init":
             for i, v in values.items():
-                cfg["init"][i].update(v)
+                cfg["init"][int(i)].update(v)
         else:
             cfg[group].update(values)
     return cfg
@@ -61,10 +60,14 @@ def tiny_root(tmp_path, monkeypatch):
     monkeypatch.setattr(optim, "DENSE_UPDATE_ELEMS", 1)
     monkeypatch.setenv("GRAPHVITE_KG_NEG_SHARING", "1")
     man = copy.deepcopy(manifest())
-    os.makedirs(tmp_path / "benchmark" / "configs")
     for c in man["configs"]:
-        with open(tmp_path / c["file"], "w") as f:
-            json.dump(tiny_config(c["name"]), f)
+        # a configuration without a tiny copy fails its own cells (its file
+        # is missing here) and test_bench_manifest's case for it, no other
+        if os.path.exists(tiny_path(c["name"])):
+            path = tmp_path / c["file"]
+            os.makedirs(path.parent, exist_ok=True)
+            with open(path, "w") as f:
+                json.dump(tiny_config(c), f)
     with open(tmp_path / "BENCHMARK.json", "w") as f:
         json.dump(man, f)
     return str(tmp_path)

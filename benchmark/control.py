@@ -33,8 +33,7 @@ def readings(workload, seed, device, control=False, fault=None, root=ROOT):
     _, cfg, traffic = harness.cell_files(manifest, workload, root)
     app = importlib.import_module("benchmark.apps." + cfg["application"])
     job = app.Job(cfg, traffic, seed, device)
-    ctx = (faults.planted(fault, cfg["application"]) if fault
-           else contextlib.nullcontext())
+    ctx = faults.planted(fault, job) if fault else contextlib.nullcontext()
     with ctx:
         job.set_up()
         job.call()

@@ -2,8 +2,8 @@
 catches each fault a training cell can have (benchmark/tests and
 control.py; the benchmark's own runs plant none):
 
-* "unchanged": every step returns its state unchanged (kernel 1, which
-  applies every table update of both cells, does nothing);
+* "unchanged": every step returns its state unchanged (the table-update
+  entry that applies the cell's table updates does nothing);
 * "half_batch": each step leaves out the second half of its batch (its
   mask zeroed there), so its loss is the mean over the rest;
 * "token": the sampler alters one id of each batch where it makes it;
@@ -11,111 +11,92 @@ control.py; the benchmark's own runs plant none):
   stream gives at that point (it takes one draw of its own first), so
   the replayed draws that the reference follows are not the step's.
 
-The cells run on one chip, so the exchange between chips has no fault to
-plant.
+Where each is planted is the job's answer (`TrainingJob.fault_points`,
+apps/__init__.py), made from its configuration: the step factory, the
+sampler class with the id it alters, and the table-update entry. A job
+whose cells can have another fault (on several cards, the exchange
+between them left out) lists it in its `FAULTS` and plants it itself
+(`TrainingJob.plant`).
 """
 from __future__ import annotations
 
-import contextlib
 import functools
+import importlib
 
 import torch
 
 from benchmark import trace
 
-FAULTS = ("unchanged", "half_batch", "token", "own_draws")
-# the step factory and the sampler class of each application's cell
-STEP_FACTORY = {"graph": "make_graph_banded_fused_step",
-                "knowledge_graph": "make_kg_pool_step"}
-SAMPLER = {"graph": "DeviceWalkSampler",
-           "knowledge_graph": "DeviceEdgeSampler"}
 
-
-@contextlib.contextmanager
-def _patched(obj, name, value):
-    old = getattr(obj, name)
-    setattr(obj, name, value)
-    try:
-        yield
-    finally:
-        setattr(obj, name, old)
-
-
-def _unchanged():
-    def scatter_add_(table, ids, upd):
+def _unchanged(point):
+    def update(table, *args, **kwargs):
         return table
 
-    return trace.scatter_replaced(scatter_add_)
+    return trace.replaced(point, update)
 
 
-def _half_batch(application):
-    from graphvite_tpu_torch.ops import steps
-
-    make = getattr(steps, STEP_FACTORY[application])
-
-    @functools.wraps(make)
-    def make_faulty(*args, **kwargs):
-        step = make(*args, **kwargs)
-
-        @functools.wraps(step)
-        def faulty(state, *rest, mask=None, **kw):
-            mask = mask.clone()
-            mask[mask.shape[0] // 2:] = 0
-            return step(state, *rest, mask=mask, **kw)
-        return faulty
-
-    return _patched(steps, STEP_FACTORY[application], make_faulty)
-
-
-def _own_draws(application):
-    from graphvite_tpu_torch.ops import steps
-
-    make = getattr(steps, STEP_FACTORY[application])
+def _step_wrapped(point, fault):
+    """Every step that the factory at `point` makes from now on, called
+    through `fault(step, state, *rest, **kw)`."""
+    module, name = point
+    make = getattr(importlib.import_module(module), name)
 
     @functools.wraps(make)
     def make_faulty(*args, **kwargs):
         step = make(*args, **kwargs)
 
         @functools.wraps(step)
-        def faulty(state, *rest, generator=None, **kw):
-            torch.rand(1, generator=generator, device=generator.device)
-            return step(state, *rest, generator=generator, **kw)
+        def faulty(state, *rest, **kw):
+            return fault(step, state, *rest, **kw)
         return faulty
 
-    return _patched(steps, STEP_FACTORY[application], make_faulty)
+    return trace.replaced(point, make_faulty)
 
 
-def _token(application):
-    from graphvite_tpu_torch.ops import device_sampler
+def _half_batch(step, state, *rest, mask=None, **kw):
+    mask = mask.clone()
+    mask[mask.shape[0] // 2:] = 0
+    return step(state, *rest, mask=mask, **kw)
 
-    cls = getattr(device_sampler, SAMPLER[application])
+
+def _own_draws(step, state, *rest, generator=None, **kw):
+    torch.rand(1, generator=generator, device=generator.device)
+    return step(state, *rest, generator=generator, **kw)
+
+
+def _token(point, at):
+    """The sampler class at `point` alters id `at` = (output, index) of
+    each batch it makes."""
+    module, name = point
+    cls = getattr(importlib.import_module(module), name)
     make = cls.make_sample_fn
-    # the altered id: a walk's sixth vertex, or a triplet's tail
-    at = {"graph": (0, (0, 5)), "knowledge_graph": (1, (0,))}[application]
+    out_i, index = at[0], tuple(at[1])
 
     def make_sample_fn(self, batch_size):
         sample = make(self, batch_size)
 
         def altered(*arrays, **kw):
             out = sample(*arrays, **kw)
-            ids = out[at[0]]
+            ids = out[out_i]
             # the next id down (up from 0): another vertex, in range
-            ids[at[1]] = torch.where(ids[at[1]] > 0, ids[at[1]] - 1,
-                                     ids[at[1]] + 1)
+            ids[index] = torch.where(ids[index] > 0, ids[index] - 1,
+                                     ids[index] + 1)
             return out
         return altered
 
-    return _patched(cls, "make_sample_fn", make_sample_fn)
+    return trace.swapped([cls], "make_sample_fn", make_sample_fn)
 
 
-def planted(fault, application):
-    """A context in which `fault` is planted in the program."""
+def planted(fault, job):
+    """A context in which `fault` is planted in the program of `job` (a
+    TrainingJob), where its `fault_points()` say."""
+    points = job.fault_points()
     if fault == "unchanged":
-        return _unchanged()
+        return _unchanged(points["update"])
     if fault == "half_batch":
-        return _half_batch(application)
+        return _step_wrapped(points["step"], _half_batch)
     if fault == "token":
-        return _token(application)
+        return _token(points["sampler"], points["token"])
     if fault == "own_draws":
-        return _own_draws(application)
-    raise ValueError("no fault %r" % fault)
+        return _step_wrapped(points["step"], _own_draws)
+    return job.plant(fault)

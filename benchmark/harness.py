@@ -53,8 +53,9 @@ def metric_reader(name):
     return mod.read
 
 
-def power_limit():
-    """The card's name and power limit as nvidia-smi reads them, or None."""
+def power_limit(chips=1):
+    """Cards 0 .. chips-1's names and power limits as nvidia-smi reads
+    them, or None."""
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -62,7 +63,7 @@ def power_limit():
             timeout=60, check=True)
     except (OSError, subprocess.SubprocessError):
         return None
-    return out.stdout.strip().splitlines()[0]
+    return "; ".join(out.stdout.strip().splitlines()[:chips])
 
 
 class Trace:
@@ -72,10 +73,11 @@ class Trace:
     batch of the untraced call before it (`plain_batch_s`)."""
 
     def __init__(self, cfg, summary, batches, scatter_calls, steps,
-                 plain_batch_s):
+                 plain_batch_s, chips=1):
         self.cfg, self.summary, self.batches = cfg, summary, batches
         self.scatter_calls, self.steps = scatter_calls, steps
         self.plain_batch_s = plain_batch_s
+        self.chips = chips       # the cards the cell uses
         self.detail = {}
 
 
@@ -98,17 +100,21 @@ def check(job, cfg, dtype=torch.float32):
 
 def run(workload, seed, seconds, trace_on, device="cuda", root=ROOT,
         t_start=None):
-    """One run; returns the result dict (its `checks` key last)."""
+    """One run; returns the result dict (its `checks` key last). On the
+    card it uses cards cuda:0 .. chips-1 of the cell's entry, and reads
+    each one's memory peak."""
     t_start = time.perf_counter() if t_start is None else t_start
     manifest = load_json(os.path.join(root, "BENCHMARK.json"))
     cell, cfg, traffic = cell_files(manifest, workload, root)
     app = importlib.import_module("benchmark.apps." + cfg["application"])
     on_card = torch.device(device).type == "cuda"
+    chips = int(cell["chips"])
+    cards = [torch.device("cuda", i) for i in range(chips)] if on_card else []
     job = app.Job(cfg, traffic, seed, device)
     job.set_up()
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    for card in cards:
+        torch.cuda.synchronize(card)
+        torch.cuda.reset_peak_memory_stats(card)
     setup_s = time.perf_counter() - t_start
 
     batches = 0
@@ -120,8 +126,9 @@ def run(workload, seed, seconds, trace_on, device="cuda", root=ROOT,
         plain_batch_s = (time.perf_counter() - t0) / plain
         scatter = trace.Scatter()
         with scatter.installed():
-            batches, events = trace.profile(lambda: job.call(record=False))
-        summary = trace.summarize(events)
+            batches, events = trace.profile(lambda: job.call(record=False),
+                                            cards)
+        summary = trace.summarize(events, chips)
         del events
     else:
         t0 = time.perf_counter()
@@ -133,7 +140,7 @@ def run(workload, seed, seconds, trace_on, device="cuda", root=ROOT,
             if elapsed >= seconds:
                 break
         detail["calls_s"] = calls_s
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peaks = [torch.cuda.max_memory_allocated(card) for card in cards]
     # the window's matmul precision, before the check sets its own
     tf32 = on_card and torch.backends.cuda.matmul.allow_tf32
     samples = batches * job.samples_per_batch()
@@ -141,7 +148,7 @@ def run(workload, seed, seconds, trace_on, device="cuda", root=ROOT,
     metrics = {}
     if trace_on:
         ctx = Trace(cfg, summary, batches, scatter.calls, job.steps,
-                    plain_batch_s)
+                    plain_batch_s, chips)
         # a reader that finds nothing to read in this cell returns None
         for m in manifest["per_layer"]:
             value = metric_reader(m["name"])(ctx)
@@ -163,8 +170,8 @@ def run(workload, seed, seconds, trace_on, device="cuda", root=ROOT,
     correct = all(v <= lim for v, lim in checks.values())
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-           "count": 1, "memory_peak_bytes": peak,
-           "card": power_limit() if on_card else None,
+           "count": chips, "memory_peak_bytes": max(peaks, default=0),
+           "card": power_limit(chips) if on_card else None,
            "tf32_matmul": tf32}
     out = {"correct": correct, "attempted": batches, "failed": 0,
            "metrics": metrics, "device": dev}
@@ -173,7 +180,8 @@ def run(workload, seed, seconds, trace_on, device="cuda", root=ROOT,
         dev["window_s"] = summary["window_s"]
         out["breakdown"] = {"device_ops": summary["device_ops"],
                             "idle_gaps": summary["idle_gaps"]}
-    out["detail"] = dict(detail, samples=samples, not_compared=unbounded)
+    out["detail"] = dict(detail, samples=samples, memory_peaks_bytes=peaks,
+                         not_compared=unbounded)
     out["checks"] = {k: {"value": v, "limit": lim}
                      for k, (v, lim) in checks.items()}
     return out

@@ -1,5 +1,6 @@
 """Device idle share of the traced call: 1 minus the union of device
-kernel, copy and set intervals over the call's wall time, in %."""
+kernel, copy and set intervals over the call's wall time, in %; on a cell
+of several cards, the mean over the cards of each card's union."""
 
 
 def read(ctx):

@@ -12,9 +12,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
 
-def least_seconds(nbytes, ops=0.0):
+def least_seconds(nbytes, ops=0.0, cards=1):
     """(seconds, bound_by): the larger of the bytes over the memory rate
-    and the float32 operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    and the float32 operations over the float32 rate, of `cards` cards
+    together."""
+    t_bytes = nbytes / (HBM_BYTES_PER_S * cards)
+    t_ops = ops / (FP32_OPS_PER_S * cards)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")

@@ -58,12 +58,12 @@ def test_rotate_step_counts_by_hand():
     assert nbytes == 2 * D * 4 * (4 + 1) + 8 * (3 * B + G * M)
 
 
-def event(name, dev, start, dur, corr=0, linked=0, thread=1):
+def event(name, dev, start, dur, corr=0, linked=0, thread=1, card=0):
     return types.SimpleNamespace(
         name=lambda: name, device_type=lambda: dev,
         start_ns=lambda: start, duration_ns=lambda: dur,
         correlation_id=lambda: corr, linked_correlation_id=lambda: linked,
-        start_thread_id=lambda: thread)
+        start_thread_id=lambda: thread, device_index=lambda: card)
 
 
 def test_idle_share_and_scatter_time_on_synthetic_intervals():

@@ -110,6 +110,26 @@ def test_cell_files_found_by_name(workload):
                                   "reference_imports_program"}
 
 
+@pytest.mark.parametrize("config", [c["name"] for c in load()["configs"]])
+def test_tiny_copy_found_by_name(config):
+    """tiny/<config>.json, the configuration's copy for the CPU tests
+    (conftest.py), changes only groups and tables that the configuration
+    has."""
+    path = os.path.join(harness.HERE, "tiny", config + ".json")
+    assert os.path.exists(path), "no tiny copy " + path
+    with open(path) as f:
+        tiny = json.load(f)
+    entry = {c["name"]: c for c in load()["configs"]}[config]
+    with open(os.path.join(ROOT, entry["file"])) as f:
+        cfg = json.load(f)
+    for group, values in tiny.items():
+        assert isinstance(cfg.get(group), (dict, list)), group
+        if group == "init":
+            assert all(0 <= int(i) < len(cfg["init"]) for i in values)
+        else:
+            assert set(values) <= set(cfg[group]), group
+
+
 def test_every_configuration_is_used():
     m = load()
     assert {c["name"] for c in m["configs"]} == {

@@ -3,6 +3,7 @@ for a card skipped, everything else as on the chip. A sound run is
 correct; each fault a training cell can have, planted in the program
 underneath (faults.py), and the control (the reference in bfloat16 in
 the program's place) come out not correct."""
+import importlib
 import json
 import subprocess
 import sys
@@ -10,9 +11,22 @@ import sys
 import pytest
 import torch
 
-from benchmark import control, faults, harness
+from benchmark import control, harness
 
-WORKLOADS = ("deepwalk_youtube.train", "rotate_wikidata5m.train")
+# every cell of BENCHMARK.json, and each fault its job can have, read
+# when the tests are collected
+MANIFEST = harness.load_json(harness.ROOT + "/BENCHMARK.json")
+CELLS = {w["name"]: w for w in MANIFEST["workloads"]}
+WORKLOADS = tuple(CELLS)
+
+
+def job_faults(workload):
+    _, cfg, _ = harness.cell_files(MANIFEST, workload)
+    app = importlib.import_module("benchmark.apps." + cfg["application"])
+    return app.Job.FAULTS
+
+
+CELL_FAULTS = [(w, f) for w in WORKLOADS for f in job_faults(w)]
 SEED = 3_000_000_017          # past 32 signed bits
 
 
@@ -47,8 +61,7 @@ def test_same_seed_same_inputs(workload, tiny_root, one_thread):
     assert a["program"] == b["program"]
 
 
-@pytest.mark.parametrize("fault", faults.FAULTS)
-@pytest.mark.parametrize("workload", WORKLOADS)
+@pytest.mark.parametrize("workload,fault", CELL_FAULTS)
 def test_planted_fault_is_not_correct(workload, fault, tiny_root,
                                       one_thread):
     man = harness.load_json(tiny_root + "/BENCHMARK.json")
@@ -97,7 +110,11 @@ def test_alone_without_the_program(tmp_path):
 @pytest.mark.parametrize("workload", WORKLOADS)
 def test_cell_on_the_card(workload, card):
     """One short run of each cell on the card (python -m pytest
-    benchmark/tests -m cuda on a machine with an NVIDIA GPU)."""
+    benchmark/tests -m cuda on a machine with NVIDIA GPUs)."""
+    chips = CELLS[workload]["chips"]
+    if torch.cuda.device_count() < chips:
+        pytest.skip("%s needs %d cards; %d visible" % (
+            workload, chips, torch.cuda.device_count()))
     r = subprocess.run([sys.executable, harness.ROOT + "/benchmark/run.py",
                         "--workload", workload, "--seed", str(SEED),
                         "--seconds", "1", "--trace", "0"],
@@ -106,3 +123,5 @@ def test_cell_on_the_card(workload, card):
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["correct"] is True, out["checks"]
     assert out["device"]["platform"] == "gpu"
+    assert out["device"]["count"] == chips
+    assert len(out["detail"]["memory_peaks_bytes"]) == chips

@@ -4,8 +4,8 @@ the window, read from the profiler's raw (kineto) events.
 `Scatter` wraps every call of the program's kernel-1 entry
 (`scatter_add_`) in a `benchmark::scatter_add_` range and keeps the
 call's ids and widths, for the traced run only. `summarize` reduces the
-events to what the per-layer metrics read: the window's length, the union
-of device activity inside it, the device kernels, the device time of the
+events to what the per-layer metrics read: the window's length, each card's
+union of device activity inside it, the device kernels, the device time of the
 kernels launched inside the scatter ranges, the operations that took most
 device time, and the idle gaps by the host operation that ended them.
 """
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import importlib
 import sys
 
 import torch
@@ -46,36 +47,55 @@ class Scatter:
 
 
 @contextlib.contextmanager
+def swapped(objects, name, value):
+    """`value` as attribute `name` of each of `objects` inside the block."""
+    olds = [getattr(o, name) for o in objects]
+    for o in objects:
+        setattr(o, name, value)
+    try:
+        yield
+    finally:
+        for o, old in zip(objects, olds):
+            setattr(o, name, old)
+
+
+def _importers(module, name):
+    """The program's other modules that imported `name` from `module`."""
+    orig = getattr(module, name)
+    return [m for key, m in list(sys.modules.items())
+            if key.startswith("graphvite_tpu_torch.") and m is not module
+            and getattr(m, name, None) is orig]
+
+
+def replaced(point, value):
+    """`value` in place of the program's attribute `point`, a (module
+    name, attribute) pair: in that module and in every module of the
+    program that imported the name."""
+    module = importlib.import_module(point[0])
+    return swapped([module] + _importers(module, point[1]), point[1], value)
+
+
 def scatter_replaced(fn):
     """`fn` in place of the program's `scatter_add_` wherever the program's
     modules call it: every module that imported the name (ops/scatter.py's
     own entries keep theirs)."""
     from graphvite_tpu_torch.ops import scatter
 
-    orig = scatter.scatter_add_
-    patched = [m for name, m in list(sys.modules.items())
-               if name.startswith("graphvite_tpu_torch.")
-               and m is not scatter
-               and getattr(m, "scatter_add_", None) is orig]
-    for m in patched:
-        m.scatter_add_ = fn
-    try:
-        yield
-    finally:
-        for m in patched:
-            m.scatter_add_ = orig
+    return swapped(_importers(scatter, "scatter_add_"), "scatter_add_", fn)
 
 
-def profile(fn):
-    """Run fn() under torch.profiler inside a WINDOW range; return its
-    result and the profiler's raw events."""
+def profile(fn, cards):
+    """Run fn() under torch.profiler inside a WINDOW range, then
+    synchronise every card of `cards`; return its result and the
+    profiler's raw events."""
     from torch.profiler import ProfilerActivity, record_function
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         with record_function(WINDOW):
             out = fn()
-        torch.cuda.synchronize()
+        for card in cards:
+            torch.cuda.synchronize(card)
     return out, prof.profiler.kineto_results.events()
 
 
@@ -92,14 +112,33 @@ def _union(intervals):
     return merged
 
 
+def card_unions(spans, cards):
+    """Each card's device activity, from `spans`, (card, start, end,
+    index) tuples: ({card: its merged [start, end, index] intervals} for
+    cards 0 .. cards-1, busy), busy being the mean over those cards of
+    each card's union, in the spans' unit. Activity on a card that the
+    cell does not use is an error."""
+    by_card = {card: [] for card in range(cards)}
+    for card, s, e, i in spans:
+        if card not in by_card:
+            raise ValueError("device activity on card %r; the cell uses "
+                             "cards 0 .. %d" % (card, cards - 1))
+        by_card[card].append((s, e, i))
+    unions = {card: _union(v) for card, v in by_card.items()}
+    busy = sum(e - s for u in unions.values() for s, e, _ in u) / cards
+    return unions, busy
+
+
 def _runtime(name):
     """CUDA API calls (cudaLaunchKernel, cuLaunchKernel,
     cudaMemcpyAsync, ...): the host side of a device activity."""
     return name.startswith("cu")
 
 
-def summarize(events, top=10):
-    """The traced window's numbers (seconds unless named otherwise).
+def summarize(events, cards=1, top=10):
+    """The traced window's numbers (seconds unless named otherwise) on a
+    cell of `cards` cards: `busy_s` is the mean over the cards of each
+    card's busy time, and the idle gaps are summed over the cards.
 
     A device kernel belongs to a scatter range when the runtime call that
     launched it (the CPU event of the same CUPTI correlation id) started
@@ -155,7 +194,7 @@ def summarize(events, top=10):
         e = min(ev.start_ns() + ev.duration_ns(), w1)
         if e <= s:
             continue
-        spans.append((s, e, i))
+        spans.append((ev.device_index(), s, e, i))
         sec = (e - s) * 1e-9
         by_name[ev.name()] = by_name.get(ev.name(), 0.0) + sec
         if not ev.name().startswith(COPIES):
@@ -164,8 +203,8 @@ def summarize(events, top=10):
                     or ev.linked_correlation_id() in inside_ops):
                 scatter_kernels += 1
                 scatter_s += sec
-    merged = _union(spans)
-    busy = sum(e - s for s, e, _ in merged) * 1e-9
+    unions, busy = card_unions(spans, cards)
+    busy *= 1e-9
 
     def host_op(ev):
         """What the host was doing when it launched `ev`."""
@@ -178,15 +217,16 @@ def summarize(events, top=10):
         return op
 
     gaps = {}
-    prev = w0
-    for s, e, i in merged:
-        if s > prev:
-            op = host_op(dev[i])
-            gaps[op] = gaps.get(op, 0.0) + (s - prev) * 1e-9
-        prev = e
-    if w1 > prev:
-        tail = "(after the last device op)"
-        gaps[tail] = gaps.get(tail, 0.0) + (w1 - prev) * 1e-9
+    tail = "(after the last device op)"
+    for merged in unions.values():
+        prev = w0
+        for s, e, i in merged:
+            if s > prev:
+                op = host_op(dev[i])
+                gaps[op] = gaps.get(op, 0.0) + (s - prev) * 1e-9
+            prev = e
+        if w1 > prev:
+            gaps[tail] = gaps.get(tail, 0.0) + (w1 - prev) * 1e-9
     order = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     idle = sorted(gaps.items(), key=lambda kv: -kv[1])[:top]
     return {"window_s": (w1 - w0) * 1e-9, "busy_s": busy,
