@@ -252,9 +252,14 @@ class GraphApplication(ApplicationMixin):
         solver.model = state.get("model", "LINE")
         if solver.state is None:
             solver._allocate()
-        solver.state = {"tables": (up(state["vertex_embeddings"]),
-                                   up(state["context_embeddings"])),
-                        "moments": solver.state["moments"]}
+        tables = (up(state["vertex_embeddings"]),
+                  up(state["context_embeddings"]))
+        # several workers allocate nothing before their first run
+        moments = (solver.state["moments"] if solver.state is not None
+                   else tuple(solver.optimizer.init_moments(t.shape,
+                                                            t.device)
+                              for t in tables))
+        solver.state = {"tables": tables, "moments": moments}
 
 
 class WordGraphApplication(GraphApplication):

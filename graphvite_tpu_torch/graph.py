@@ -15,6 +15,7 @@ import re
 
 import numpy as np
 
+from graphvite_tpu_torch import native as _native
 from graphvite_tpu_torch.utils import tracing
 from graphvite_tpu_torch.utils.common import logger
 
@@ -31,6 +32,39 @@ def _factorize(names):
     rank = np.empty(order.size, np.int64)
     rank[order] = np.arange(order.size)
     return rank[inverse.reshape(-1)], uniq[order].tolist()
+
+
+def _radix_order(heads, num_vertex):
+    """The stable order of the int ids `heads` (in [0, num_vertex)): one
+    or two stable 16-bit passes (numpy's radix sort), each linear; a
+    stable comparison sort past 32-bit ids."""
+    if num_vertex <= 1 << 16:
+        return np.argsort(heads.astype(np.uint16), kind="stable")
+    if num_vertex > 1 << 32:
+        return np.argsort(heads, kind="stable")
+    lo = np.argsort((heads & 0xFFFF).astype(np.uint16), kind="stable")
+    hi = (heads[lo] >> 16).astype(np.uint16)
+    return lo[np.argsort(hi, kind="stable")]
+
+
+def csr_by_head(heads, tails, num_vertex, with_indices=True,
+                with_order=False):
+    """(indptr int64 [V + 1], indices or None, order int64 or None) of the
+    directed edges heads[i] -> tails[i], stable by head: the native
+    counting sort (native/sampler.cpp) over int32 or int64 ids, else
+    numpy's radix passes."""
+    heads = np.asarray(heads)
+    tails = np.asarray(tails)
+    if (heads.dtype in (np.int32, np.int64) and tails.dtype == heads.dtype
+            and _native.load() is not None):
+        return _native.csr_by_head(np.ascontiguousarray(heads),
+                                   np.ascontiguousarray(tails), num_vertex,
+                                   with_indices, with_order)
+    indptr = np.zeros(num_vertex + 1, dtype=np.int64)
+    np.cumsum(np.bincount(heads, minlength=num_vertex), out=indptr[1:])
+    order = _radix_order(heads, num_vertex)
+    return (indptr, tails[order] if with_indices else None,
+            order.astype(np.int64) if with_order else None)
 
 
 def _make_tokenizer(delimiters):
@@ -85,6 +119,7 @@ class Graph:
         self.indices = np.zeros(0, dtype=np.int64)
         self.csr_weights = np.zeros(0, dtype=np.float32)
         self.csr_edge_ids = np.zeros(0, dtype=np.int64)
+        self.uniform_weights = True
         self.vertex_weights = np.zeros(0, dtype=np.float64)
 
     # -- loading -----------------------------------------------------------
@@ -133,7 +168,15 @@ class Graph:
     def _finalize(self, normalization):
         """Normalize weights (optionally) and build the CSR index from the
         flat edge arrays; callers that fill `edge_heads/edge_tails/
-        edge_weights` directly (synthetic graphs) call this themselves."""
+        edge_weights` directly (synthetic graphs) call this themselves.
+
+        The CSR is sorted by source and stable (each vertex's edges in
+        their flat order), by a counting sort (`csr_by_head`): linear in
+        the edges, with no comparison sort. `indices` keeps the tails'
+        dtype. On a graph whose weights are all equal (`uniform_weights`)
+        nothing is gathered by the sort's order: `csr_weights` is a
+        read-only view of the one weight, and the flat edge id of each CSR
+        position (`csr_edge_ids`, int64) is made when first read."""
         u, v, w = self.edge_heads, self.edge_tails, self.edge_weights
         n = self.num_vertex
         if normalization:
@@ -141,14 +184,37 @@ class Graph:
             in_w = np.bincount(v, weights=w, minlength=n)
             w = (w / np.sqrt(out_w[u] * in_w[v])).astype(np.float32)
             self.edge_weights = w
+        self.uniform_weights = bool(w.size == 0 or np.all(w == w[0]))
+        if self.uniform_weights:
+            self.indptr, self.indices, _ = csr_by_head(u, v, n)
+            self.csr_weights = np.broadcast_to(w[:1], w.shape)
+            self._csr_edge_ids = None
+            deg = np.diff(self.indptr)
+            if w.size and w[0] == 1:
+                # a sum of ones: the bincount below, exactly
+                self.vertex_weights = deg.astype(np.float64)
+            else:
+                self.vertex_weights = np.bincount(u, weights=w, minlength=n)
+            return
         self.vertex_weights = np.bincount(u, weights=w, minlength=n)
-        # CSR sorted by source, stable to preserve insertion order per vertex
-        order = np.argsort(u, kind="stable")
-        self.indptr = np.zeros(n + 1, dtype=np.int64)
-        np.cumsum(np.bincount(u, minlength=n), out=self.indptr[1:])
+        self.indptr, _, order = csr_by_head(u, v, n, with_indices=False,
+                                            with_order=True)
         self.indices = v[order]
         self.csr_weights = w[order]
-        self.csr_edge_ids = order.astype(np.int64)
+        self.csr_edge_ids = order
+
+    @property
+    def csr_edge_ids(self):
+        """The flat edge id at each CSR position (int64)."""
+        if self._csr_edge_ids is None:
+            _, _, self._csr_edge_ids = csr_by_head(
+                self.edge_heads, self.edge_tails, self.num_vertex,
+                with_indices=False, with_order=True)
+        return self._csr_edge_ids
+
+    @csr_edge_ids.setter
+    def csr_edge_ids(self, value):
+        self._csr_edge_ids = value
 
     # -- properties --------------------------------------------------------
     @property

@@ -1,5 +1,6 @@
-"""ctypes loader for the native host alias construction and the cuckoo
-membership table of node2vec's walks (sampler.cpp).
+"""ctypes loader for the native host alias construction, the cuckoo
+membership table of node2vec's walks and the graph's CSR counting sort
+(sampler.cpp).
 
 Compiled with g++ at first use into a per-user cache directory of the
 port's own (`~/.cache/graphvite_tpu_torch`, or GRAPHVITE_TPU_TORCH_CACHE_DIR).
@@ -74,6 +75,10 @@ def load():
     p32 = ctypes.POINTER(ctypes.c_int32)
     lib.gv_build_cuckoo.argtypes = [p32, p32, i64, p32, i64]
     lib.gv_build_cuckoo.restype = ctypes.c_int
+    for name, ptr in (("gv_csr_i32", p32), ("gv_csr_i64", pi)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ptr, ptr, i64, i64, pi, ptr, pi, i64]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -119,3 +124,28 @@ def build_cuckoo(us, vs, num_buckets):
         _ptr(us, ctypes.c_int32), _ptr(vs, ctypes.c_int32), us.shape[0],
         _ptr(table, ctypes.c_int32), num_buckets)
     return table if rc == 0 else None
+
+
+def csr_by_head(heads, tails, num_vertex, with_indices=True,
+                with_order=False):
+    """The CSR over sources of the directed edges (heads[i] -> tails[i]),
+    contiguous int32 or int64 arrays of one dtype, stable by head, by a
+    counting sort on the host's cores: (indptr int64 [V + 1], indices in
+    the tails' dtype or None, order int64 or None), `order[k]` the flat
+    edge id at CSR position k."""
+    n = heads.shape[0]
+    ctype = ctypes.c_int32 if heads.dtype == np.int32 else ctypes.c_int64
+    fn = load().gv_csr_i32 if heads.dtype == np.int32 else load().gv_csr_i64
+    indptr = np.empty(num_vertex + 1, dtype=np.int64)
+    indices = np.empty(n, dtype=heads.dtype) if with_indices else None
+    order = np.empty(n, dtype=np.int64) if with_order else None
+    null = ctypes.POINTER(ctypes.c_int64)()
+    rc = fn(_ptr(heads, ctype), _ptr(tails, ctype), n, num_vertex,
+            _ptr(indptr, ctypes.c_int64),
+            _ptr(indices, ctype) if with_indices
+            else ctypes.POINTER(ctype)(),
+            _ptr(order, ctypes.c_int64) if with_order else null,
+            len(os.sched_getaffinity(0)))
+    if rc != 0:
+        raise ValueError("an edge's head lies outside [0, %d)" % num_vertex)
+    return indptr, indices, order

@@ -1,6 +1,7 @@
 // Native host-side sampling kernels, the port's own copy of
 // graphvite_tpu/native/sampler.cpp (graphvite_tpu_torch never imports the
-// JAX package, so it builds this file itself; the two must stay equal).
+// JAX package, so it builds this file itself; the functions the two share
+// must stay equal). The CSR builder at the end is the port's own.
 //
 // Alias-table construction and bulk host sampling are CPU work, written in
 // C++ because the pure-numpy fallback is a Python-speed loop. The alias
@@ -9,6 +10,7 @@
 // Exposed via a plain C ABI and loaded with ctypes. All arrays are
 // caller-allocated.
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstdlib>
@@ -219,6 +221,101 @@ int gv_build_cuckoo(const int32_t* us, const int32_t* vs, int64_t n,
     if (!placed) return 1;
   }
   return 0;
+}
+
+}  // extern "C"
+
+// Stable counting sort of n directed edges by head (the CSR over sources,
+// each vertex's edges in their flat order), over `threads` contiguous
+// chunks of the edges: per-chunk counts, then each chunk's start in every
+// row, then each chunk writes its edges in order. Outputs (caller-
+// allocated): indptr[V + 1]; indices[n] (the tails in CSR order) unless
+// null; order[n] (the flat edge id at each CSR position) unless null.
+// Returns 0, or -1 when a head lies outside [0, V).
+template <typename T>
+static int gv_csr(const T* heads, const T* tails, int64_t n, int64_t V,
+                  int64_t* indptr, T* indices, int64_t* order,
+                  int64_t threads) {
+  int64_t nt = std::max<int64_t>(1, std::min<int64_t>(threads, 64));
+  if (n < (int64_t)1 << 20) nt = 1;
+  std::vector<std::vector<int64_t>> cnt(nt);
+  std::atomic<int> bad(0);
+  auto chunk = [&](int64_t t, int64_t* lo, int64_t* hi) {
+    *lo = n * t / nt;
+    *hi = n * (t + 1) / nt;
+  };
+  std::vector<std::thread> pool;
+  for (int64_t t = 0; t < nt; ++t) {
+    pool.emplace_back([&, t] {
+      cnt[t].assign(V, 0);
+      int64_t lo, hi;
+      chunk(t, &lo, &hi);
+      int64_t* c = cnt[t].data();
+      for (int64_t e = lo; e < hi; ++e) {
+        int64_t h = (int64_t)heads[e];
+        if (h < 0 || h >= V) {
+          bad = 1;
+          return;
+        }
+        ++c[h];
+      }
+    });
+  }
+  for (auto& th : pool) th.join();
+  pool.clear();
+  if (bad) return -1;
+  // per row: each chunk's offset inside the row, the row's length
+  std::vector<int64_t> total(V);
+  for (int64_t t = 0; t < nt; ++t) {
+    pool.emplace_back([&, t] {
+      int64_t lo = V * t / nt, hi = V * (t + 1) / nt;
+      for (int64_t h = lo; h < hi; ++h) {
+        int64_t run = 0;
+        for (int64_t k = 0; k < nt; ++k) {
+          int64_t c = cnt[k][h];
+          cnt[k][h] = run;
+          run += c;
+        }
+        total[h] = run;
+      }
+    });
+  }
+  for (auto& th : pool) th.join();
+  pool.clear();
+  indptr[0] = 0;
+  for (int64_t h = 0; h < V; ++h) indptr[h + 1] = indptr[h] + total[h];
+  std::vector<int64_t>().swap(total);
+  for (int64_t t = 0; t < nt; ++t) {
+    pool.emplace_back([&, t] {
+      int64_t lo, hi;
+      chunk(t, &lo, &hi);
+      int64_t* c = cnt[t].data();
+      for (int64_t e = lo; e < hi; ++e) {
+        int64_t h = (int64_t)heads[e];
+        int64_t pos = indptr[h] + c[h]++;
+        if (indices) indices[pos] = tails[e];
+        if (order) order[pos] = e;
+      }
+    });
+  }
+  for (auto& th : pool) th.join();
+  return 0;
+}
+
+extern "C" {
+
+int gv_csr_i32(const int32_t* heads, const int32_t* tails, int64_t n,
+               int64_t V, int64_t* indptr, int32_t* indices, int64_t* order,
+               int64_t threads) {
+  return gv_csr<int32_t>(heads, tails, n, V, indptr, indices, order,
+                         threads);
+}
+
+int gv_csr_i64(const int64_t* heads, const int64_t* tails, int64_t n,
+               int64_t V, int64_t* indptr, int64_t* indices, int64_t* order,
+               int64_t threads) {
+  return gv_csr<int64_t>(heads, tails, n, V, indptr, indices, order,
+                         threads);
 }
 
 }  // extern "C"

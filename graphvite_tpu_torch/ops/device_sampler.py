@@ -254,30 +254,56 @@ def _accept_thresholds(p, q):
                  for b in (1.0 / p, 1.0, 1.0 / q))
 
 
-def _alias_pick(prob, alias, u1, u2):
-    """Walker alias decision on device tensors."""
-    n = prob.shape[0]
-    idx = torch.clamp((u1 * n).long(), max=n - 1)
+def _start_column(u1, n):
+    """A start column over [0, n): an integer draw as it is (every column
+    reachable), or the reference's float rule min(int(u1 * n), n - 1),
+    which reaches at most 2^24 columns."""
+    if not u1.is_floating_point():
+        return u1.long()
+    return torch.clamp((u1 * n).long(), max=n - 1)
+
+
+def _alias_pick(prob, alias, u1, u2, n=None):
+    """Walker alias decision on device tensors over `n` columns (prob's
+    length by default): the column `u1` (`_start_column`) is kept where u2
+    < its prob, else its alias is taken. An empty `prob` is the table of
+    equal weights, every prob 1: the column itself."""
+    idx = _start_column(u1, prob.shape[0] if n is None else n)
+    if prob.numel() == 0:
+        return idx
     return torch.where(u2 < prob[idx], idx, alias[idx].long())
 
 
 def make_walk_chain_fn(uniform, walk_length, num_walk, biased=False, p=1.0,
-                       q=1.0, bs_iters=32, membership="search"):
+                       q=1.0, bs_iters=32, membership="search",
+                       start_csr=False):
     """Walk generator: first-order walks, or node2vec's biased walks.
 
     Returned fn(edge_prob, edge_alias, heads, tails, vdeg, indices,
     nbr_prob, nbr_alias, [memb], *, generator=None, draws=None,
     with_rounds=False) -> (chain [L+1, W] int64, valid [L+1, W] bool),
-    where vdeg is the packed [V, 2] (CSR row start, degree) array, `memb`
-    (biased walks only) the membership structure (a [M, 4] cuckoo table or
-    the row-sorted CSR indices) and valid[j] means all steps up to
-    position j were alive.
+    where vdeg is the packed [V, 2] (CSR row start, degree) array, int64
+    (row starts past 2^31 edges), `memb` (biased walks only) the
+    membership structure (a [M, 4] cuckoo table or the row-sorted CSR
+    indices) and valid[j] means all steps up to position j were alive.
 
-    `draws` replaces the generator's uniforms, in the reference's order:
+    The start edge: a column of the flat directed edges (heads, tails),
+    kept or aliased by the start-edge table (edge_prob, edge_alias; empty
+    on a graph of equal weights, where every prob is 1). `start_csr`
+    (unweighted graphs): the start edge is a CSR position e instead, its
+    head found by a binary search over the int64 row starts, which take
+    the place of `heads` ([V], sorted), its tail indices[e]; edge_prob,
+    edge_alias and tails are empty. The distribution over directed edges
+    is the same (uniform); a given draw picks another edge than the flat
+    pick does.
+
+    `draws` replaces the generator's numbers, in the reference's order:
     (u1 [W], u2 [W], w1s [L-1, W], w2s [L-1, W]) for first-order walks;
     (u1 [W], u2 [W], props [L-1, C, 3, R, W]) for biased walks, with C =
     64 // R rounds of R proposals, each (neighbor draw, alias draw,
-    acceptance draw).
+    acceptance draw). A float u1 takes the reference's start rule
+    (`_start_column`); drawing for itself, the chain takes an integer
+    column (u1 int64 [W]) and, on equal weights, no u2.
 
     The biased step is the reference's rejection sampler (an exact
     alternative to per-edge second-order alias tables): R first-order
@@ -383,20 +409,30 @@ def make_walk_chain_fn(uniform, walk_length, num_walk, biased=False, p=1.0,
     def chain_fn(edge_prob, edge_alias, heads, tails, vdeg, indices,
                  nbr_prob, nbr_alias, *rest, generator=None, draws=None,
                  with_rounds=False):
+        n_start = max(int(indices.shape[0] if start_csr
+                          else heads.shape[0]), 1)
         if draws is None:
             dev = heads.device
 
             def rand(*shape):
                 return torch.rand(shape, generator=generator, device=dev)
 
+            first = torch.randint(0, n_start, (W,), generator=generator,
+                                  device=dev)
+            u2 = rand(W) if edge_prob.numel() else None
             if biased:
-                draws = (rand(W), rand(W), rand(L - 1, C, 3, R, W))
+                draws = (first, u2, rand(L - 1, C, 3, R, W))
             else:
-                draws = (rand(W), rand(W), rand(L - 1, W), rand(L - 1, W))
+                draws = (first, u2, rand(L - 1, W), rand(L - 1, W))
         u1, u2 = draws[:2]
-        eid = _alias_pick(edge_prob, edge_alias, u1, u2)
-        v0 = heads[eid].long()
-        v1 = tails[eid].long()
+        if start_csr:
+            eid = _start_column(u1, n_start)
+            v0 = torch.searchsorted(heads, eid, right=True) - 1
+            v1 = indices[eid].long()
+        else:
+            eid = _alias_pick(edge_prob, edge_alias, u1, u2, n_start)
+            v0 = heads[eid].long()
+            v1 = tails[eid].long()
         steps, alives, used = [], [], []
         v, prev = v1, v0
         alive = torch.ones_like(v1, dtype=torch.bool)
@@ -427,6 +463,14 @@ def make_walk_chain_fn(uniform, walk_length, num_walk, biased=False, p=1.0,
     if biased:
         chain_fn.proposals, chain_fn.rounds_cap = R, C
     return chain_fn
+
+
+def _start_table(weights):
+    """(prob float32, alias) of the start-edge alias table over the flat
+    directed edges' weights."""
+    w = weights.cpu().numpy() if torch.is_tensor(weights) else weights
+    t = AliasTable(w)
+    return t.prob.astype(np.float32), t.alias
 
 
 def walk_offsets(aug, bidir=False):
@@ -511,13 +555,20 @@ class DeviceWalkSampler:
     node2vec (`biased`): second-order walks with p and q, their membership
     structure `memb` a [M, 4] cuckoo table (the default) or the row-sorted
     CSR indices ("search": GRAPHVITE_N2V_CUCKOO=0, no g++ for the native
-    build, or a table above GRAPHVITE_CUCKOO_MAX_BYTES)."""
+    build, or a table above GRAPHVITE_CUCKOO_MAX_BYTES).
 
-    edge_prob: torch.Tensor     # [E] f32   (walk start edges)
-    edge_alias: torch.Tensor    # [E] i32
-    heads: torch.Tensor         # [E] i32
-    tails: torch.Tensor         # [E] i32
-    vdeg: torch.Tensor          # [V, 2] i32: packed (CSR row start, degree)
+    Walk starts: uniform over the directed edges on a graph of equal
+    weights (no start-edge alias table: every prob is 1), alias-weighted
+    otherwise. `start_csr` (unweighted graphs; make_walk_chain_fn) keeps
+    no flat edge arrays: the start edge is a CSR position, `heads` holds
+    the int64 row starts, and `edge_prob`, `edge_alias` and `tails` are
+    empty, so the state is the CSR indices and 24 bytes a vertex."""
+
+    edge_prob: torch.Tensor     # [E] f32   (walk start edges; [0] uniform)
+    edge_alias: torch.Tensor    # [E] i32, i64 past 2^31 edges
+    heads: torch.Tensor         # [E] i32; start_csr: [V] i64 row starts
+    tails: torch.Tensor         # [E] i32; start_csr: [0]
+    vdeg: torch.Tensor          # [V, 2] i64: packed (CSR row start, degree)
     indices: torch.Tensor       # [Ed] i32
     nbr_prob: torch.Tensor      # [Ed] f32  per-vertex packed alias (or empty)
     nbr_alias: torch.Tensor     # [Ed] i32
@@ -537,27 +588,52 @@ class DeviceWalkSampler:
     bidir: bool = False
     num_tail: int = 0
     banded: bool = False
+    start_csr: bool = False
 
     @classmethod
     @tracing.setup_stage(tracing.SAMPLER_BUILD)
     def build(cls, graph, augmentation_step, walk_length, batch_size,
               biased=False, p=1.0, q=1.0, position_major=False, bidir=False,
-              banded=False, device="cpu"):
-        t = AliasTable(graph.edge_weights)
-        w = np.asarray(graph.csr_weights, np.float64)
+              banded=False, device="cpu", start_csr=False, membership=None):
+        """The sampler of `graph` on `device`. `start_csr` takes the start
+        edge as a CSR position (unweighted graphs only); `membership`
+        "search" forces node2vec's sorted-indices membership (None: the
+        cuckoo table where it builds)."""
+        w = graph.csr_weights
         uniform = bool(w.size == 0 or np.all(w == w[0]))
+        if start_csr and not uniform:
+            raise ValueError("a CSR start edge needs equal edge weights")
         if uniform:
             nbr_prob = np.zeros(0, np.float32)
             nbr_alias = np.zeros(0, np.int32)
         else:
-            packed = PackedAliasTables(w, graph.indptr)
+            packed = PackedAliasTables(np.asarray(w, np.float64),
+                                       graph.indptr)
             nbr_prob = packed.prob.astype(np.float32)
             nbr_alias = packed.alias.astype(np.int32)
+        indptr = np.asarray(graph.indptr, np.int64)
         L, aug = int(walk_length), int(augmentation_step)
 
         def up(a, dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                    device=device)
+
+        empty_f = up(np.zeros(0, np.float32), torch.float32)
+        empty_i = up(np.zeros(0, np.int32), torch.int32)
+        if start_csr:
+            start = dict(edge_prob=empty_f, edge_alias=empty_i,
+                         heads=up(indptr[:-1], torch.int64), tails=empty_i,
+                         start_csr=True)
+        else:
+            n_edge = int(np.asarray(graph.edge_heads).size)
+            # no alias table over equal weights: every prob is 1
+            prob, alias = ((np.zeros(0, np.float32), np.zeros(0, np.int32))
+                           if uniform else _start_table(graph.edge_weights))
+            start = dict(edge_prob=up(prob, torch.float32),
+                         edge_alias=up(alias, torch.int32 if n_edge < 2**31
+                                       else torch.int64),
+                         heads=up(graph.edge_heads, torch.int32),
+                         tails=up(graph.edge_tails, torch.int32))
 
         kw = {}
         if banded:
@@ -581,13 +657,14 @@ class DeviceWalkSampler:
             pairs_per_walk = sum(L + 1 - k for k in range(1, aug + 1))
             num_walk = max(int(math.ceil(batch_size / pairs_per_walk)), 1)
         if biased:
-            deg = np.diff(graph.indptr)
+            deg = np.diff(indptr)
             max_deg = int(deg.max()) if deg.size else 1
             kw.update(biased=True, p=float(p), q=float(q),
                       bs_iters=max(int(math.ceil(math.log2(max_deg + 1)))
                                    + 1, 1))
             ctable = None
-            if os.environ.get("GRAPHVITE_N2V_CUCKOO", "1") != "0":
+            if (membership != "search"
+                    and os.environ.get("GRAPHVITE_N2V_CUCKOO", "1") != "0"):
                 ctable = cls._build_cuckoo(graph)
             if ctable is not None:
                 kw.update(membership="cuckoo", memb=up(ctable, torch.int32))
@@ -595,23 +672,27 @@ class DeviceWalkSampler:
                 # lexsort by (source, neighbor): rows stay contiguous,
                 # neighbors ascend within a row
                 order = np.lexsort(
-                    (graph.indices,
-                     np.repeat(np.arange(graph.indptr.size - 1), deg)))
+                    (graph.indices, np.repeat(np.arange(indptr.size - 1),
+                                              deg)))
                 kw.update(memb=up(np.asarray(graph.indices)[order],
                                   torch.int32))
         return cls(
-            edge_prob=up(t.prob, torch.float32),
-            edge_alias=up(t.alias, torch.int32),
-            heads=up(graph.edge_heads, torch.int32),
-            tails=up(graph.edge_tails, torch.int32),
-            vdeg=up(np.stack([graph.indptr[:-1], np.diff(graph.indptr)],
-                             axis=1), torch.int32),
+            **start,
+            vdeg=up(np.stack([indptr[:-1], np.diff(indptr)], axis=1),
+                    torch.int64),
             indices=up(graph.indices, torch.int32),
             nbr_prob=up(nbr_prob, torch.float32),
             nbr_alias=up(nbr_alias, torch.int32),
             uniform=uniform,
             walk_length=L, augmentation_step=aug,
             batch_size=int(batch_size), num_walk=num_walk, **kw)
+
+    def to(self, device):
+        """A copy of the sampler with its arrays on `device`."""
+        moved = {f.name: getattr(self, f.name).to(device)
+                 for f in dataclasses.fields(self)
+                 if torch.is_tensor(getattr(self, f.name))}
+        return dataclasses.replace(self, **moved)
 
     @staticmethod
     def _build_cuckoo(graph, max_bytes=None):
@@ -653,7 +734,8 @@ class DeviceWalkSampler:
                                   num_walk or self.num_walk,
                                   biased=self.biased, p=self.p, q=self.q,
                                   bs_iters=self.bs_iters,
-                                  membership=self.membership)
+                                  membership=self.membership,
+                                  start_csr=self.start_csr)
 
     def make_sample_fn(self, batch_size: int):
         """fn(*arrays, generator=None, draws=None) -> the layout's sample:

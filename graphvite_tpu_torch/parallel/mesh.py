@@ -54,8 +54,7 @@ from graphvite_tpu_torch.ops.steps import (_logistic_terms,
                                            make_graph_pool_step,
                                            walk_shift_fwd)
 from graphvite_tpu_torch.ops.scatter import scatter_add_
-from graphvite_tpu_torch.ops.device_sampler import (emit_walk_banded,
-                                                    make_walk_chain_fn,
+from graphvite_tpu_torch.ops.device_sampler import (DeviceWalkSampler,
                                                     walk_offsets)
 from graphvite_tpu_torch.optim import Optimizer, apply_row_updates
 from graphvite_tpu_torch.utils import tracing
@@ -541,15 +540,33 @@ class DeviceGroup:
                     else self._land(got[i], j) for i in range(self.size)]
                 for j in self.local}
 
-    # each collective runs in a span of its name (mesh::..., a profiler
-    # range under a profiler: utils/tracing.py), so a trace shows its
-    # copies' device time
+    @contextlib.contextmanager
+    def spans(self, name):
+        """A span of `name` on every local worker, each on its worker's
+        stream (utils/tracing.py): its device seconds are that worker's
+        card's time from the work issued before the block to the block's
+        last work, per card. Nothing is recorded without a session."""
+        opened = []
+        for i in self.local:
+            with self.worker(i):
+                opened.append((i, tracing.span(name,
+                                               device=self.devices[i])))
+        try:
+            yield
+        finally:
+            for i, sp in reversed(opened):
+                with self.worker(i):
+                    sp.__exit__(None, None, None)
+
+    # each collective runs in a span of its name on every worker (mesh::...,
+    # a profiler range under a profiler: utils/tracing.py), so a trace
+    # shows its copies' device time on each card
 
     def ring_shift(self, xs):
         P = self.size
         if P == 1:
             return list(xs)
-        with tracing.span("mesh::ring_shift"):
+        with self.spans("mesh::ring_shift"):
             pairs = [((j + 1) % P, j) for j in range(P)]
             got = self._routed(pairs, lambda i, j: xs[i],
                                lambda j, i: xs[j])
@@ -562,7 +579,7 @@ class DeviceGroup:
         P = self.size
         if P == 1:
             return list(chunks)
-        with tracing.span("mesh::all_to_all"):
+        with self.spans("mesh::all_to_all"):
             pairs = [(i, j) for i in range(P) for j in range(P)]
             got = self._routed(pairs, lambda i, j: chunks[i][j],
                                lambda j, i: chunks[j][i])
@@ -576,7 +593,7 @@ class DeviceGroup:
         P = self.size
         if P == 1:
             return list(xs)
-        with tracing.span("mesh::sum"):
+        with self.spans("mesh::sum"):
             out = [None] * P
             for j, parts in self._everyone(xs).items():
                 with self.worker(j):
@@ -592,7 +609,7 @@ class DeviceGroup:
         if P == 1:
             return [xs[0] if 0 in src_of else xs[0].new_zeros(()).expand_as(
                 xs[0])]
-        with tracing.span("mesh::permute"):
+        with self.spans("mesh::permute"):
             got = self._routed([(i, j) for j, i in sorted(src_of.items())],
                                lambda i, j: xs[i], lambda j, i: xs[j])
             out = [None] * P
@@ -608,7 +625,7 @@ class DeviceGroup:
         P = self.size
         if P == 1:
             return list(xs)
-        with tracing.span("mesh::all_gather"):
+        with self.spans("mesh::all_gather"):
             out = [None] * P
             for j, parts in self._everyone(xs).items():
                 with self.worker(j):
@@ -619,7 +636,7 @@ class DeviceGroup:
         P = self.size
         if P == 1:
             return list(xs)
-        with tracing.span("mesh::reduce_scatter"):
+        with self.spans("mesh::reduce_scatter"):
             C = xs[self.local[0]].shape[0] // P
 
             def chunk(i, j):
@@ -668,6 +685,13 @@ def _as_tensor(x, device):
     if torch.is_tensor(x):
         return x.to(device)
     return torch.as_tensor(np.ascontiguousarray(x), device=device)
+
+
+def _where_it_is(x):
+    """A tensor where it lies, numpy as a host tensor (no copy)."""
+    if torch.is_tensor(x):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x))
 
 
 # ---------------------------------------------------------------------------
@@ -972,6 +996,64 @@ def draws_to(draws, device):
 # node embedding: sharded tables, edges and banded walks
 # ---------------------------------------------------------------------------
 
+def make_walk_worker_step(core, offsets, num_negative, negative_weight,
+                          shape, sgd):
+    """One worker's part of a walks-mode batch once its rows have arrived:
+    step(rows, lr, mask=pmask, fetched=fetched) -> (ret, loss, n_active).
+
+    `rows` [N, 2D] are the (vertex | context) rows of the worker's N
+    requests, its Bw * L1 chain positions then its G * M pool slots (zero
+    where not fetched); `pmask` [Bw, L1, T] the band's pair flags as the
+    walks give them; `fetched` [N] which requests arrived. A pair trains
+    only if both its rows arrived; a pool slot that did not is left out
+    of the negatives (the core's `pool_mask`). `ret` holds each request's
+    gradient row, for its owner: lr times (dv | dc) on SGD, for the
+    moment rules (dv | dc | v_sqs | c_sqs | v_count | c_count); `loss` is
+    the mean over the trained pairs, over 1 + num_negative x
+    negative_weight; `n_active` the pairs trained (a device scalar)."""
+    Bw, L1, G, M = shape["Bw"], shape["L1"], shape["G"], shape["M"]
+    Npos = Bw * L1
+    k, nw = num_negative, negative_weight
+
+    def step(rows, lr, mask=None, fetched=None):
+        D = rows.shape[1] // 2
+        v = rows[:Npos, :D].reshape(Bw, L1, D).float()
+        c = rows[:Npos, D:].reshape(Bw, L1, D).float()
+        P = rows[Npos:, D:].reshape(G, M, D).float()
+        fposf = fetched[:Npos].reshape(Bw, L1).float()
+        fpool = fetched[Npos:].reshape(G, M).float()
+        # a pair trains only if BOTH endpoint rows arrived
+        pm = mask * fposf[..., None]
+        pm = pm * torch.stack([walk_shift_fwd(fposf, kk) for kk in offsets],
+                              dim=-1)
+        o = core(v, c, P, pm, lr, table_bf16=rows.dtype == torch.bfloat16,
+                 pool_mask=fpool)
+        loss = (o["loss_sum"] / torch.clamp(o["n_active"], min=1.0)
+                / (1.0 + k * nw))
+        tracing.count(tracing.VALID_PAIRS, o["n_active"])
+        zeros = torch.zeros((G * M, D), device=rows.device)
+        if sgd:
+            ret = torch.cat([
+                torch.cat([o["dv"].reshape(Npos, D),
+                           o["dc"].reshape(Npos, D)], dim=-1),
+                torch.cat([zeros, o["dP"].reshape(G * M, D)],
+                          dim=-1)]).mul_(lr)
+        else:
+            ret = torch.cat([
+                torch.cat([o["dv"].reshape(Npos, D),
+                           o["dc"].reshape(Npos, D),
+                           o["v_sqs"], o["c_sqs_main"],
+                           o["v_counts"][:, None],
+                           o["c_counts_main"][:, None]], dim=-1),
+                torch.cat([zeros, o["dP"].reshape(G * M, D), zeros,
+                           o["p_sqs"].reshape(G * M, D),
+                           torch.zeros((G * M, 1), device=rows.device),
+                           o["p_counts"].reshape(G * M, 1)], dim=-1)])
+        return ret, loss, o["n_active"]
+
+    return step
+
+
 class ShardedGraphTrainer:
     """Episode-scheduled sharded training over a DeviceGroup of P workers
     (one partition each).
@@ -1047,28 +1129,42 @@ class ShardedGraphTrainer:
 
     # -- host-side state ------------------------------------------------------
     def init_state(self, vertex, context, moments=None):
-        """Shard the [V, D] tables (tensors on any device, or numpy; the
-        whole tables in every process) into per-worker [cap, D] shards on
-        the workers' devices (None for a worker of another process). `moments`
-        ((v_moms...), (c_moms...)) canonical [V, D] moments seed the
-        shards' (resume=True continues from what an earlier mesh run
-        gathered); None: zeros. Moments are float32 whatever the tables'
-        dtype."""
+        """Shard the [V, D] tables (tensors on any device, host memory
+        included, or numpy; the whole tables in every process) into
+        per-worker [cap, D] shards on the workers' devices (None for a
+        worker of another process): each shard is cut where its table
+        lies, so no card holds a whole table. `moments` ((v_moms...),
+        (c_moms...)) canonical [V, D] moments seed the shards'
+        (resume=True continues from what an earlier mesh run gathered);
+        None: zeros. Moments are float32 whatever the tables' dtype. The
+        walks engine on SGD keeps both shards in one fused [cap, 2D]
+        arena (`"arena"`), its tables being views of it, for as long as
+        the state lives."""
         part, g = self.partition, self.group
         self.rotation = 0
         if moments is None:
             moments = ((None,) * self.opt.num_moment,) * 2
-        src = [_as_tensor(vertex, g.home), _as_tensor(context, g.home)]
+        src = [_where_it_is(vertex), _where_it_is(context)]
+        D = self.dim
+        fused = self.sampler_mode == "walks" and self.opt.num_moment == 0
         out = [None] * g.size
         for p in g.local:
             d = g.devices[p]
+            if fused:
+                arena = torch.empty((part.capacity, 2 * D),
+                                    dtype=src[0].dtype, device=d)
+                for side, t in enumerate(src):
+                    arena[:, side * D:(side + 1) * D] = part.shard_tensor(
+                        t, p).to(d)
+                out[p] = {"tables": (arena[:, :D], arena[:, D:]),
+                          "moments": ((), ()), "arena": arena}
+                continue
             tables = tuple(part.shard_tensor(t, p).to(d) for t in src)
             moms = tuple(
                 tuple(torch.zeros((part.capacity, self.dim),
                                   dtype=torch.float32, device=d)
                       if m is None else
-                      part.shard_tensor(_as_tensor(m, g.home).float(),
-                                        p).to(d)
+                      part.shard_tensor(_where_it_is(m).float(), p).to(d)
                       for m in side)
                 for side in moments)
             out[p] = {"tables": tables, "moments": moms}
@@ -1109,65 +1205,71 @@ class ShardedGraphTrainer:
         self.block_offsets = tables.offsets.astype(np.int64)
         return tables.device_arrays(self.group)
 
+    # the flat start arrays (heads and tails, 8 bytes a directed edge on
+    # every card) above this many bytes give way to the CSR start
+    FLAT_START_MAX_BYTES = 1 << 30
+
+    @tracing.setup_stage(tracing.SAMPLER_BUILD)
     def build_sample_state(self, graph):
-        """Edges: the block tables. Walks: the walk arrays (replicated
-        once per distinct device) with the partition maps, and the
+        """Edges: the block tables. Walks: the walk state, a
+        DeviceWalkSampler replicated once per distinct device (built on
+        the first, copied card to card), with the partition maps, and the
         banded engine's shapes, whose fetch capacity follows s_max, the
-        heaviest partition's degree share."""
+        heaviest partition's degree share. On an unweighted graph the
+        walks start at a CSR position (`start_csr`: the state is the CSR
+        indices, int32, and 24 bytes a vertex) where the flat start
+        arrays would pass FLAT_START_MAX_BYTES; else at a flat edge, as
+        the reference does."""
         if self.sampler_mode == "edges":
             return self.build_blocks(graph)
-        t = AliasTable(graph.edge_weights)
-        w = np.asarray(graph.csr_weights, np.float64)
+        cfg = self.walk_cfg
+        w = graph.csr_weights
         uniform = bool(w.size == 0 or np.all(w == w[0]))
-        self.walk_cfg["uniform"] = uniform
+        n_dir = int(np.asarray(graph.indices).size)
+        start_csr = uniform and 8 * n_dir > self.FLAT_START_MAX_BYTES
+        cfg["uniform"], cfg["start_csr"] = uniform, start_csr
         indptr = np.asarray(graph.indptr)
         deg = np.diff(indptr)
-        max_deg = int(deg.max()) if deg.size else 1
-        self.walk_cfg["bs_iters"] = max(
-            int(np.ceil(np.log2(max_deg + 1))) + 1, 1)
-        if uniform:
-            nbr_prob = np.zeros(0, np.float32)
-            nbr_alias = np.zeros(0, np.int32)
-        else:
-            packed = PackedAliasTables(w, indptr)
-            nbr_prob = packed.prob.astype(np.float32)
-            nbr_alias = packed.alias.astype(np.int32)
-        arrays = [t.prob.astype(np.float32), t.alias.astype(np.int32),
-                  np.asarray(graph.edge_heads, np.int32),
-                  np.asarray(graph.edge_tails, np.int32),
-                  np.stack([indptr[:-1], deg], axis=1).astype(np.int32),
-                  np.asarray(graph.indices, np.int32), nbr_prob, nbr_alias]
-        if self.walk_cfg.get("biased"):
-            # row-sorted CSR indices: the binary-search membership
-            order = np.lexsort((graph.indices, np.repeat(
-                np.arange(indptr.size - 1), deg)))
-            arrays.append(np.asarray(graph.indices[order], np.int32))
-        maps = (self.partition.part_of.astype(np.int64),
-                self.partition.local_of.astype(np.int64))
+        aug = int(cfg["augmentation_step"])
+        bidir = bool(cfg.get("bidir", True))
+        T = len(walk_offsets(aug, bidir))
+        L1 = int(cfg["walk_length"]) + 1
+        Bw = max(int(cfg.get("batch_walks")
+                     or max(self.batch_size // (T * L1), 1)), 1)
+        devices = self.group.distinct
+        sampler = DeviceWalkSampler.build(
+            graph, aug, L1 - 1, Bw * T * L1, biased=cfg.get("biased", False),
+            p=cfg.get("p", 1.0), q=cfg.get("q", 1.0), bidir=bidir,
+            banded=True, device=devices[0], start_csr=start_csr,
+            membership="search")
+        cfg["bs_iters"] = sampler.bs_iters
+        maps = (self.partition.part_of.astype(np.int32),
+                self.partition.local_of.astype(np.int32))
         deg_mass = np.bincount(self.partition.part_of,
                                weights=np.asarray(deg, np.float64),
                                minlength=self.num_partition)
         s_max = float(deg_mass.max() / max(deg_mass.sum(), 1e-12))
-        self._build_banded(s_max)
-        return {d: (tuple(torch.as_tensor(np.ascontiguousarray(a), device=d)
-                          for a in arrays),)
-                + tuple(torch.as_tensor(m, device=d) for m in maps)
-                for d in self.group.distinct}
+        self._build_banded(s_max, sampler)
+        out = {}
+        for d in devices:
+            if d != devices[0]:
+                sampler = sampler.to(d)
+            out[d] = (sampler.arrays(),) + tuple(
+                torch.as_tensor(m, device=d) for m in maps)
+        return out
 
-    def _build_banded(self, s_max):
-        """The walks engine's shapes, core and chain (mesh.py:586-653)."""
+    def _build_banded(self, s_max, sampler):
+        """The walks engine's shapes, core, chain and worker step
+        (mesh.py:586-653)."""
         cfg = self.walk_cfg
         P_ = self.num_partition
         aug = int(cfg["augmentation_step"])
-        Lw = int(cfg["walk_length"])
-        L1 = Lw + 1
         bidir = bool(cfg.get("bidir", True))
         self._offs = walk_offsets(aug, bidir)
         T = len(self._offs)
-        slot_unit = T * L1
-        Bw = max(int(cfg.get("batch_walks")
-                     or max(self.batch_size // slot_unit, 1)), 1)
-        G = graph_pool_groups(Bw, target_group=max(2048 // slot_unit, 1))
+        L1 = sampler.walk_length + 1
+        Bw = sampler.num_walk
+        G = graph_pool_groups(Bw, target_group=max(2048 // (T * L1), 1))
         M = int(cfg.get("pool_size", 64))
         self._core, _ = make_graph_banded_core(
             self.opt, self.num_negative, self.negative_weight, aug, bidir,
@@ -1179,10 +1281,11 @@ class ShardedGraphTrainer:
         C = int(min(N, max(int(np.ceil(N * max(slack / P_, 1.3 * s_max))),
                            8)))
         self._banded_capacity = C
-        self._chain_fn = make_walk_chain_fn(
-            cfg["uniform"], Lw, Bw, biased=cfg.get("biased", False),
-            p=cfg.get("p", 1.0), q=cfg.get("q", 1.0),
-            bs_iters=cfg.get("bs_iters", 32), membership="search")
+        self._chain_fn = sampler.make_chain_fn()
+        self._sample_fn = sampler.make_sample_fn(sampler.batch_size)
+        self._worker_step = make_walk_worker_step(
+            self._core, self._offs, self.num_negative, self.negative_weight,
+            self._banded_shape, self.opt.num_moment == 0)
 
     # -- draws ------------------------------------------------------------------
     def episode_draws(self, generator):
@@ -1326,37 +1429,38 @@ class ShardedGraphTrainer:
 
     def _episode_walks(self, state, sample_state, neg_state, batch_id0,
                        num_batch_total, gens, draws):
+        """The walks episode: an `episode` span on every card, its
+        batches each a `sample`, `step` and `update` span on every worker
+        and three `mesh::all_to_all` on every card. On SGD the fused
+        arena of each worker's state is trained in place, and stays."""
         g, P_ = self.group, self.num_partition
         D = self.dim
         sgd = self.opt.num_moment == 0
         local = [None] * P_
         for i in g.local:
             s = state[i]
-            if not sgd:
-                local[i] = dict(s)
-                continue
-            # the fused (vertex | context) arena for the episode: the
-            # serve gather and the owner's update are one row op each
-            with g.worker(i):
-                local[i] = {"vc": torch.cat(s["tables"], dim=-1)}
+            if sgd and "arena" not in s:
+                # shards made elsewhere: fused once, then kept
+                with g.worker(i):
+                    arena = torch.cat(s["tables"], dim=-1)
+                state[i] = s = {"tables": (arena[:, :D], arena[:, D:]),
+                                "moments": ((), ()), "arena": arena}
+            local[i] = s if sgd else dict(s)
         losses = [[] for _ in range(P_)]
         stats = [[] for _ in range(P_)]
-        for it in range(self.ep_batches):
-            lr = self.opt.schedule_lr(batch_id0 + it * P_, num_batch_total)
-            bd = None if draws is None else [
-                draws[i][it] if g.is_local(i) else None for i in range(P_)]
-            self._walk_batch(local, sample_state, neg_state, lr, gens, bd,
-                             losses, stats)
+        with g.spans(tracing.EPISODE):
+            for it in range(self.ep_batches):
+                lr = self.opt.schedule_lr(batch_id0 + it * P_,
+                                          num_batch_total)
+                bd = None if draws is None else [
+                    draws[i][it] if g.is_local(i) else None
+                    for i in range(P_)]
+                self._walk_batch(local, sample_state, neg_state, lr, gens,
+                                 bd, losses, stats)
         out = [None] * P_
         for i in g.local:
             with g.worker(i):
-                if sgd:
-                    vc = local[i]["vc"]
-                    out[i] = {"tables": (vc[:, :D].contiguous(),
-                                         vc[:, D:].contiguous()),
-                              "moments": ((), ())}
-                else:
-                    out[i] = local[i]
+                out[i] = state[i] if sgd else local[i]
                 drops = torch.stack([d for d, _ in stats[i]]).sum()
                 pairs = torch.stack([n for _, n in stats[i]]).double().sum()
                 if self._drops[i] is not None:
@@ -1374,30 +1478,33 @@ class ShardedGraphTrainer:
         """One walks-mode batch on every worker (mesh.py:681-824):
 
         1. every worker draws Bw walks over the replicated graph and a
-           [G, M] negative pool, and assigns each of its N row requests
-           (chain positions, then pool slots) a slot of capacity C at the
-           row's owner by a one-hot cumsum (no sort); requests past C are
-           dropped, their band slots masked;
+           [G, M] negative pool (a `sample` span), and assigns each of its
+           N row requests (chain positions, then pool slots) a slot of
+           capacity C at the row's owner by a one-hot cumsum (no sort);
+           requests past C are dropped, their band slots masked;
         2. all_to_all the (local id, valid) requests; each owner serves
            its rows (one gather of the fused [cap, 2D] arena on SGD);
            all_to_all the rows back;
-        3. run the banded core on the fetched rows;
+        3. run the worker step (`make_walk_worker_step`: the banded core
+           on the fetched rows) in a `step` span;
         4. all_to_all the per-row gradients (with touch counts and squared
-           sums for the moment rules) to the owners, which apply them:
-           SGD one kernel-1 scatter-add on the arena, ids `cap` dropped;
-           moment rules apply_row_updates with entry counts and squares
-           (kernel 2 on shards above DENSE_UPDATE_ELEMS), zero-count slots
-           dropped so they do not decay the moments."""
+           sums for the moment rules) to the owners, which apply them in
+           an `update` span: SGD one kernel-1 scatter-add on the arena,
+           ids `cap` dropped; moment rules apply_row_updates with entry
+           counts and squares (kernel 2 on shards above
+           DENSE_UPDATE_ELEMS), zero-count slots dropped so they do not
+           decay the moments.
+
+        Counters per worker-batch: `pair_slots` (the band's slots),
+        `valid_pairs` (the pairs trained), `row_requests` (N) and
+        `row_drops` (the requests past C)."""
         g, P_ = self.group, self.num_partition
         D = self.dim
         s = self._banded_shape
-        Bw, L1, G, M = s["Bw"], s["L1"], s["G"], s["M"]
+        G, M = s["G"], s["M"]
         C = self._banded_capacity
-        Npos = Bw * L1
+        Npos = s["Bw"] * s["L1"]
         N = Npos + G * M
-        aug = int(self.walk_cfg["augmentation_step"])
-        bidir = bool(self.walk_cfg.get("bidir", True))
-        k, nw = self.num_negative, self.negative_weight
         sgd = self.opt.num_moment == 0
         if self._drops is None:
             self._drops = [None] * P_
@@ -1408,21 +1515,21 @@ class ShardedGraphTrainer:
             dev = g.devices[i]
             walk_arrays, part_of, local_of = sample_state[dev]
             nprob, nalias = neg_state[dev]
-            with g.worker(i), torch.no_grad():
+            with g.worker(i), torch.no_grad(), \
+                    tracing.span(tracing.SAMPLE, device=dev):
                 chain_draws = pool_draws = None
                 if draws is not None:
                     chain_draws, pool_draws = draws[i]
-                chain, valid = self._chain_fn(*walk_arrays,
-                                              generator=gens[i],
-                                              draws=chain_draws)
-                chainT, pmask = emit_walk_banded(chain, valid, aug, bidir)
+                chainT, _, pmask = self._sample_fn(*walk_arrays,
+                                                   generator=gens[i],
+                                                   draws=chain_draws)
                 if pool_draws is None:
                     pool_draws = alias_draws((nprob, nalias), (G, M),
                                              gens[i], dev)
                 pool_ids = device_sample(nprob, nalias, *pool_draws)
                 ids = torch.cat([chainT.reshape(-1), pool_ids.reshape(-1)])
-                owner = part_of[ids]
-                lid = local_of[ids]
+                owner = part_of[ids].long()
+                lid = local_of[ids].long()
                 # [P, N], the scan along the contiguous axis (a scan over
                 # the outer axis of [N, P] took ~1 ms on the card)
                 onehot = (owner[None, :] == torch.arange(
@@ -1445,6 +1552,9 @@ class ShardedGraphTrainer:
                      ok.long()], dim=-1)                       # [P, C, 2]
                 ctx[i] = dict(pmask=pmask, fetched=fetched, loc=loc,
                               n_drop=n_drop, ok=ok, src2=src2)
+            tracing.count(tracing.PAIR_SLOTS, pmask.numel())
+            tracing.count(tracing.ROW_REQUESTS, N)
+            tracing.count(tracing.ROW_DROPS, n_drop)
         got = g.all_to_all(reqs)
         serves = [None] * P_
         for i in g.local:
@@ -1453,7 +1563,7 @@ class ShardedGraphTrainer:
                 ctx[i]["glid"] = glid
                 ctx[i]["gok"] = got[i][..., 1] > 0
                 if sgd:
-                    serves[i] = local[i]["vc"][glid]           # [P, C, 2D]
+                    serves[i] = local[i]["arena"][glid]        # [P, C, 2D]
                 else:
                     vertex, context = local[i]["tables"]
                     serves[i] = torch.cat([vertex[glid], context[glid]],
@@ -1464,57 +1574,28 @@ class ShardedGraphTrainer:
         for i in g.local:
             c_ = ctx[i]
             dev = g.devices[i]
-            with g.worker(i), torch.no_grad():
+            with g.worker(i), torch.no_grad(), \
+                    tracing.span(tracing.STEP, device=dev):
                 fetched = c_["fetched"]
                 flat = torch.where(fetched[:, None],
                                    rows[i].reshape(P_ * C, -1)[c_["loc"]],
                                    0.0)
-                v = flat[:Npos, :D].reshape(Bw, L1, D).float()
-                c = flat[:Npos, D:].reshape(Bw, L1, D).float()
-                Prows = flat[Npos:, D:].reshape(G, M, D).float()
-                fposf = fetched[:Npos].reshape(Bw, L1).float()
-                fpool = fetched[Npos:].reshape(G, M).float()
-                # a pair trains only if BOTH endpoint rows arrived
-                pm = c_["pmask"] * fposf[..., None]
-                pm = pm * torch.stack([walk_shift_fwd(fposf, kk)
-                                       for kk in self._offs], dim=-1)
-                o = self._core(v, c, Prows, pm, lr,
-                               table_bf16=flat.dtype == torch.bfloat16,
-                               pool_mask=fpool)
-                losses[i].append(o["loss_sum"]
-                                 / torch.clamp(o["n_active"], min=1.0)
-                                 / (1.0 + k * nw))
-                stats[i].append((c_["n_drop"], o["n_active"]))
-                zeros = torch.zeros((G * M, D), device=dev)
-                if sgd:
-                    ret = torch.cat([
-                        torch.cat([o["dv"].reshape(Npos, D),
-                                   o["dc"].reshape(Npos, D)], dim=-1),
-                        torch.cat([zeros, o["dP"].reshape(G * M, D)],
-                                  dim=-1)]).mul_(lr)
-                else:
-                    ret = torch.cat([
-                        torch.cat([o["dv"].reshape(Npos, D),
-                                   o["dc"].reshape(Npos, D),
-                                   o["v_sqs"], o["c_sqs_main"],
-                                   o["v_counts"][:, None],
-                                   o["c_counts_main"][:, None]], dim=-1),
-                        torch.cat([zeros, o["dP"].reshape(G * M, D), zeros,
-                                   o["p_sqs"].reshape(G * M, D),
-                                   torch.zeros((G * M, 1), device=dev),
-                                   o["p_counts"].reshape(G * M, 1)],
-                                  dim=-1)])
+                ret, loss, n_active = self._worker_step(
+                    flat, lr, mask=c_["pmask"], fetched=fetched)
+                losses[i].append(loss)
+                stats[i].append((c_["n_drop"], n_active))
                 ok = c_["ok"]
                 rets[i] = torch.where(ok[..., None], ret[c_["src2"]], 0.0)
         back = g.all_to_all(rets)
         for i in g.local:
             c_ = ctx[i]
-            with g.worker(i), torch.no_grad():
+            with g.worker(i), torch.no_grad(), \
+                    tracing.span(tracing.UPDATE, device=g.devices[i]):
                 retg = back[i].reshape(P_ * C, -1)
                 okf = c_["gok"].reshape(-1)
                 ids_o = c_["glid"].reshape(-1)
                 if sgd:
-                    vc = local[i]["vc"]
+                    vc = local[i]["arena"]
                     cap = vc.shape[0]
                     upd_ids = torch.where(okf, ids_o,
                                           torch.full_like(ids_o, cap))
@@ -1612,6 +1693,37 @@ class ShardedGraphTrainer:
     def _shards(self, state, side, what="tables", m=None):
         return [(s[what][side] if m is None else s[what][side][m])
                 if s is not None else None for s in state]
+
+    def shard_worker(self, side, p):
+        """The worker holding partition p's shard of table `side` (0
+        vertex, 1 context): in edges mode the context shards travel one
+        step around the ring an episode."""
+        P_ = self.num_partition
+        e = self.rotation % P_ if (side == 1 and self.rotating) else 0
+        return (p - e) % P_
+
+    def rows(self, state, side, ids):
+        """Rows `ids` (global ids, an int64 tensor) of table `side` of the
+        per-worker `state`, float32 on the ids' device, each read on the
+        card that holds it: no whole table is made. This process's
+        workers only."""
+        dev = ids.device
+        maps = self._maps.get(dev) if hasattr(self, "_maps") else None
+        if maps is None:
+            self._maps = getattr(self, "_maps", {})
+            maps = self._maps[dev] = tuple(
+                torch.as_tensor(m, device=dev)
+                for m in (self.partition.part_of, self.partition.local_of))
+        owner = maps[0][ids].long()
+        lid = maps[1][ids].long()
+        out = torch.zeros((ids.numel(), self.dim), dtype=torch.float32,
+                          device=dev)
+        for p in range(self.num_partition):
+            sel = torch.nonzero(owner == p).squeeze(1)
+            if sel.numel():
+                t = state[self.shard_worker(side, p)]["tables"][side]
+                out[sel] = t[lid[sel].to(t.device)].float().to(dev)
+        return out
 
     def gather_tables(self, state, device=None):
         """(vertex, context) [V, D] in global order on `device` (the first

@@ -159,6 +159,22 @@ def _one_process(loop):
             "ReplicatedEdgeTrainer, ShardedKGTrainer, ReplicatedKGTrainer) "
             "on a DeviceGroup" % loop)
 
+class _LiveShards:
+    """A graph engine's per-worker shards left on the cards by a run:
+    called, it gathers the tables and moments into host memory in
+    canonical order."""
+
+    def __init__(self, trainer, shards, negatives):
+        self.trainer, self.shards, self.negatives = trainer, shards, negatives
+
+    def __call__(self):
+        cpu = torch.device("cpu")
+        state = {"tables": self.trainer.gather_tables(self.shards, cpu),
+                 "moments": self.trainer.gather_moments(self.shards, cpu)}
+        self.shards = None
+        return state
+
+
 class SolverBase:
     """Shared machinery: build/train plumbing over a state dict
     {"tables": (...), "moments": (...)}."""
@@ -206,6 +222,28 @@ class SolverBase:
         self.effective_batch = self.batch_size
         self.batch_losses = None
         self._rng = np.random.default_rng(seed)
+
+    # -- the state ----------------------------------------------------------
+    @property
+    def state(self):
+        """{"tables": (...), "moments": (...)}. After a run on several
+        workers the tables stay as the workers' shards on their cards (a
+        resumed run trains them on); reading the state gathers them into
+        host memory and ends that (a later run shards them again)."""
+        live = self._live
+        if live is not None:
+            self._live = None
+            self._state = live()
+        return self._state
+
+    @state.setter
+    def state(self, value):
+        self._live = None
+        self._state = value
+
+    def _has_state(self):
+        """Whether there is a state, without gathering live shards."""
+        return self._live is not None or self._state is not None
 
     def _place_workers(self, device_ids):
         """The devices of the num_worker workers: the CPU for each on a CPU
@@ -562,6 +600,16 @@ class GraphSolver(SolverBase):
         v = self.graph.num_vertex
         return ((v, self.dim), (v, self.dim))
 
+    def _allocate(self):
+        """One worker: zero tables where `_allocation_device` says. Several
+        workers: none yet; the first run makes the tables in host memory
+        and shards them (zeros of a billion-edge graph's tables would take
+        tens of seconds to write, and are never trained)."""
+        if self.num_worker > 1:
+            self.state = None
+            return
+        super()._allocate()
+
     # rows of one device draw of the vertex table's initial values
     INIT_CHUNK_ROWS = 1 << 21
 
@@ -571,11 +619,13 @@ class GraphSolver(SolverBase):
         INIT_CHUNK_ROWS rows at a time. The previous state is dropped
         first, so the device never holds two (tables and moments are most
         of its memory). `host`: the state is made in host memory (the
-        host master's tables), from the same draws."""
+        host master's tables, and the tables of several workers, which
+        their engines shard), from the same draws."""
         self.state = None
         v = self.graph.num_vertex
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(self._rng.integers(2**31)))
+        host = host or self.num_worker > 1
         where = torch.device("cpu") if host else self.device
         lo, hi = -0.5 / self.dim, 0.5 / self.dim
         vertex = torch.empty((v, self.dim), dtype=self.float_type,
@@ -590,6 +640,17 @@ class GraphSolver(SolverBase):
         moments = tuple(self.optimizer.init_moments((v, self.dim), where)
                         for _ in range(2))
         self.state = {"tables": tables, "moments": moments}
+
+    def table_rows(self, table, ids):
+        """Rows `ids` (an int64 tensor) of table `table` (0 vertex, 1
+        context), float32 on the ids' device, read where the tables are:
+        after a run on several workers from the shards on their cards,
+        with no gather."""
+        live = self._live
+        if live is not None:
+            return live.trainer.rows(live.shards, table, ids)
+        t = self.state["tables"][table]
+        return t[ids.to(t.device)].float().to(ids.device)
 
     @property
     def vertex_embeddings(self):
@@ -634,7 +695,7 @@ class GraphSolver(SolverBase):
             shuffle_base = 1  # graph.cuh:784-786
         if self.num_worker > 1:
             # the multi-device engines (reference solver.py:819-827)
-            if not resume or self.state is None or self.batch_id == 0:
+            if not resume or not self._has_state() or self.batch_id == 0:
                 self.init_embeddings()
                 self.batch_id = 0
             self.augmentation_step = augmentation_step
@@ -944,16 +1005,23 @@ class GraphSolver(SolverBase):
             ep_batches = max(min(self._episode_batches(), sweep_cap,
                                  max(self.num_batch // P_, 1)), 1)
 
+        # the episode length is not in the key: it is the trainer's to
+        # change call by call, while the walk state stays
         key = (id(self.graph), "mesh", model_name, self.optimizer,
                self.num_negative, float(negative_weight),
-               tuple(self.worker_devices), batch_size, ep_batches,
+               tuple(self.worker_devices), batch_size,
                int(augmentation_step), int(random_walk_length), float(p),
-               float(q), float(negative_sample_exponent), negative_sharing,
+               float(q), negative_sharing,
                pool_size, bidir, trust, env("GRAPHVITE_WALK_ROUTE_SLACK", ""),
                # the walks engine's core reads it when it is built
                env("GRAPHVITE_BF16_BAND", ""))
         setup = {}
+        live = self._live
         if getattr(self, "_mesh_key", None) != key:
+            if live is not None:
+                # another engine: the shards come home first
+                _ = self.state
+                live = None
             t0 = time.perf_counter()
             part = VertexPartition(np.asarray(self.graph.degrees), P_)
             setup["partition_s"] = time.perf_counter() - t0
@@ -982,6 +1050,7 @@ class GraphSolver(SolverBase):
                     **common)
             self._mesh_trainer = None      # free the old engine's arrays
             self._mesh_sample_state = None
+            self._mesh_negatives = None
             t0 = time.perf_counter()
             if walks:
                 self._mesh_sample_state = trainer.build_sample_state(
@@ -1001,17 +1070,37 @@ class GraphSolver(SolverBase):
             self._mesh_trainer = trainer
             self._mesh_key = key
         trainer = self._mesh_trainer
+        trainer.ep_batches = ep_batches
         group = trainer.group
+        demand, budget = self._memory_demand()
+        if demand > budget:
+            logger.warning("device memory demand %.1f GB a card > budget "
+                           "%.1f GB", demand / 1e9, budget / 1e9)
         t0 = time.perf_counter()
-        neg_state = trainer.init_negative_state(
-            np.asarray(self.graph.vertex_weights), negative_sample_exponent)
+        neg_key = float(negative_sample_exponent)
+        cached = getattr(self, "_mesh_negatives", None)
+        if walks and cached is not None and cached[0] == neg_key:
+            # the walks engine's table is global and never moves
+            neg_state = cached[1]
+        else:
+            neg_state = trainer.init_negative_state(
+                np.asarray(self.graph.vertex_weights),
+                negative_sample_exponent)
+            self._mesh_negatives = (neg_key, neg_state) if walks else None
         setup["negative_alias_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        st = self.state
-        self.state = None       # the shards replace the tables
-        state = trainer.init_state(st["tables"][0], st["tables"][1],
-                                   moments=st["moments"])
-        del st
+        if live is not None:
+            # a resumed run trains the shards the last one left
+            state = live.shards
+            self._live = None
+            if not walks:
+                neg_state = live.negatives
+        else:
+            st = self.state
+            self.state = None       # the shards replace the tables
+            state = trainer.init_state(st["tables"][0], st["tables"][1],
+                                       moments=st["moments"])
+            del st
         setup["split_s"] = time.perf_counter() - t0
         logger.info("training %s on %d workers: %d batches of %d "
                     "(episodes of %d)", model_name, P_, self.num_batch,
@@ -1047,14 +1136,9 @@ class GraphSolver(SolverBase):
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
         loop_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        tables = trainer.gather_tables(state, self.device)
-        moments = trainer.gather_moments(state, self.device)
-        del state
-        self.state = {"tables": tables, "moments": moments}
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        setup["join_s"] = time.perf_counter() - t0
+        tracing.resolve()
+        # the shards stay on the cards: reading `state` gathers them
+        self._live = _LiveShards(trainer, state, neg_state)
         self.batch_losses = torch.cat(all_losses)
         drops, emitted = (trainer.check_drops() if walks else (0, 0))
         self.mesh_stats = {"workers": P_, "ep_batches": ep_batches,
@@ -1067,21 +1151,46 @@ class GraphSolver(SolverBase):
     def _allocation_device(self):
         """Tables over the device budget are allocated in host memory:
         blocked episodes stage them from there, and a flat route moves
-        them to the device when it trains."""
+        them to the device when it trains. With several workers the
+        whole tables are always made in host memory: the engines shard
+        them onto the cards, and no card holds a whole table."""
+        if self.num_worker > 1:
+            return torch.device("cpu")
         demand, budget = self._memory_demand()
         return torch.device("cpu") if demand > budget else self.device
 
     def _memory_demand(self, edge_bytes=None):
         """(bytes the tables, moments and edge arrays need on the device,
         the device's budget). `edge_bytes`: the edge arrays' bytes; by
-        default the auto rule's 16 per edge (reference solver.py:1075)."""
+        default the auto rule's 16 per edge (reference solver.py:1075).
+
+        With several workers, per card: one partition's rows of the
+        tables and moments (a 1 / num_worker share, rounded up), the
+        walks engine's state on every card (`edge_bytes` by default: the
+        CSR indices, 4 bytes a directed edge, and 40 bytes a vertex: its
+        packed row start and degree, its row start for the start search,
+        the two partition maps and the negative alias table), and a
+        worker-batch's exchange (a row of 2D floats and an id for each of
+        its batch_size slots, three times)."""
         n_moms = 2 * self.optimizer.num_moment
         itemsize = torch.empty((), dtype=self.float_type).element_size()
+        V = self.graph.num_vertex
+        budget = hbm_budget_bytes(self.gpu_memory_limit, self.device)
+        if self.num_worker > 1:
+            W = self.num_worker
+            rows = -(-V // W)
+            if edge_bytes is None:
+                n_dir = getattr(self.graph, "num_directed_edge",
+                                2 * self.graph.num_edge)
+                edge_bytes = 4 * int(n_dir) + 40 * V
+            batch = 3 * self.batch_size * (2 * self.dim * 4 + 8)
+            demand = (rows * self.dim * (2 * itemsize + n_moms * 4)
+                      + edge_bytes + batch)
+            return demand, budget
         if edge_bytes is None:
             edge_bytes = 16 * self.graph.num_edge
-        demand = (self.graph.num_vertex * self.dim
-                  * (2 * itemsize + n_moms * 4) + edge_bytes)
-        return demand, hbm_budget_bytes(self.gpu_memory_limit, self.device)
+        demand = (V * self.dim * (2 * itemsize + n_moms * 4) + edge_bytes)
+        return demand, budget
 
     def _blocked_plan(self):
         """(P, host_master) for blocked episodes on the edge route, or None

@@ -66,6 +66,10 @@ NATIVE_BUILD = PREFIX + "native.build"
 # counters
 PAIR_SLOTS = PREFIX + "pair_slots"
 VALID_PAIRS = PREFIX + "valid_pairs"
+# the walks engine's row requests to their owners, and those dropped past
+# an owner's capacity
+ROW_REQUESTS = PREFIX + "row_requests"
+ROW_DROPS = PREFIX + "row_drops"
 
 MAX_SPANS = 200_000
 
