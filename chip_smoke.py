@@ -4,18 +4,20 @@
                           [--node2vec-batches N] [--layout-batches N]
                           [--edge-batches N] [--kg-batches N]
                           [--kg-big-batches N]
-                          [--only multihost|opt_ins|rotate_pool]
+                          [--only multihost|opt_ins|rotate_pool|walk_chain]
 
 (--only multihost runs the device and build phases, builds the three
 graphs that phase reads, runs it, and prints no result line; --only
 opt_ins the same for phases row_access and opt_ins; --only rotate_pool
-the same for phase rotate_pool, which needs no graph.)
+the same for phase rotate_pool, which needs no graph; --only walk_chain
+for phase walk_chain on the Youtube clone.)
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
 1. device   require CUDA; print the card's name and power limit; TF32 off.
 2. build    compile the hand-written CUDA kernels (csrc/*.cu: scatter_add,
-            gather_sorted, scatter_update, row_access, rotate_pool) with
+            gather_sorted, scatter_update, row_access, rotate_pool,
+            walk_chain) with
             nvcc, one
             process each, all started together, from the checkout's
             sources.
@@ -51,6 +53,14 @@ Phases, in order (any failure exits non-zero and prints no result line):
             solver's own walk sampler, pool shape and negative sampler) and
             replayed: the fused step on the card against the same step on
             the CPU, over the whole 1,138,499 x 256 arena.
+            Then phase walk_chain: the first-order chain's kernel
+            (csrc/walk_chain.cu) on this graph at 192 walks (this batch),
+            576 with the CSR start (a line_friendster.mesh4 worker-batch)
+            and 96,000 (GRAPHVITE_BULK_WALKS's episode): bit-equal to the
+            plain chain from integer and float start draws, and the ms of
+            the chain function, the wrapper, the kernel alone and the
+            plain chain beside its latency bound (one lane's chain on the
+            same tables) and its bytes bound.
 5. node2vec node2vec through GraphApplication at the
             config/graph/node2vec_youtube.yaml hyperparameters (p 4, q 2,
             dim 128, SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5,
@@ -367,7 +377,10 @@ Phases, in order (any failure exits non-zero and prints no result line):
             kernel 1 against its plain version (and timed, beside
             index_add_ and its bound) on the vertex and the context ids
             of one more batch of each graph config.
-21. summary the card line, the kernels line, and the result line.
+21. summary the card line, the kernels line (every kernel's launches by
+            path, with the walk chain's kernel once a batch's sample on the
+            first-order walk routes: every measured walk-route call above
+            checks that count), and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -493,13 +506,15 @@ def wrappers():
     kernel launches (scatter_add_ and scatter_add_sorted_ launch kernel 1,
     scatter_update_ and scatter_update_sorted_ kernel 2, gather_sorted
     kernel 3; gather_rows, rmw_rows_ and sweep_add_sorted_ the row-access
-    kernels)."""
-    from graphvite_tpu_torch.ops import gather, row_access, scatter
+    kernels; walk_chain the first-order walk chain's kernel)."""
+    from graphvite_tpu_torch.ops import device_sampler, gather, row_access
+    from graphvite_tpu_torch.ops import scatter
 
     fns = (scatter.scatter_add_, scatter.scatter_add_sorted_,
            scatter.scatter_update_, scatter.scatter_update_sorted_,
            gather.gather_sorted, row_access.gather_rows,
-           row_access.rmw_rows_, row_access.sweep_add_sorted_)
+           row_access.rmw_rows_, row_access.sweep_add_sorted_,
+           device_sampler.walk_chain)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -510,6 +525,20 @@ def reset_launches():
 
 def read_launches():
     return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def walk_chain_launches(solver, run):
+    """The walk chain kernel's launches that a solver's last train() call
+    of `run` batches should show: one a batch's sample on the card's
+    first-order walk routes, one an episode's with GRAPHVITE_BULK_WALKS
+    (its chain of W * n lanes), none for node2vec's biased chain or off
+    the walk route."""
+    sampler = getattr(solver, "_active_sampler", None)
+    if (not hasattr(sampler, "make_chain_fn")
+            or getattr(sampler, "biased", False)):
+        return 0
+    bulk = getattr(solver, "_active_bulk_fn", None)
+    return run if bulk is None else run * sampler.num_walk // bulk.lanes
 
 
 def valid_fraction(solver, probes=8, seed=123):
@@ -627,6 +656,7 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     elapsed = time.perf_counter() - t0      # train() ends synchronized
     counts = read_launches()
     launches = counts["scatter_add_"]
+    chains = counts["walk_chain"]
 
     run = solver.batch_id
     # at this graph size the loss moves slowly from ln 2 (context rows
@@ -645,7 +675,8 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
            "pair_slots_per_s": run * eff / elapsed,
            "valid_fraction": vf,
            "valid_pairs_per_s": run * eff * vf / elapsed,
-           "launches": launches, "fused_arena": solver._banded_fused,
+           "launches": launches, "chain_launches": chains,
+           "fused_arena": solver._banded_fused,
            "context_rows_touched": touched,
            "loss_first": float(losses[:k].mean()),
            "loss_last": float(losses[-k:].mean()),
@@ -655,7 +686,9 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     problems = []
     if not rec["fused_arena"]:
         problems.append("the fused arena was not chosen")
-    if launches != run or sum(counts.values()) != launches:
+    # kernel 1 once a batch, and the walk chain's kernel once a batch
+    if (launches != run or chains != run
+            or sum(counts.values()) != launches + chains):
         problems.append("kernel launches %r for %d batches" % (counts, run))
     if not rec["losses_finite"]:
         problems.append("losses not finite")
@@ -978,6 +1011,7 @@ def walk_layout_path(graph, name, env, batches, seed):
         rec["replay"] = rep
     want = {n: (2 * micro * run if n == "scatter_add_" else 0)
             for n in counts}
+    want["walk_chain"] = run
     if counts != want:
         problems.append("kernel launches %r, want %r" % (counts, want))
     if not rec["losses_finite"]:
@@ -2549,9 +2583,10 @@ MESH_EDGE_BATCH = 99840        # per worker: 100000 in whole units of 256
 MESH_WALK_BATCH = 78720        # per worker: 192 walks of 41 x 10 slots
 MESH_EDGE_RUNS = (("sgd", SGD_FRIENDSTER, 512, {"scatter_add_": 2}),
                   ("adam", ADAM_BLOCKED, 256, {"scatter_update_": 2}))
-MESH_WALK_RUNS = (("sgd", "DeepWalk", SGD_YOUTUBE, 100, {"scatter_add_": 1}),
+MESH_WALK_RUNS = (("sgd", "DeepWalk", SGD_YOUTUBE, 100,
+                   {"scatter_add_": 1, "walk_chain": 1}),
                   ("adam", "DeepWalk", ADAM_FLICKR, 50,
-                   {"scatter_update_": 2}),
+                   {"scatter_update_": 2, "walk_chain": 1}),
                   ("node2vec", "node2vec", SGD_YOUTUBE, 20,
                    {"scatter_add_": 1}))
 MESH_W1_BATCHES = 50
@@ -3025,8 +3060,11 @@ def mesh_phase(seed, shared):
     rec["overhead_vs_flat"] = rec["ms_per_batch"] / flat if flat else None
     log("   (b) DeepWalk walks, W = 1 through the engine:", json.dumps(rec))
     out["walks_w1"] = rec
-    if rec["launches"]["scatter_add_"] != rec["batches"]:
-        problems.append("walks W 1: %r launches" % rec["launches"])
+    la = rec["launches"]
+    if (la["scatter_add_"] != rec["batches"]
+            or la["walk_chain"] != rec["batches"]
+            or sum(la.values()) != 2 * rec["batches"]):
+        problems.append("walks W 1: %r launches" % la)
     torch.cuda.empty_cache()
 
     # (c) LargeVis replicas
@@ -3449,7 +3487,7 @@ FORBIDDEN = ("jax", "jaxlib", "graphvite_tpu", "ml_dtypes", "yaml", "pandas")
 # rotate_wikidata5m.yaml's, (e) global negatives at 1,792
 MH_CASES = (("a_edges_sgd", 128, 2, {"scatter_add_": 2}),
             ("b_edges_adam", 32, 2, {"scatter_update_": 2}),
-            ("c_walks_sgd", 10, 1, {"scatter_add_": 1}),
+            ("c_walks_sgd", 10, 1, {"scatter_add_": 1, "walk_chain": 1}),
             ("d_kg_pooled_sgd", 24, 2, {"scatter_add_": 2}),
             ("e_kg_global_sgd", 8, 2, {"scatter_add_": 4}))
 MH_WORKERS = 2
@@ -4137,7 +4175,9 @@ def quality(model="DeepWalk", device=None, classic=False, blocked=False,
                                      if host and model == "node2vec"
                                      else None),
             "state_device": s.state["tables"][0].device.type,
-            "launches": launches}
+            "launches": launches,
+            "chain_launches_want": (s.batch_id if model == "DeepWalk"
+                                    and not host else 0)}
 
 
 # ---------------------------------------------------------------------------
@@ -4398,6 +4438,10 @@ def quick_start_cli(root, seed):
     if not rec["k1_per_batch"] >= 1:
         problems.append("kernel 1 launched %r in %d batches"
                         % (rec["launches"], rec["batches"]))
+    chains = walk_chain_launches(s, s.batch_id)
+    if not chains or rec["launches"]["walk_chain"] != chains:
+        problems.append("walk chain launched %r in %d batches, want %d"
+                        % (rec["launches"], rec["batches"], chains))
     return rec, problems, trace_and_update_ids(app, cfg, rec)
 
 
@@ -4899,6 +4943,7 @@ def train_opt_in(graph, env, float_type, optimizer, train_kw, batches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     problems = []
     want = {n: per_batch.get(n, 0) * micro * run for n in counts}
+    want["walk_chain"] = walk_chain_launches(solver, run)
     if counts != want:
         problems.append("kernel launches %r, want %r" % (counts, want))
     if not rec["losses_finite"] or not rec["tables_finite"]:
@@ -5024,7 +5069,8 @@ def opt_in_engine(graph, batches, device=None):
            "tables_finite": all(bool(torch.isfinite(t.float()).all())
                                 for t in s.state["tables"])}
     problems = []
-    want = {n: (run if n == "scatter_add_" else 0) for n in counts}
+    want = {n: (run if n in ("scatter_add_", "walk_chain") else 0)
+            for n in counts}
     if counts != want:
         problems.append("engine launches %r, want %r" % (counts, want))
     if not rec["losses_finite"] or not rec["tables_finite"]:
@@ -5082,6 +5128,99 @@ def opt_ins_phase(seed, shared):
     return out
 
 
+WALK_CHAIN_CASES = (
+    # name, walks, start_csr, augmentation, bidir: deepwalk_youtube's
+    # batch, a line_friendster.mesh4 worker-batch's (its CSR start, here
+    # over the Youtube clone), and GRAPHVITE_BULK_WALKS's episode of 500
+    ("deepwalk_youtube", 192, False, 5, False),
+    ("line_friendster_worker", 576, True, 2, True),
+    ("bulk_walks", 96_000, False, 5, False))
+
+
+def walk_chain_phase(seed, graph):
+    """The first-order walk chain's kernel (ops/device_sampler.py:
+    walk_chain, csrc/walk_chain.cu) on the Youtube clone at walk length 40,
+    for each of WALK_CHAIN_CASES: bit-equal to the plain chain on the card
+    from integer and float start draws; event-timed ms of the chain
+    function drawing for itself (what a batch's `sample` pays), of the
+    wrapper, of the kernel alone (20 launches on preallocated outputs), of
+    the plain chain, and the kernel's latency bound: one lane's chain of
+    dependent loads on the same tables (the kernel at W = 1, 20 launches
+    in a row, the median over 32 draws), beside the bytes bound. One
+    launch a wrapper call."""
+    import torch
+    from graphvite_tpu_torch.ops import device_sampler as ds
+
+    out, problems = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, W, csr, aug, bidir in WALK_CHAIN_CASES:
+        T = aug * (2 if bidir else 1)
+        s = ds.DeviceWalkSampler.build(graph, aug, 40, W * T * 41,
+                                       banded=True, bidir=bidir,
+                                       start_csr=csr, device="cuda")
+        arrays, L = s.arrays(), s.walk_length
+        n_start = ds._num_starts(s.heads, s.indices, csr)
+
+        def rand(*shape):
+            return torch.rand(shape, generator=gen, device="cuda")
+
+        same = {}
+        before = ds.walk_chain.launches
+        for kind in ("int_u1", "float_u1"):
+            u1 = (torch.randint(0, n_start, (W,), generator=gen,
+                                device="cuda") if kind == "int_u1"
+                  else rand(W))
+            draws = (u1, None, rand(L - 1, W), rand(L - 1, W))
+            got = ds.walk_chain(*arrays, *draws, csr)
+            want = ds.walk_chain_plain(*arrays, *draws, csr)
+            same[kind] = all(torch.equal(a, b) for a, b in zip(got, want))
+        launches = ds.walk_chain.launches - before
+        chain = torch.empty_like(got[0])
+        valid = torch.empty_like(got[1])
+        fn = s.make_chain_fn()
+
+        def kernel_alone(n=20):
+            for _ in range(n):
+                ds._launch_chain(chain, valid, *arrays, *draws, csr)
+
+        c1 = torch.empty((L + 1, 1), dtype=torch.int64, device="cuda")
+        v1 = torch.empty((L + 1, 1), dtype=torch.bool, device="cuda")
+        one = []
+        for _ in range(32):
+            lane = (torch.randint(0, n_start, (1,), generator=gen,
+                                  device="cuda"), None, rand(L - 1, 1),
+                    rand(L - 1, 1))
+
+            def one_lane(n=20):
+                for _ in range(n):
+                    ds._launch_chain(c1, v1, *arrays, *lane, csr)
+            one.append(cuda_ms(one_lane, reps=5, warmup=1) / 20)
+        # per step a lane reads its 16-byte row and a 4-byte neighbour and
+        # its two draws; the chain and valid written once
+        nbytes = W * ((L - 1) * (16 + 4 + 8) + (L + 1) * 9 + 8)
+        rec = {"walks": W, "walk_length": L,
+               "start": "csr" if csr else "flat",
+               "same_bits": same, "launches": launches,
+               "chain_fn_ms": cuda_ms(lambda: fn(*arrays, generator=gen)),
+               "ms": cuda_ms(lambda: ds.walk_chain(*arrays, *draws, csr)),
+               "kernel_ms": cuda_ms(kernel_alone) / 20,
+               "plain_ms": cuda_ms(lambda: ds.walk_chain_plain(
+                   *arrays, *draws, csr), reps=5, warmup=1),
+               "bound_ms": statistics.median(one),
+               "bound_by": "latency (one lane)",
+               "bytes_bound_ms": bytes_bound(nbytes)[0]}
+        log("   walk_chain %s:" % name, json.dumps(rec))
+        out[name] = rec
+        if not all(same.values()) or launches != 2:
+            problems.append("%s: same bits %r, launches %d"
+                            % (name, same, launches))
+        del s, arrays, got, want, chain, valid
+        torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def training_launches(results):
     """Each wrapper's launches summed over every run record of the phases
     that train (each dict under a "launches" key, nested records
@@ -5134,7 +5273,7 @@ def main():
     ap.add_argument("--kg-batches", type=int, default=50)
     ap.add_argument("--kg-big-batches", type=int, default=50)
     ap.add_argument("--only", choices=["multihost", "opt_ins",
-                                       "rotate_pool"],
+                                       "rotate_pool", "walk_chain"],
                     help="run the device and build phases and this phase "
                     "alone (its graphs built here; opt_ins after "
                     "row_access), print its record and no result line")
@@ -5169,8 +5308,9 @@ def run(args):
     import torch
 
     try:
-        from graphvite_tpu_torch.ops import (gather, kernels, rotate_pool,
-                                             row_access, scatter)
+        from graphvite_tpu_torch.ops import (device_sampler, gather, kernels,
+                                             rotate_pool, row_access,
+                                             scatter)
     except ImportError as e:
         sys.stderr.write("chip_smoke: run from the root of a checkout of "
                          "the repository (%s)\n" % e)
@@ -5217,19 +5357,26 @@ def run(args):
                     log("   ptxas:", line.strip())
         log("built %d kernels in %.1f s" % (len(paths), secs))
         if sorted(paths) != ["gather_sorted", "rotate_pool", "row_access",
-                             "scatter_add", "scatter_update"]:
+                             "scatter_add", "scatter_update",
+                             "walk_chain"]:
             raise AssertionError("kernels built: %r" % sorted(paths))
         scatter._library("scatter_add")
         scatter._library("scatter_update")
         gather._library()
         row_access._library()
         rotate_pool._library()
+        device_sampler._chain_library()
         return secs
     if not phase("build", build):
         return 1
 
     if args.only == "rotate_pool":
         ok = phase("rotate_pool", lambda: rotate_pool_phase(args.seed))
+        log(card_line())
+        return 0 if ok else 1
+    if args.only == "walk_chain":
+        ok = phase("walk_chain", lambda: walk_chain_phase(
+            args.seed, power_law_graph(YOUTUBE_V, YOUTUBE_E, args.seed)))
         log(card_line())
         return 0 if ok else 1
 
@@ -5323,6 +5470,9 @@ def run(args):
             raise AssertionError("; ".join(problems))
         return out
     phase("main", main_path)
+    # the first-order chain's kernel on the same graph
+    phase("walk_chain", lambda: walk_chain_phase(args.seed, youtube_graph()))
+    torch.cuda.empty_cache()
 
     # 5. node2vec at the node2vec_youtube.yaml shape
     def node2vec_phase():
@@ -5720,13 +5870,18 @@ def run(args):
             if q["state_device"] != ("cpu" if blocked else "cuda"):
                 raise AssertionError("%s: the tables ended on the %s"
                                      % (name, q["state_device"]))
-            others = sum(q["launches"].values()) - q["launches"]["scatter_add_"]
-            if (q["launches"]["scatter_add_"]
-                    != 2 * q["micro_steps"] * q["batches"] or others
-                    or q["fused_arena"] or any(q["sweeps"])):
+            la = q["launches"]
+            others = (sum(la.values()) - la["scatter_add_"]
+                      - la["walk_chain"])
+            if (la["scatter_add_"] != 2 * q["micro_steps"] * q["batches"]
+                    or others or q["fused_arena"] or any(q["sweeps"])):
                 raise AssertionError("the small-table route did not launch "
                                      "the scatter-add twice per step: %r"
                                      % q)
+            if la["walk_chain"] != q["chain_launches_want"]:
+                raise AssertionError("%s: walk chain launches %d, want %d"
+                                     % (name, la["walk_chain"],
+                                        q["chain_launches_want"]))
             out[name] = q
         return out
     phase("quality", quality_phase)
@@ -5848,6 +6003,29 @@ def run(args):
         if "engine" in rec:
             k1["opt_ins_%s_engine" % name] = rec["engine"]["launches"][
                 "scatter_add_"]
+    # the walk chain's kernel: once a batch's sample on the first-order
+    # walk routes (once an episode with GRAPHVITE_BULK_WALKS)
+    kc = {"deepwalk_float32": main_rec["chain_launches"],
+          "deepwalk_bfloat16": results["main"]["bfloat16"]["chain_launches"]}
+    for name, _ in WALK_LAYOUTS:
+        kc["walk_" + name] = (results["layouts"][name]["launches"]
+                              ["walk_chain"])
+    for name, rec in results["opt_ins"].items():
+        if rec["launches"]["walk_chain"]:
+            kc["opt_ins_" + name] = rec["launches"]["walk_chain"]
+        if "engine" in rec:
+            kc["opt_ins_%s_engine" % name] = rec["engine"]["launches"][
+                "walk_chain"]
+    for name in ("walks_sgd", "walks_adam", "walks_w1"):
+        kc["mesh_" + name] = mesh[name]["launches"]["walk_chain"]
+    kc["multihost_c_walks_sgd"] = (multihost["c_walks_sgd"]["launches"]
+                                   ["walk_chain"])
+    for name in ("DeepWalk", "classic"):
+        kc["quality_" + name] = (results["quality"][name]["launches"]
+                                 ["walk_chain"])
+    kc["cli_quick_start"] = results["cli"]["quick_start"]["launches"][
+        "walk_chain"]
+    chain = results["walk_chain"]
     # the row-access kernels run on the bench's path only: every training
     # phase's runs hold them at 0, and the line shows the sum it read
     trained = training_launches(results)
@@ -5884,7 +6062,21 @@ def run(args):
                    [c for c in ra_cases[name] if "ms" in c],
                    ra_cases[name][0])
         for name, line in (("gather_rows", 86), ("rmw_rows", 170),
-                           ("sweep_add_sorted", 265))]}
+                           ("sweep_add_sorted", 265))] + [
+        # the deepwalk_youtube batch's 192 walks; the JAX chain is jnp
+        # that XLA fuses, so no TPU kernel is replaced
+        {"name": "walk_chain", "route": "cuda",
+         "source": "graphvite_tpu_torch/csrc/walk_chain.cu",
+         "replaces": None, "launches": sum(kc.values()),
+         "launches_by_path": kc,
+         "same_bits": all(all(c["same_bits"].values())
+                          for c in chain.values()),
+         **{k: chain["deepwalk_youtube"][k]
+            for k in ("ms", "kernel_ms", "plain_ms", "bound_ms")},
+         "cases": [{"case": name, "walks": c["walks"], "start": c["start"],
+                    "ms": c["ms"], "kernel_ms": c["kernel_ms"],
+                    "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"]}
+                   for name, c in chain.items()]}]}
     log(json.dumps({"front_end": cases["front_end"]}))
     log(card_line())
     log(json.dumps(kernels_line))

@@ -7,7 +7,9 @@ chunks (optionally sorted by head id), uniformly, or by edge weight.
 
 Walks: walks start from alias-sampled edges and step through per-vertex
 alias tables over out-edge weights; they truncate at dead ends (the
-reference's graph.cuh:376-450 semantics). node2vec's second-order walks
+reference's graph.cuh:376-450 semantics). On the card the first-order
+chain is one hand-written kernel (`walk_chain`, csrc/walk_chain.cu),
+bit-equal to its plain version from the same draws. node2vec's second-order walks
 take the same first-order step as a proposal and accept it by rejection
 (bias 1/p for a return to the previous vertex, 1 for a common neighbor,
 1/q otherwise), with a membership test on the host-built cuckoo table or
@@ -22,13 +24,16 @@ draws and get the same samples; otherwise they draw from an explicit
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import math
 import os
 
 import numpy as np
 import torch
 
+from graphvite_tpu_torch.ops import kernels
 from graphvite_tpu_torch.ops.alias import (AliasTable, PackedAliasTables,
                                            alias_draws, device_alias_arrays,
                                            device_sample)
@@ -274,6 +279,192 @@ def _alias_pick(prob, alias, u1, u2, n=None):
     return torch.where(u2 < prob[idx], idx, alias[idx].long())
 
 
+def _pick(start, deg, indices, nbr_prob, nbr_alias, u1, u2, uniform):
+    """CSR position of a first-order alias step from rows (start, deg);
+    start/deg broadcast against the draws u1/u2."""
+    safe_deg = torch.clamp(deg, min=1)
+    idx = torch.minimum((u1 * safe_deg).long(), (safe_deg - 1).long())
+    # a dead vertex's row start may be the end of `indices`: clamp the
+    # gathers (their result is discarded for dead lanes)
+    last = max(indices.shape[0] - 1, 0)
+    flat = torch.clamp(start + idx, max=last)
+    if not uniform:
+        local = torch.where(u2 < nbr_prob[flat], idx,
+                            nbr_alias[flat].long())
+        flat = torch.clamp(start + local, max=last)
+    return flat
+
+
+def _num_starts(heads, indices, start_csr):
+    """The start columns: CSR positions, or flat directed edges."""
+    return max(int(indices.shape[0] if start_csr else heads.shape[0]), 1)
+
+
+def _chain_start(edge_prob, edge_alias, heads, tails, indices, u1, u2,
+                 start_csr):
+    """(v0, v1) int64 [W]: each lane's start edge (make_walk_chain_fn)."""
+    n_start = _num_starts(heads, indices, start_csr)
+    if start_csr:
+        eid = _start_column(u1, n_start)
+        v0 = torch.searchsorted(heads, eid, right=True) - 1
+        v1 = indices[eid].long()
+    else:
+        eid = _alias_pick(edge_prob, edge_alias, u1, u2, n_start)
+        v0 = heads[eid].long()
+        v1 = tails[eid].long()
+    return v0, v1
+
+
+def walk_chain_plain(edge_prob, edge_alias, heads, tails, vdeg, indices,
+                     nbr_prob, nbr_alias, u1, u2, w1s, w2s, start_csr=False):
+    """The first-order chain in plain PyTorch on any device (the CPU's
+    path; what the kernel is held to): `walk_chain`'s arguments and
+    result, one eager step a position."""
+    uniform = nbr_prob.numel() == 0
+    v0, v1 = _chain_start(edge_prob, edge_alias, heads, tails, indices, u1,
+                          u2, start_csr)
+    steps, alives = [], []
+    v = v1
+    alive = torch.ones_like(v1, dtype=torch.bool)
+    for i in range(w1s.shape[0]):
+        row = vdeg[v]
+        start = row[..., 0].long()
+        deg = row[..., 1]
+        step_alive = deg > 0
+        nxt = indices[_pick(start, deg, indices, nbr_prob, nbr_alias,
+                            w1s[i], w2s[i], uniform)].long()
+        # alive is cumulative: a lane at a dead end stays there
+        alive = alive & step_alive
+        v = torch.where(alive, nxt, v)
+        steps.append(v)
+        alives.append(alive)
+    chain = torch.stack([v0, v1] + steps)
+    ones = torch.ones_like(alive)
+    return chain, torch.stack([ones, ones] + alives)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_library():
+    lib = kernels.library("walk_chain")
+    vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.gv_walk_chain.argtypes = ([vp, i] + [vp] * 5 + [i, i, vp, vp, i64, vp,
+                                                       vp, i64, vp, vp, i,
+                                                       i64, ctypes.c_float,
+                                                       i, i, vp, vp, vp])
+    lib.gv_walk_chain.restype = i
+    return lib
+
+
+def _check_chain(edge_prob, edge_alias, heads, tails, vdeg, indices,
+                 nbr_prob, nbr_alias, u1, u2, w1s, w2s, start_csr):
+    """Raise on inputs the chain kernel does not take."""
+    def want(name, t, dtypes, numel=None):
+        if t is None or t.dtype not in dtypes:
+            raise TypeError("walk_chain: %s must be %s, not %s"
+                            % (name, "/".join(map(str, dtypes)),
+                               None if t is None else t.dtype))
+        if t.device != u1.device:
+            raise ValueError("walk_chain: %s on %s, u1 on %s"
+                             % (name, t.device, u1.device))
+        if not t.is_contiguous():
+            raise ValueError("walk_chain needs a contiguous %s" % name)
+        if numel is not None and t.numel() != numel:
+            raise ValueError("walk_chain: %s has %d entries, not %d"
+                             % (name, t.numel(), numel))
+
+    i32, i64, f32 = (torch.int32,), (torch.int64,), (torch.float32,)
+    W = u1.shape[0]
+    want("u1", u1, (torch.float32, torch.int64), W)
+    if u1.dim() != 1 or not 0 < W < 2**31:
+        raise ValueError("walk_chain: u1 must be [W], 0 < W < 2^31; got %s"
+                         % (tuple(u1.shape),))
+    if w1s.dim() != 2 or w1s.shape[1] != W or w2s.shape != w1s.shape:
+        raise ValueError("walk_chain: w1s and w2s must be [L-1, %d]; got "
+                         "%s, %s" % (W, tuple(w1s.shape), tuple(w2s.shape)))
+    want("w1s", w1s, f32)
+    want("w2s", w2s, f32)
+    want("vdeg", vdeg, i64)
+    if vdeg.dim() != 2 or vdeg.shape[1] != 2 or vdeg.data_ptr() % 16:
+        raise ValueError("walk_chain: vdeg must be [V, 2], 16-byte aligned")
+    want("indices", indices, i32)
+    if indices.dim() != 1 or indices.numel() == 0:
+        raise ValueError("walk_chain: indices must be [Ed], Ed > 0")
+    if nbr_prob.numel():
+        want("nbr_prob", nbr_prob, f32, indices.numel())
+        want("nbr_alias", nbr_alias, i32, indices.numel())
+    if start_csr:
+        want("heads (row starts)", heads, i64)
+        if heads.dim() != 1 or heads.numel() == 0:
+            raise ValueError("walk_chain: row starts must be [V], V > 0")
+        return
+    want("heads", heads, i32)
+    if heads.dim() != 1 or heads.numel() == 0:
+        raise ValueError("walk_chain: heads must be [E], E > 0")
+    want("tails", tails, i32, heads.numel())
+    if edge_prob.numel():
+        want("edge_prob", edge_prob, f32, heads.numel())
+        want("edge_alias", edge_alias, (torch.int32, torch.int64),
+             heads.numel())
+        want("u2", u2, f32, W)
+
+
+def walk_chain(edge_prob, edge_alias, heads, tails, vdeg, indices, nbr_prob,
+               nbr_alias, u1, u2, w1s, w2s, start_csr=False):
+    """The first-order walk chain from its draws: (chain [L+1, W] int64,
+    valid [L+1, W] bool), L - 1 = w1s.shape[0] steps; the arrays and draws
+    as make_walk_chain_fn takes them (an empty nbr_prob: equal weights).
+
+    On a CUDA tensor it launches the hand-written kernel of
+    graphvite_tpu_torch/csrc/walk_chain.cu (built with nvcc for sm_90a at
+    first use, bound with ctypes): one thread a lane, every step in one
+    launch, bit-equal to `walk_chain_plain` from the same draws, or raises
+    on inputs it does not take (`walk_chain.launches` and the
+    `graphvite::walk_chain_kernel` counter count its launches); on a CPU
+    tensor it runs `walk_chain_plain`."""
+    if u1.device.type == "cpu":
+        return walk_chain_plain(edge_prob, edge_alias, heads, tails, vdeg,
+                                indices, nbr_prob, nbr_alias, u1, u2, w1s,
+                                w2s, start_csr)
+    if u1.device.type != "cuda":
+        raise ValueError("walk_chain runs on CUDA or CPU tensors, not %s"
+                         % u1.device)
+    w1s, w2s = w1s.contiguous(), w2s.contiguous()
+    _check_chain(edge_prob, edge_alias, heads, tails, vdeg, indices,
+                 nbr_prob, nbr_alias, u1, u2, w1s, w2s, start_csr)
+    W, L = u1.shape[0], w1s.shape[0] + 1
+    chain = torch.empty((L + 1, W), dtype=torch.int64, device=u1.device)
+    valid = torch.empty((L + 1, W), dtype=torch.bool, device=u1.device)
+    _launch_chain(chain, valid, edge_prob, edge_alias, heads, tails, vdeg,
+                  indices, nbr_prob, nbr_alias, u1, u2, w1s, w2s, start_csr)
+    walk_chain.launches += 1
+    tracing.count(tracing.WALK_CHAIN_KERNEL, 1)
+    return chain, valid
+
+
+walk_chain.launches = 0
+
+
+def _launch_chain(chain, valid, edge_prob, edge_alias, heads, tails, vdeg,
+                  indices, nbr_prob, nbr_alias, u1, u2, w1s, w2s, start_csr):
+    """The kernel into chain and valid, on checked inputs (`walk_chain`;
+    chip_smoke.py times it alone)."""
+    lib = _chain_library()
+    n_start = _num_starts(heads, indices, start_csr)
+    with torch.cuda.device(u1.device):
+        kernels.check_launch(lib, lib.gv_walk_chain(
+            u1.data_ptr(), int(u1.is_floating_point()),
+            None if u2 is None else u2.data_ptr(), w1s.data_ptr(),
+            w2s.data_ptr(), edge_prob.data_ptr(), edge_alias.data_ptr(),
+            2 if start_csr else int(edge_prob.numel() > 0),
+            int(edge_alias.dtype == torch.int64), heads.data_ptr(),
+            tails.data_ptr(), heads.shape[0], vdeg.data_ptr(),
+            indices.data_ptr(), indices.shape[0], nbr_prob.data_ptr(),
+            nbr_alias.data_ptr(), int(nbr_prob.numel() == 0), n_start,
+            float(np.float32(n_start)), u1.shape[0], w1s.shape[0] + 1,
+            chain.data_ptr(), valid.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "walk_chain")
+
+
 def make_walk_chain_fn(uniform, walk_length, num_walk, biased=False, p=1.0,
                        q=1.0, bs_iters=32, membership="search",
                        start_csr=False):
@@ -305,7 +496,9 @@ def make_walk_chain_fn(uniform, walk_length, num_walk, biased=False, p=1.0,
     (`_start_column`); drawing for itself, the chain takes an integer
     column (u1 int64 [W]) and, on equal weights, no u2.
 
-    The biased step is the reference's rejection sampler (an exact
+    First-order walks run through `walk_chain` (one kernel launch on the
+    card; its neighbour picks alias where nbr_prob is not empty). The
+    biased step is the reference's rejection sampler (an exact
     alternative to per-edge second-order alias tables): R first-order
     proposals per round, accepted with probability bias / max_bias, a lane
     taking its first accepted proposal in (round, proposal) order; a lane
@@ -313,37 +506,14 @@ def make_walk_chain_fn(uniform, walk_length, num_walk, biased=False, p=1.0,
     reference runs the rounds as a lockstep loop that stops once every
     lane has accepted; since a lane's draws do not depend on the loop, all
     C rounds are evaluated here in one pass, with no host sync, and give
-    the same chain. `with_rounds` also returns the rounds each lane used per step, [L-1, W] int64 (0 for
-    lanes at a dead end, C for lanes that never accepted)."""
+    the same chain. `with_rounds` also returns the rounds each lane used
+    per step, [L-1, W] int64 (0 for lanes at a dead end, C for lanes that
+    never accepted; None for first-order walks)."""
     L, W = int(walk_length), int(num_walk)
     if biased:
         R = n2v_proposals(p, q, membership)
         C = 64 // R
         t_ret, t_com, t_other = _accept_thresholds(p, q)
-
-    def pick(start, deg, indices, nbr_prob, nbr_alias, u1, u2):
-        """CSR position of a first-order alias step from rows (start, deg);
-        start/deg broadcast against the draws u1/u2."""
-        safe_deg = torch.clamp(deg, min=1)
-        idx = torch.minimum((u1 * safe_deg).long(), (safe_deg - 1).long())
-        # a dead vertex's row start may be the end of `indices`: clamp the
-        # gathers (their result is discarded for dead lanes)
-        last = max(indices.shape[0] - 1, 0)
-        flat = torch.clamp(start + idx, max=last)
-        if not uniform:
-            local = torch.where(u2 < nbr_prob[flat], idx,
-                                nbr_alias[flat].long())
-            flat = torch.clamp(start + local, max=last)
-        return flat
-
-    def step_neighbor(vdeg, indices, nbr_prob, nbr_alias, v, u1, u2):
-        row = vdeg[v]
-        start = row[..., 0].long()
-        deg = row[..., 1]
-        alive = deg > 0
-        nxt = indices[pick(start, deg, indices, nbr_prob, nbr_alias, u1,
-                           u2)].long()
-        return torch.where(alive, nxt, v), alive
 
     def cuckoo_member(ctable, x, u):
         """Edge x -> u in the bucketized cuckoo table: two [4]-row gathers
@@ -385,7 +555,8 @@ def make_walk_chain_fn(uniform, walk_length, num_walk, biased=False, p=1.0,
         deg = row[:, 1]
         step_alive = deg > 0
         w1, w2, racc = props.unbind(1)                       # [C, R, W]
-        flat = pick(start, deg, indices, nbr_prob, nbr_alias, w1, w2)
+        flat = _pick(start, deg, indices, nbr_prob, nbr_alias, w1, w2,
+                     uniform)
         cand = torch.where(step_alive, indices[flat].long(), v)
         # the reference tests edge cand -> prev (graph.cuh:668)
         if membership == "cuckoo":
@@ -409,43 +580,37 @@ def make_walk_chain_fn(uniform, walk_length, num_walk, biased=False, p=1.0,
     def chain_fn(edge_prob, edge_alias, heads, tails, vdeg, indices,
                  nbr_prob, nbr_alias, *rest, generator=None, draws=None,
                  with_rounds=False):
-        n_start = max(int(indices.shape[0] if start_csr
-                          else heads.shape[0]), 1)
         if draws is None:
             dev = heads.device
 
             def rand(*shape):
                 return torch.rand(shape, generator=generator, device=dev)
 
-            first = torch.randint(0, n_start, (W,), generator=generator,
-                                  device=dev)
+            first = torch.randint(0, _num_starts(heads, indices, start_csr),
+                                  (W,), generator=generator, device=dev)
             u2 = rand(W) if edge_prob.numel() else None
             if biased:
                 draws = (first, u2, rand(L - 1, C, 3, R, W))
             else:
                 draws = (first, u2, rand(L - 1, W), rand(L - 1, W))
         u1, u2 = draws[:2]
-        if start_csr:
-            eid = _start_column(u1, n_start)
-            v0 = torch.searchsorted(heads, eid, right=True) - 1
-            v1 = indices[eid].long()
-        else:
-            eid = _alias_pick(edge_prob, edge_alias, u1, u2, n_start)
-            v0 = heads[eid].long()
-            v1 = tails[eid].long()
+        if not biased:
+            # looked up at each call, so a test can swap in the plain body
+            chain, valid = walk_chain(edge_prob, edge_alias, heads, tails,
+                                      vdeg, indices, nbr_prob, nbr_alias,
+                                      u1, u2, draws[2][:L - 1],
+                                      draws[3][:L - 1], start_csr)
+            return (chain, valid, None) if with_rounds else (chain, valid)
+        v0, v1 = _chain_start(edge_prob, edge_alias, heads, tails, indices,
+                              u1, u2, start_csr)
         steps, alives, used = [], [], []
         v, prev = v1, v0
         alive = torch.ones_like(v1, dtype=torch.bool)
         for i in range(L - 1):
-            if biased:
-                nxt, step_alive, rounds = biased_step(
-                    vdeg, indices, nbr_prob, nbr_alias, rest[0], v, prev,
-                    draws[2][i])
-                used.append(rounds)
-            else:
-                nxt, step_alive = step_neighbor(
-                    vdeg, indices, nbr_prob, nbr_alias, v, draws[2][i],
-                    draws[3][i])
+            nxt, step_alive, rounds = biased_step(
+                vdeg, indices, nbr_prob, nbr_alias, rest[0], v, prev,
+                draws[2][i])
+            used.append(rounds)
             alive = alive & step_alive
             prev = torch.where(alive, v, prev)
             v = torch.where(alive, nxt, v)

@@ -66,6 +66,9 @@ NATIVE_BUILD = PREFIX + "native.build"
 # counters
 PAIR_SLOTS = PREFIX + "pair_slots"
 VALID_PAIRS = PREFIX + "valid_pairs"
+# launches of the first-order walk chain's kernel (ops/device_sampler.py:
+# walk_chain), one a `sample` on the card's walk routes
+WALK_CHAIN_KERNEL = PREFIX + "walk_chain_kernel"
 # the walks engine's row requests to their owners, and those dropped past
 # an owner's capacity
 ROW_REQUESTS = PREFIX + "row_requests"

@@ -24,7 +24,11 @@ pooled RotatE kernels (ops/rotate_pool.py) against their plain version:
 float32 sums in another order, so logits within 2e-5 of the sum of the
 moduli, E and B sums within 1e-5 of the sum of their terms' bound (|z| <=
 gn, |z|^2 <= gn^2), and two calls the same bits; the whole step through
-them within the CPU tests' tolerances."""
+them within the CPU tests' tolerances. The first-order walk chain's
+kernel (ops/device_sampler.py:walk_chain) against its plain version: the
+same bits, and a DeepWalk run through it the same tables and losses."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1921,3 +1925,195 @@ def test_sweep_banded_step_on_card_matches_cpu(dtype, monkeypatch):
                                        atol=3e-6)
         else:
             assert bool(((a - b).abs() <= _bf16_ulp(b)).all())
+
+
+def _sink_edges(n=400, e=4000, weighted=False, seed=3):
+    """A directed power-law graph where every 7th vertex has no out-edge,
+    so walks reach dead ends (truncation and `valid`)."""
+    rng = np.random.default_rng(seed)
+    u = (rng.random(e) ** 2 * n).astype(np.int64)
+    v = rng.integers(0, n, e)
+    keep = (u != v) & (u % 7 != 0)
+    w = rng.random(e) + 0.1
+    return [(str(a), str(b)) + ((float(x),) if weighted else ())
+            for a, b, x in zip(u[keep], v[keep], w[keep])]
+
+
+def _chain_sampler(dev, start, weights):
+    """A banded walk sampler on the card over a graph with dead ends: a
+    flat or CSR start, equal or alias-weighted picks (a CSR start over a
+    weighted graph made from its flat sampler's CSR: the kernel and the
+    plain chain take it, though `build` gives it only equal weights)."""
+    from graphvite_tpu_torch.graph import Graph
+    from graphvite_tpu_torch.ops import device_sampler as ds
+
+    weighted = weights == "alias"
+    g = Graph().load_edge_list(_sink_edges(weighted=weighted),
+                               as_undirected=False)
+    csr = start == "csr"
+    s = ds.DeviceWalkSampler.build(g, 2, 20, 96 * 2 * 21, banded=True,
+                                   start_csr=csr and not weighted,
+                                   device=dev)
+    if csr and weighted:
+        empty_i = torch.zeros(0, dtype=torch.int32, device=dev)
+        s = dataclasses.replace(
+            s, edge_prob=torch.zeros(0, device=dev), edge_alias=empty_i,
+            heads=s.vdeg[:, 0].contiguous(), tails=empty_i, start_csr=True)
+    assert s.uniform == (not weighted)
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("draws", ["float_u1", "own"])
+@pytest.mark.parametrize("weights", ["equal", "alias"])
+@pytest.mark.parametrize("start", ["flat", "csr"])
+def test_walk_chain_kernel_matches_plain_chain(start, weights, draws,
+                                               monkeypatch):
+    """The first-order chain's kernel against the plain chain on the card:
+    the same bits in chain and valid, from the reference-style draws (a
+    float u1) or from the chain's own draws, which leave the generator
+    where the plain chain leaves it. Flat starts also take an int64 start
+    alias table. Some walks die; one launch a call."""
+    from graphvite_tpu_torch.ops import device_sampler as ds
+
+    dev = _cuda()
+    s = _chain_sampler(dev, start, weights)
+    fn = s.make_chain_fn()
+    W, L = s.num_walk, s.walk_length
+    variants = [s.arrays()]
+    if start == "flat" and weights == "alias":
+        a = list(s.arrays())
+        a[1] = a[1].long()
+        variants.append(tuple(a))
+    kernel = ds.walk_chain
+    for arrays in variants:
+        for seed in range(3):
+            gen = torch.Generator(device=dev)
+            if draws == "float_u1":
+                gen.manual_seed(seed)
+                d = tuple(torch.rand(shape, generator=gen, device=dev)
+                          for shape in ((W,), (W,), (L - 1, W), (L - 1, W)))
+                # draws at the top of [0, 1): the picks' clamps
+                d[2][0, :8] = 1 - 2 ** -24
+                d[0][:4] = 1 - 2 ** -24
+                kw = {"draws": d}
+            out, states = [], []
+            for body in (kernel, ds.walk_chain_plain):
+                monkeypatch.setattr(ds, "walk_chain", body)
+                if draws == "own":
+                    gen.manual_seed(seed)
+                    kw = {"generator": gen}
+                before = kernel.launches
+                out.append(fn(*arrays, **kw))
+                states.append(gen.get_state())
+                torch.cuda.synchronize()
+                assert kernel.launches == before + (body is kernel)
+            monkeypatch.undo()
+            (chain, valid), (chain_p, valid_p) = out
+            assert chain.shape == chain_p.shape == (L + 1, W)
+            assert chain.dtype == torch.int64 and valid.dtype == torch.bool
+            assert torch.equal(chain, chain_p)
+            assert torch.equal(valid, valid_p)
+            assert torch.equal(states[0], states[1])
+            assert not bool(valid[-1].all()) and bool(valid[:2].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["equal", "alias"])
+def test_walk_chain_kernel_past_2_31_csr_positions(weights):
+    """CSR positions past 2^31: indices of 2^31 + 960 int32 entries
+    (~8.6 GB; with the per-position alias tables ~26 GB) on the card. Row
+    0 ends 100 entries before 2^31, rows 1-5 end past it, row 4 is a dead
+    end. The kernel is bit-equal to the plain chain on the card with a
+    CSR start from integer and float draws, a quarter of them at columns
+    past 2^31; walks start and step there."""
+    from graphvite_tpu_torch.ops import device_sampler as ds
+
+    dev = _cuda()
+    deg = torch.tensor([2**31 - 100, 1000, 50, 3, 0, 7], dtype=torch.int64)
+    starts = torch.cumsum(deg, 0) - deg
+    n = int(deg.sum())
+    gen = torch.Generator(device=dev).manual_seed(9)
+    indices = torch.randint(0, deg.numel(), (n,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    vdeg = torch.stack([starts, deg], dim=1).to(dev)
+    empty_f = torch.zeros(0, device=dev)
+    empty_i = torch.zeros(0, dtype=torch.int32, device=dev)
+    nbr = (empty_f, empty_i)
+    if weights == "alias":
+        # an alias entry is a column of its row: below the row's degree
+        alias = torch.cat([torch.randint(0, max(int(d), 1), (int(d),),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32) for d in deg])
+        nbr = (torch.rand(n, generator=gen, device=dev), alias)
+    W, L, tail = 4096, 12, 1024
+    u1_int = torch.randint(0, n, (W,), generator=gen, device=dev)
+    u1_int[:tail] = torch.randint(2**31 - 100, n, (tail,), generator=gen,
+                                  device=dev)
+    # float draws near 1: columns within ~1024 of n, past 2^31
+    u1_float = torch.rand(W, generator=gen, device=dev)
+    u1_float[:tail] = 1 - torch.randint(
+        1, 9, (tail,), generator=gen, device=dev).float() * 2.0 ** -24
+    for u1 in (u1_int, u1_float):
+        w1s = torch.rand(L - 1, W, generator=gen, device=dev)
+        w2s = torch.rand(L - 1, W, generator=gen, device=dev)
+        args = (empty_f, empty_i, vdeg[:, 0].contiguous(), empty_i, vdeg,
+                indices) + nbr + (u1, None, w1s, w2s, True)
+        chain, valid = ds.walk_chain(*args)
+        chain_p, valid_p = ds.walk_chain_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(chain, chain_p) and torch.equal(valid, valid_p)
+        # start columns in rows 1-5, some past 2^31 (the float rule's:
+        # multiples of 256 there, all in row 1); integer ones also in
+        # rows 2, 3 and 5, never in row 4 (degree 0)
+        cols = ds._start_column(u1, n)[:tail]
+        assert bool((cols >= 2**31 - 100).all())
+        assert bool((cols > 2**31).any())
+        if not u1.is_floating_point():
+            assert bool((chain[0, :tail] >= 2).any())
+        assert not bool((chain[0] == 4).any())
+        # live lanes at vertices 1-5 read their next step past 2^31
+        past = (chain[1:-1] >= 1) & (chain[1:-1] != 4) & valid[2:]
+        assert bool(past.any()) and not bool(valid[-1].all())
+    del indices, nbr
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_deepwalk_episode_with_chain_kernel_is_bit_identical(monkeypatch):
+    """A DeepWalk run on the card with the chain's kernel and with the
+    plain chain forced in its place: the same tables and losses, bit for
+    bit. The kernel launches once a `sample` span, and the
+    graphvite::walk_chain_kernel counter reads the same."""
+    from graphvite_tpu_torch.graph import Graph
+    from graphvite_tpu_torch.ops import device_sampler as ds
+    from graphvite_tpu_torch.solver import GraphSolver
+    from graphvite_tpu_torch.utils import tracing
+
+    _cuda()
+    g = Graph().load_edge_list(_two_block_edges())
+    kernel = ds.walk_chain
+    out = []
+    for body in (kernel, ds.walk_chain_plain):
+        monkeypatch.setattr(ds, "walk_chain", body)
+        s = GraphSolver(dim=32, seed=0)
+        s.build(g, optimizer={"type": "SGD", "lr": 0.025,
+                              "weight_decay": 5e-3},
+                num_negative=1, batch_size=2048, episode_size=8)
+        before = kernel.launches
+        with tracing.recording() as rec:
+            s.train(model="DeepWalk", num_epoch=300, augmentation_step=2,
+                    random_walk_length=8, negative_weight=1.0,
+                    log_frequency=10**9)
+        summary = rec.summary()
+        samples = summary["spans"][tracing.SAMPLE]["count"]
+        assert samples == s.batch_id > 8
+        counted = summary["counters"].get(tracing.WALK_CHAIN_KERNEL, 0)
+        launched = kernel.launches - before
+        assert counted == launched == (samples if body is kernel else 0)
+        out.append(([t.cpu() for t in s.state["tables"]],
+                    s.batch_losses.cpu()))
+        monkeypatch.undo()
+    (tables, losses), (tables_p, losses_p) = out
+    assert all(torch.equal(a, b) for a, b in zip(tables, tables_p))
+    assert torch.equal(losses, losses_p)

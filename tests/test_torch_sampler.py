@@ -104,6 +104,60 @@ def test_chain_matches_reference_from_its_draws(weighted, undirected):
         assert not valid_p.all()   # some walks reached the sink
 
 
+@pytest.mark.parametrize("own_draws", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("start_csr", [False, True])
+def test_chain_dispatch_keeps_plain_body_on_cpu(start_csr, weighted,
+                                                own_draws):
+    """On CPU tensors the first-order chain runs the plain body: the
+    chain function's (chain [L+1, W] int64, valid [L+1, W] bool) equal
+    walk_chain_plain's from the same draws, no kernel launch is counted,
+    and drawing for itself it takes randint(W), rand(W) where a start
+    alias table exists, and rand(L-1, W) twice from its generator."""
+    g = Graph().load_edge_list(_edges(weighted), as_undirected=False)
+    L, aug = 8, 2
+    if start_csr and weighted:
+        with pytest.raises(ValueError, match="equal edge weights"):
+            port.DeviceWalkSampler.build(g, aug, L, 6 * aug * (L + 1),
+                                         banded=True, start_csr=True)
+        return
+    s = port.DeviceWalkSampler.build(g, aug, L, 6 * aug * (L + 1),
+                                     banded=True, start_csr=start_csr)
+    W = s.num_walk
+    fn = s.make_chain_fn()
+    gen = torch.Generator().manual_seed(4)
+    n_start = s.indices.numel() if start_csr else s.heads.numel()
+    draws = (torch.randint(0, n_start, (W,), generator=gen),
+             torch.rand(W, generator=gen) if weighted else None,
+             torch.rand(L - 1, W, generator=gen),
+             torch.rand(L - 1, W, generator=gen))
+    after = gen.get_state()
+    launches = port.walk_chain.launches
+    if own_draws:
+        gen.manual_seed(4)
+        chain, valid = fn(*s.arrays(), generator=gen)
+        assert torch.equal(gen.get_state(), after)
+    else:
+        chain, valid = fn(*s.arrays(), draws=draws)
+    want = port.walk_chain_plain(*s.arrays(), *draws, start_csr=start_csr)
+    assert port.walk_chain.launches == launches
+    assert chain.shape == valid.shape == (L + 1, W)
+    assert chain.dtype == torch.int64 and valid.dtype == torch.bool
+    assert torch.equal(chain, want[0]) and torch.equal(valid, want[1])
+    assert bool(valid[:2].all()) and not bool(valid[-1].all())
+
+
+def test_chain_kernel_refuses_other_devices():
+    """The chain runs on CUDA tensors (the kernel) or CPU tensors (the
+    plain body); any other device raises, with no fallback."""
+    e = torch.zeros(0, device="meta")
+    u1 = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        port.walk_chain(e, e, e, e, e, e, e, e, u1, None,
+                        torch.zeros(3, 4, device="meta"),
+                        torch.zeros(3, 4, device="meta"))
+
+
 def _collect(sampler, rounds, seed=0):
     """(heads, tails) of every valid banded pair over `rounds` batches."""
     fn = sampler.make_sample_fn(sampler.batch_size)
