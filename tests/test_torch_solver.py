@@ -342,3 +342,131 @@ def test_micro_steps_train_through_the_solver(monkeypatch):
             random_walk_length=6, log_frequency=10**9)
     assert np.isfinite(s.vertex_embeddings).all()
     assert s.batch_losses.shape[0] >= s.num_batch
+
+
+class _Planned(Exception):
+    """Raised by a recording engine: the loop has planned its run."""
+
+
+def _mesh_plan(route, V, E, dim, K, batch, W, num_epoch, monkeypatch):
+    """What the mesh loop of `route` plans for a graph of V vertices and E
+    edges on W workers: (batch per worker, batches, episode batches); for
+    "kg" `_mesh_kg_plan`'s (negative pool, batch, batches, episode
+    batches). The engines are replaced by recorders that stop the loop
+    once they are built, so no edge is sampled."""
+    import types
+
+    import graphvite_tpu_torch.solver as port_solver
+    from graphvite_tpu_torch.solver import (KnowledgeGraphSolver,
+                                            VisualizationSolver)
+
+    seen = {}
+
+    def recorder(group, *args, **kwargs):
+        seen.update(kwargs)
+        if args and "batch_size" not in kwargs:    # the replicated engine
+            seen["batch_size"], seen["ep_batches"] = args[2], args[3]
+        raise _Planned()
+
+    graph = types.SimpleNamespace(
+        num_vertex=V, num_edge=E, as_undirected=True,
+        degrees=np.arange(V, dtype=np.int64) % 50 + 1,
+        vertex_weights=np.arange(V, dtype=np.float64) % 50 + 1)
+    if route == "kg":
+        s = KnowledgeGraphSolver(dim=dim, num_worker=W, device="cpu")
+        s.graph, s.batch_size, s.num_negative = graph, batch, K
+        return s._mesh_kg_plan(num_epoch)
+    if route == "vis":
+        monkeypatch.setattr(port_solver, "ReplicatedEdgeTrainer", recorder)
+        s = VisualizationSolver(dim=dim, num_worker=W, device="cpu")
+        s.build(graph, num_negative=K, batch_size=batch)
+        train = dict(num_epoch=num_epoch, positive_reuse=5)
+    else:
+        monkeypatch.setattr(port_solver, "ShardedGraphTrainer", recorder)
+        s = GraphSolver(dim=dim, num_worker=W, device="cpu")
+        s.build(graph, num_negative=K, batch_size=batch)
+        walks = route == "walks"
+        train = dict(model="DeepWalk" if walks else "LINE",
+                     num_epoch=num_epoch,
+                     augmentation_step=5 if walks else 1,
+                     random_walk_length=40)
+    with pytest.raises(_Planned):
+        s.train(log_frequency=10**9, **train)
+    assert s.effective_batch == seen["batch_size"]
+    return seen["batch_size"], s.num_batch, seen["ep_batches"]
+
+
+_EDGES = ("edges", 20000, 600000, 32, 1, 100000, 4, 4000)
+_WALKS = ("walks", 20000, 600000, 32, 1, 100000, 4, 200)
+_KG_POOLED = ("kg", 20000, 500000, 512, 64, 100000, 2, 2000)
+_KG_GLOBAL = ("kg", 20000, 500000, 32, 4, 100000, 2, 2000)
+_VIS = ("vis", 70000, 14_000_000, 2, 5, 100000, 2, 1)
+
+
+@pytest.mark.parametrize("shape,env,plan", [
+    (_EDGES, {}, (99840, 24038, 35)),
+    (_EDGES, {"GRAPHVITE_STEP_BYTES": "2e7"}, (9728, 246710, 35)),
+    (_EDGES, {"GRAPHVITE_MAX_TOUCH": "4"}, (6656, 360576, 35)),
+    (_EDGES, {"GRAPHVITE_MIN_SWEEPS": "64"}, (99840, 24038, 23)),
+    (_EDGES, {"GRAPHVITE_NEG_SHARING": "0",
+              "GRAPHVITE_STEP_BYTES": "1e8"}, (32512, 73818, 35)),
+    (_WALKS, {}, (78720, 1524, 35)),
+    (_WALKS, {"GRAPHVITE_STEP_BYTES": "5e7"}, (13120, 9146, 35)),
+    (_WALKS, {"GRAPHVITE_MAX_TOUCH": "2"}, (3280, 36585, 35)),
+    (_WALKS, {"GRAPHVITE_MIN_SWEEPS": "64"}, (78720, 1524, 35)),
+    (_WALKS, {"GRAPHVITE_WALK_BIDIR": "0"}, (91840, 1306, 35)),
+    (_KG_POOLED, {}, ("pooled", 9472, 105574, 35)),
+    (_KG_POOLED, {"GRAPHVITE_STEP_BYTES": "2e8"},
+     ("pooled", 5888, 169836, 35)),
+    (_KG_POOLED, {"GRAPHVITE_MIN_SWEEPS": "1000"},
+     ("pooled", 9472, 105574, 17)),
+    (_KG_GLOBAL, {}, ("global", 99840, 10016, 35)),
+    (_KG_GLOBAL, {"GRAPHVITE_MAX_TOUCH": "4"},
+     ("global", 6656, 150240, 35)),
+    (_KG_GLOBAL, {"GRAPHVITE_MIN_SWEEPS": "64"},
+     ("global", 99840, 10016, 26)),
+    (_VIS, {}, (99840, 140, 4)),
+    (_VIS, {"GRAPHVITE_STEP_BYTES": "1e6"}, (7680, 1822, 4)),
+    (_VIS, {"GRAPHVITE_MAX_TOUCH": "0.1"}, (76800, 182, 4)),
+    (_VIS, {"GRAPHVITE_VIS_MESH_EP": "64"}, (99840, 140, 64)),
+])
+def test_mesh_plans_are_pinned(shape, env, plan, monkeypatch):
+    """The mesh loops' plans, which no reference test holds: the graph
+    engine's for edges and for walks, `_mesh_kg_plan` for pooled and for
+    global negatives, and the replicated LargeVis engine's, each with a
+    binding GRAPHVITE_STEP_BYTES, GRAPHVITE_MAX_TOUCH and
+    GRAPHVITE_MIN_SWEEPS among its cases. The values are the plans the
+    solver made before its loops shared one batch plan."""
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert _mesh_plan(*shape, monkeypatch=monkeypatch) == plan
+
+
+def test_solver_reads_knobs_and_loops_once():
+    """solver.py reads the environment only in its knob reader
+    (`Knobs.read`, once a train call) and writes the episode loop once
+    (`SolverBase._run_episodes`), whatever the route."""
+    import ast
+    import inspect
+
+    import graphvite_tpu_torch.solver as port_solver
+
+    tree = ast.parse(inspect.getsource(port_solver))
+
+    def environment_reads(node, scope):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            scope = scope + (node.name,)
+        if (isinstance(node, ast.Attribute)
+                and node.attr in ("environ", "getenv")
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "os"):
+            yield ".".join(scope)
+        for child in ast.iter_child_nodes(node):
+            yield from environment_reads(child, scope)
+
+    assert set(environment_reads(tree, ())) == {"Knobs.read"}
+    assert not [n for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) and n.module == "os"]
+    loops = [ast.unparse(n.test) for n in ast.walk(tree)
+             if isinstance(n, ast.While)]
+    assert loops.count("self.batch_id < self.num_batch") == 1

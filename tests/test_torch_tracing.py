@@ -46,10 +46,7 @@ def _power_law(num_vertex, num_edge, seed):
     return u[keep], v[keep]
 
 
-def _walk_solver(seed=5):
-    """DeepWalk on the banded walk route, the benchmark cell's layout
-    (augmentation 5, walks of 41, both directions: 380 of each walk's
-    410 pair slots are pairs): 8 walks a batch, 2 batches an episode."""
+def _walk_graph():
     u, v = _power_law(400, 2400, 11)
     g = Graph()
     g.num_vertex, g.num_edge = 400, int(u.size)
@@ -59,8 +56,23 @@ def _walk_solver(seed=5):
     g.edge_tails = np.concatenate([v, u])
     g.edge_weights = np.ones(g.edge_heads.size, dtype=np.float32)
     g._finalize(normalization=False)
+    return g
+
+
+def _walk_solver(seed=5):
+    """DeepWalk on the banded walk route, the benchmark cell's layout
+    (augmentation 5, walks of 41, both directions: 380 of each walk's
+    410 pair slots are pairs): 8 walks a batch, 2 batches an episode."""
     s = GraphSolver(dim=8, device="cpu", seed=seed)
-    s.build(g, num_negative=1, batch_size=4000, episode_size=2)
+    s.build(_walk_graph(), num_negative=1, batch_size=4000, episode_size=2)
+    return s
+
+
+def _mesh_solver(seed=5):
+    """The same DeepWalk on the walks engine of two CPU workers (the mesh
+    cell's engine): one episode of 2 batches a worker."""
+    s = GraphSolver(dim=8, device="cpu", seed=seed, num_worker=2)
+    s.build(_walk_graph(), num_negative=1, batch_size=4000, episode_size=2)
     return s
 
 
@@ -86,7 +98,8 @@ def _fused_solver(seed=5):
     return s
 
 
-SOLVERS = {"walk": _walk_solver, "fused": _fused_solver, "kg": _kg_solver}
+SOLVERS = {"walk": _walk_solver, "fused": _fused_solver, "kg": _kg_solver,
+           "mesh": _mesh_solver}
 
 
 def _train(solver, batches=4, resume=False):
@@ -150,9 +163,8 @@ def test_recording_holds_every_span_with_its_parent(route):
     solver, s = _session_of(route)
     by_id = {sp.id: sp for sp in s["raw"]}
     parents = dict(PARENTS)
-    if route != "kg":
-        # the per-call negative alias table, built inside `prepare`
-        parents[T.ALIAS_BUILD] = T.PREPARE
+    # the negative alias table was built by the call before the session
+    # (test_negative_table_is_built_once)
     assert {sp.name for sp in s["raw"]} == set(parents)
     for sp in s["raw"]:
         parent = by_id.get(sp.parent)
@@ -183,6 +195,38 @@ def test_recording_holds_every_span_with_its_parent(route):
         assert st["self_s"] == pytest.approx(own * 1e-9, abs=1e-12)
         assert st["device_s"] == pytest.approx(st["host_s"])
     assert s["dropped"] == 0
+
+
+@pytest.mark.parametrize("route", ["walk", "mesh"])
+def test_prepare_ends_before_the_first_episode(route):
+    """The shared episode loop's stages: `prepare` ends before the first
+    episode span starts, `finish` starts after the last one ends, on a
+    device route and on a mesh route."""
+    _, s = _session_of(route)
+    (prepare,) = [sp for sp in s["raw"] if sp.name == T.PREPARE]
+    (finish,) = [sp for sp in s["raw"] if sp.name == T.FINISH]
+    episodes = [sp for sp in s["raw"] if sp.name == T.EPISODE]
+    assert episodes
+    assert prepare.end_ns <= min(sp.start_ns for sp in episodes)
+    assert finish.start_ns >= max(sp.end_ns for sp in episodes)
+    train = [sp for sp in s["raw"] if sp.name == T.TRAIN][0]
+    assert prepare.parent == finish.parent == train.id
+
+
+def test_negative_table_is_built_once():
+    """The degree-power negative table: built inside the first call's
+    `prepare`, then kept for later calls on the graph and exponent."""
+    solver = _walk_solver()
+    with tracing.recording():
+        _train(solver)                   # two calls, from a new solver
+    raw = tracing.last_session()["raw"]
+    by_id = {sp.id: sp for sp in raw}
+    assert [by_id[sp.parent].name for sp in raw
+            if sp.name == T.ALIAS_BUILD
+            and by_id[sp.parent].name == T.PREPARE] == [T.PREPARE]
+    with tracing.recording():
+        _train(solver)
+    assert T.ALIAS_BUILD not in tracing.last_session()["spans"]
 
 
 def test_raw_spans_are_capped(monkeypatch):
