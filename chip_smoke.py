@@ -4,20 +4,22 @@
                           [--node2vec-batches N] [--layout-batches N]
                           [--edge-batches N] [--kg-batches N]
                           [--kg-big-batches N]
-                          [--only multihost|opt_ins|rotate_pool|walk_chain]
+                          [--only multihost|opt_ins|rotate_pool|walk_chain|
+                                  walk_band]
 
 (--only multihost runs the device and build phases, builds the three
 graphs that phase reads, runs it, and prints no result line; --only
 opt_ins the same for phases row_access and opt_ins; --only rotate_pool
 the same for phase rotate_pool, which needs no graph; --only walk_chain
-for phase walk_chain on the Youtube clone.)
+for phase walk_chain on the Youtube clone; --only walk_band the same for
+phase walk_band.)
 
 Phases, in order (any failure exits non-zero and prints no result line):
 
 1. device   require CUDA; print the card's name and power limit; TF32 off.
 2. build    compile the hand-written CUDA kernels (csrc/*.cu: scatter_add,
             gather_sorted, scatter_update, row_access, rotate_pool,
-            walk_chain) with
+            walk_chain, walk_band) with
             nvcc, one
             process each, all started together, from the checkout's
             sources.
@@ -47,7 +49,8 @@ Phases, in order (any failure exits non-zero and prints no result line):
             kernels' launch counts are set to 0 just before
             and read just after), a torch.profiler trace of 10 more
             batches, a shorter bfloat16 run, and one batch at batch 250000.
-            Checks the fused arena path, one scatter-add launch per batch,
+            Checks the fused arena path, one scatter-add, one walk chain
+            and one band kernel launch per batch,
             finite and falling losses, finite tables; prints pair-slot and
             valid-pair rates. From each run one batch is captured (the
             solver's own walk sampler, pool shape and negative sampler) and
@@ -61,6 +64,17 @@ Phases, in order (any failure exits non-zero and prints no result line):
             the chain function, the wrapper, the kernel alone and the
             plain chain beside its latency bound (one lane's chain on the
             same tables) and its bytes bound.
+            Then phase walk_band: the banded step's positive band kernel
+            (csrc/walk_band.cu) at deepwalk_youtube's batch (192 x 41 x
+            128, 10 offsets) and a line_friendster.mesh4 worker-batch's
+            (576 x 41 x 96, 4): against its plain version (relative gaps
+            of dv, dc and the loss at most 1e-6, the counts the same
+            bits), the ms of the wrapper, the kernel alone, the plain
+            version and the SGD core with either, and one walk's time,
+            beside its bound (the larger of its bytes at the HBM peak and
+            the latency floor of a launch of its grid: a load, a warp sum,
+            a barrier and a store a block); and one launch a step in 20
+            DeepWalk batches on this graph (graphvite::walk_band_kernel).
 5. node2vec node2vec through GraphApplication at the
             config/graph/node2vec_youtube.yaml hyperparameters (p 4, q 2,
             dim 128, SGD lr 0.025 wd 5e-3, K 1, negative_weight 5, aug 5,
@@ -379,14 +393,17 @@ Phases, in order (any failure exits non-zero and prints no result line):
             of one more batch of each graph config.
 21. summary the card line, the kernels line (every kernel's launches by
             path, with the walk chain's kernel once a batch's sample on the
-            first-order walk routes: every measured walk-route call above
-            checks that count), and the result line.
+            first-order walk routes and the band's once a micro-step on
+            the banded SGD walk steps: every measured walk-route call
+            above checks those counts, the band's read from a recording
+            session around the call), and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
 import concurrent.futures
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -462,6 +479,29 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+def queued_ms(launch, n=20, reps=5):
+    """Device ms of one of `n` launches in a row, the median of `reps`:
+    the card first spins (torch.cuda._sleep) while the host queues them
+    all, so the launches run back to back and the host's pace drops
+    out."""
+    import torch
+
+    launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(n):
+            launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
 def bf16_ulp(x):
     import torch
 
@@ -518,13 +558,37 @@ def wrappers():
     return {fn.__name__: fn for fn in fns}
 
 
+_band_count = None    # the recording session reset_launches() opened
+
+
 def reset_launches():
+    """Set every wrapper's launch count to 0 and open a recording session
+    for read_launches() to read the band kernel's launches from (the
+    graphvite::walk_band_kernel counter: the band's wrapper keeps no count
+    of its own)."""
+    global _band_count
+    from graphvite_tpu_torch.utils import tracing
+
     for fn in wrappers().values():
         fn.launches = 0
+    if _band_count is not None:
+        _band_count[0].__exit__(None, None, None)
+    cm = tracing.recording()
+    _band_count = (cm, cm.__enter__())
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Each wrapper's launches since reset_launches(), and the band
+    kernel's under "walk_band" (the session closed)."""
+    from graphvite_tpu_torch.utils import tracing
+
+    global _band_count
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    cm, session = _band_count
+    _band_count = None
+    cm.__exit__(None, None, None)
+    counts["walk_band"] = session.counters.get(tracing.WALK_BAND_KERNEL, 0)
+    return counts
 
 
 def walk_chain_launches(solver, run):
@@ -539,6 +603,20 @@ def walk_chain_launches(solver, run):
         return 0
     bulk = getattr(solver, "_active_bulk_fn", None)
     return run if bulk is None else run * sampler.num_walk // bulk.lanes
+
+
+def walk_band_launches(solver, run):
+    """The band kernel's launches that a solver's last train() call of
+    `run` batches should show: one a micro-step on the banded walk steps
+    (make_graph_banded_fused_step, make_graph_banded_walk_step) with SGD,
+    none with a moment rule (its per-offset band) or on another step."""
+    step = getattr(solver, "_active_step_fn", None)
+    base = getattr(step, "base", step)
+    if (solver.optimizer.num_moment
+            or not getattr(base, "__qualname__", "").startswith(
+                "make_graph_banded_")):
+        return 0
+    return run * solver._batch_plan()[2]
 
 
 def valid_fraction(solver, probes=8, seed=123):
@@ -657,6 +735,7 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     counts = read_launches()
     launches = counts["scatter_add_"]
     chains = counts["walk_chain"]
+    bands = counts["walk_band"]
 
     run = solver.batch_id
     # at this graph size the loss moves slowly from ln 2 (context rows
@@ -676,6 +755,7 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
            "valid_fraction": vf,
            "valid_pairs_per_s": run * eff * vf / elapsed,
            "launches": launches, "chain_launches": chains,
+           "band_launches": bands,
            "fused_arena": solver._banded_fused,
            "context_rows_touched": touched,
            "loss_first": float(losses[:k].mean()),
@@ -686,9 +766,9 @@ def train_main_path(graph, float_type, batches, batch_size=100000,
     problems = []
     if not rec["fused_arena"]:
         problems.append("the fused arena was not chosen")
-    # kernel 1 once a batch, and the walk chain's kernel once a batch
-    if (launches != run or chains != run
-            or sum(counts.values()) != launches + chains):
+    # kernel 1, the walk chain's kernel and the band's once a batch
+    if (launches != run or chains != run or bands != run
+            or sum(counts.values()) != launches + chains + bands):
         problems.append("kernel launches %r for %d batches" % (counts, run))
     if not rec["losses_finite"]:
         problems.append("losses not finite")
@@ -901,7 +981,9 @@ def node2vec_path(graph, batches, seed):
             and rec["fused_arena"]):
         problems.append("not the biased sampler on the fused arena: %r"
                         % rec)
-    if counts["scatter_add_"] != run or sum(counts.values()) != run:
+    # kernel 1 and the band's once a batch; node2vec's chain is torch's
+    if (counts["scatter_add_"] != run or counts["walk_band"] != run
+            or sum(counts.values()) != 2 * run):
         problems.append("kernel launches %r for %d batches" % (counts, run))
     if not rec["losses_finite"] or not rec["tables_finite"]:
         problems.append("losses or tables not finite")
@@ -1012,6 +1094,7 @@ def walk_layout_path(graph, name, env, batches, seed):
     want = {n: (2 * micro * run if n == "scatter_add_" else 0)
             for n in counts}
     want["walk_chain"] = run
+    want["walk_band"] = walk_band_launches(solver, run)
     if counts != want:
         problems.append("kernel launches %r, want %r" % (counts, want))
     if not rec["losses_finite"]:
@@ -2584,11 +2667,11 @@ MESH_WALK_BATCH = 78720        # per worker: 192 walks of 41 x 10 slots
 MESH_EDGE_RUNS = (("sgd", SGD_FRIENDSTER, 512, {"scatter_add_": 2}),
                   ("adam", ADAM_BLOCKED, 256, {"scatter_update_": 2}))
 MESH_WALK_RUNS = (("sgd", "DeepWalk", SGD_YOUTUBE, 100,
-                   {"scatter_add_": 1, "walk_chain": 1}),
+                   {"scatter_add_": 1, "walk_chain": 1, "walk_band": 1}),
                   ("adam", "DeepWalk", ADAM_FLICKR, 50,
                    {"scatter_update_": 2, "walk_chain": 1}),
                   ("node2vec", "node2vec", SGD_YOUTUBE, 20,
-                   {"scatter_add_": 1}))
+                   {"scatter_add_": 1, "walk_band": 1}))
 MESH_W1_BATCHES = 50
 MESH_CHECK_BATCHES = 2         # per worker, in the sync and traced episodes
 MESH_VIS_EPOCHS = 20           # of the config's 50: a depth cut
@@ -3063,7 +3146,8 @@ def mesh_phase(seed, shared):
     la = rec["launches"]
     if (la["scatter_add_"] != rec["batches"]
             or la["walk_chain"] != rec["batches"]
-            or sum(la.values()) != 2 * rec["batches"]):
+            or la["walk_band"] != rec["batches"]
+            or sum(la.values()) != 3 * rec["batches"]):
         problems.append("walks W 1: %r launches" % la)
     torch.cuda.empty_cache()
 
@@ -3487,7 +3571,8 @@ FORBIDDEN = ("jax", "jaxlib", "graphvite_tpu", "ml_dtypes", "yaml", "pandas")
 # rotate_wikidata5m.yaml's, (e) global negatives at 1,792
 MH_CASES = (("a_edges_sgd", 128, 2, {"scatter_add_": 2}),
             ("b_edges_adam", 32, 2, {"scatter_update_": 2}),
-            ("c_walks_sgd", 10, 1, {"scatter_add_": 1, "walk_chain": 1}),
+            ("c_walks_sgd", 10, 1, {"scatter_add_": 1, "walk_chain": 1,
+                                    "walk_band": 1}),
             ("d_kg_pooled_sgd", 24, 2, {"scatter_add_": 2}),
             ("e_kg_global_sgd", 8, 2, {"scatter_add_": 4}))
 MH_WORKERS = 2
@@ -4177,7 +4262,8 @@ def quality(model="DeepWalk", device=None, classic=False, blocked=False,
             "state_device": s.state["tables"][0].device.type,
             "launches": launches,
             "chain_launches_want": (s.batch_id if model == "DeepWalk"
-                                    and not host else 0)}
+                                    and not host else 0),
+            "band_launches_want": walk_band_launches(s, s.batch_id)}
 
 
 # ---------------------------------------------------------------------------
@@ -4442,6 +4528,10 @@ def quick_start_cli(root, seed):
     if not chains or rec["launches"]["walk_chain"] != chains:
         problems.append("walk chain launched %r in %d batches, want %d"
                         % (rec["launches"], rec["batches"], chains))
+    bands = walk_band_launches(s, s.batch_id)
+    if rec["launches"]["walk_band"] != bands:
+        problems.append("band launched %r in %d batches, want %d"
+                        % (rec["launches"], rec["batches"], bands))
     return rec, problems, trace_and_update_ids(app, cfg, rec)
 
 
@@ -4944,6 +5034,7 @@ def train_opt_in(graph, env, float_type, optimizer, train_kw, batches,
     problems = []
     want = {n: per_batch.get(n, 0) * micro * run for n in counts}
     want["walk_chain"] = walk_chain_launches(solver, run)
+    want["walk_band"] = walk_band_launches(solver, run)
     if counts != want:
         problems.append("kernel launches %r, want %r" % (counts, want))
     if not rec["losses_finite"] or not rec["tables_finite"]:
@@ -5041,7 +5132,8 @@ def replay_band_engine(seed, W=2, dim=32, device="cuda"):
 def opt_in_engine(graph, batches, device=None):
     """(e)'s walks engine: DeepWalk at the deepwalk_youtube.yaml shape with
     two workers on the card (GraphApplication gpus MESH_IDS), bf16 tables,
-    GRAPHVITE_BF16_BAND=1: kernel 1 once per worker-batch."""
+    GRAPHVITE_BF16_BAND=1: kernel 1, the walk chain's and the band's
+    kernels once per worker-batch."""
     import torch
     from graphvite_tpu_torch import GraphApplication
 
@@ -5069,8 +5161,8 @@ def opt_in_engine(graph, batches, device=None):
            "tables_finite": all(bool(torch.isfinite(t.float()).all())
                                 for t in s.state["tables"])}
     problems = []
-    want = {n: (run if n in ("scatter_add_", "walk_chain") else 0)
-            for n in counts}
+    want = {n: (run if n in ("scatter_add_", "walk_chain", "walk_band")
+                else 0) for n in counts}
     if counts != want:
         problems.append("engine launches %r, want %r" % (counts, want))
     if not rec["losses_finite"] or not rec["tables_finite"]:
@@ -5221,6 +5313,156 @@ def walk_chain_phase(seed, graph):
     return out
 
 
+WALK_BAND_CASES = (
+    # name, walks, positions, dim, augmentation (both directions):
+    # deepwalk_youtube's batch and a line_friendster.mesh4 worker-batch's
+    ("deepwalk_youtube", 192, 41, 128, 5),
+    ("line_friendster_worker", 576, 41, 96, 2))
+
+
+def walk_band_phase(seed, graph):
+    """The banded step's positive band kernel (ops/walk_band.py:walk_band,
+    csrc/walk_band.cu), for each of WALK_BAND_CASES: v and c the strided
+    halves of one [B, L1, 2D] tensor, pair flags with walk ends and dead
+    slots; against walk_band_plain on the card (relative gaps of dv, dc
+    and the walks' losses, the counts the same bits); event-timed ms of
+    the wrapper, of the kernel alone (20 launches on preallocated
+    outputs, queued), of the plain version, and of the SGD core through
+    the kernel against the same core with the plain band forced in its
+    place; one walk's time (the kernel at B = 1, the median over 32 draws:
+    a measurement, not a bound); the bound: the larger of the bytes (v, c
+    and the mask read, dv, dc, the counts and sums written, once, at the
+    card's HBM peak) and the latency floor of one launch of the same grid
+    (walk_band.cu's floor_kernel: a load, a warp sum, a barrier and a
+    store a block), not this kernel's own time. Then 20 DeepWalk batches
+    on the graph under a recording session: one
+    graphvite::walk_band_kernel a `step`."""
+    import torch
+    from graphvite_tpu_torch.ops import kernels, steps, walk_band
+    from graphvite_tpu_torch.optim import Optimizer
+    from graphvite_tpu_torch.solver import GraphSolver
+    from graphvite_tpu_torch.utils import tracing
+
+    out, problems = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lib = walk_band._library()
+    vp, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.gv_walk_band_floor.argtypes = [vp, i64, i64, i, i, i, vp, vp]
+    lib.gv_walk_band_floor.restype = i
+
+    def inputs(B, L1, D, offs):
+        rows = torch.randn((B, L1, 2 * D), generator=gen, device="cuda") \
+            * (1.5 / D ** 0.5)
+        mask = (torch.rand((B, L1, len(offs)), generator=gen,
+                           device="cuda") > 0.05).float()
+        for t, off in enumerate(offs):
+            if off > 0:
+                mask[:, L1 - off:, t] = 0
+            else:
+                mask[:, :-off, t] = 0
+        return rows[..., :D], rows[..., D:], mask
+
+    def gap(a, b):
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / torch.linalg.vector_norm(b.double()))
+
+    for name, B, L1, D, aug in WALK_BAND_CASES:
+        offs = tuple(steps.walk_offsets(aug, True))
+        T = len(offs)
+        v, c, mask = inputs(B, L1, D, offs)
+        wd = SGD_YOUTUBE["weight_decay"]
+        args = (v, c, mask, offs, wd, wd * 6.0)
+        with tracing.recording() as rec:
+            got = walk_band.walk_band(*args)
+        launches = rec.summary()["counters"].get(tracing.WALK_BAND_KERNEL, 0)
+        want = walk_band.walk_band_plain(*args)
+        torch.cuda.synchronize()
+        gaps = {"dv": gap(got[0], want[0]), "dc": gap(got[1], want[1]),
+                "loss": gap(got[4][:, 0], want[4][:, 0])}
+        counts_same = (torch.equal(got[2], want[2])
+                       and torch.equal(got[3], want[3])
+                       and torch.equal(got[4][:, 1], want[4][:, 1]))
+        outs = [torch.empty_like(x) for x in got]
+        one = []
+        for _ in range(32):
+            lane = inputs(1, L1, D, offs)
+            o1 = [torch.empty_like(x[:1]) for x in got]
+            one.append(queued_ms(lambda: walk_band._launch(
+                *lane, offs, wd, wd * 6.0, False, *o1), reps=1))
+        floor_out = torch.empty((B, 16), device="cuda")
+
+        def floor():
+            kernels.check_launch(lib, lib.gv_walk_band_floor(
+                v.data_ptr(), v.stride(0), v.stride(1), B, L1, D,
+                floor_out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "walk_band floor")
+        G = steps.graph_pool_groups(B, target_group=max(2048 // (T * L1), 1))
+        core, _ = steps.make_graph_banded_core(
+            Optimizer(**SGD_YOUTUBE), 1, 5.0, aug, True,
+            pool_size=128 if name == "deepwalk_youtube" else 64,
+            pool_groups=G, trust=None if name == "deepwalk_youtube" else 0.25)
+        P = torch.randn((G, 128 if name == "deepwalk_youtube" else 64, D),
+                        generator=gen, device="cuda") * 0.1
+        core_ms = cuda_ms(lambda: core(v, c, P, mask, 0.025))
+        kernel_fn = walk_band.walk_band
+        walk_band.walk_band = walk_band.walk_band_plain
+        try:
+            core_plain_ms = cuda_ms(lambda: core(v, c, P, mask, 0.025),
+                                    reps=5, warmup=1)
+        finally:
+            walk_band.walk_band = kernel_fn
+        nbytes = 4 * B * L1 * (4 * D + T + 2) + 8 * B
+        bytes_ms = bytes_bound(nbytes)[0]
+        floor_ms = queued_ms(floor)
+        rec = {"walks": B, "positions": L1, "dim": D, "offsets": T,
+               "gaps": gaps, "counts_same_bits": counts_same,
+               "launches": launches,
+               "ms": cuda_ms(lambda: walk_band.walk_band(*args)),
+               "kernel_ms": queued_ms(lambda: walk_band._launch(
+                   *args, False, *outs)),
+               "one_walk_ms": statistics.median(one),
+               "plain_ms": cuda_ms(lambda: walk_band.walk_band_plain(*args),
+                                   reps=5, warmup=1),
+               "core_ms": core_ms, "core_plain_band_ms": core_plain_ms,
+               "bytes_bound_ms": bytes_ms, "latency_floor_ms": floor_ms,
+               "bound_ms": max(bytes_ms, floor_ms),
+               "bound_by": ("bytes" if bytes_ms >= floor_ms else
+                            "latency floor (a launch, a load, a warp sum, "
+                            "a barrier, a store a block)"),
+               "library_ms": "none: no PyTorch call computes it"}
+        log("   walk_band %s:" % name, json.dumps(rec))
+        out[name] = rec
+        if (max(gaps.values()) > 1e-6 or not counts_same
+                or launches != 1):
+            problems.append("%s: gaps %r, counts %r, launches %d"
+                            % (name, gaps, counts_same, launches))
+        del v, c, mask, got, want, outs
+        torch.cuda.empty_cache()
+
+    solver = GraphSolver(dim=DIM)
+    solver.build(graph, optimizer=SGD_YOUTUBE, num_negative=1,
+                 batch_size=100000, episode_size=25)
+    eff = solver.effective_batch
+    solver.train(num_epoch=3 * eff / graph.num_edge + 1e-9,
+                 **DEEPWALK_YOUTUBE)
+    with tracing.recording() as rec:
+        solver.train(num_epoch=20 * eff / graph.num_edge + 1e-9,
+                     **DEEPWALK_YOUTUBE)
+    summary = rec.summary()
+    n_steps = summary["spans"][tracing.STEP]["count"]
+    kernels_run = summary["counters"].get(tracing.WALK_BAND_KERNEL, 0)
+    out["deepwalk_call"] = {"batches": solver.batch_id, "steps": n_steps,
+                            "walk_band_kernel": kernels_run}
+    log("   walk_band in a DeepWalk call:", json.dumps(out["deepwalk_call"]))
+    if not kernels_run == n_steps == solver.batch_id > 0:
+        problems.append("DeepWalk call: %r" % out["deepwalk_call"])
+    del solver
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return out
+
+
 def training_launches(results):
     """Each wrapper's launches summed over every run record of the phases
     that train (each dict under a "launches" key, nested records
@@ -5273,7 +5515,8 @@ def main():
     ap.add_argument("--kg-batches", type=int, default=50)
     ap.add_argument("--kg-big-batches", type=int, default=50)
     ap.add_argument("--only", choices=["multihost", "opt_ins",
-                                       "rotate_pool", "walk_chain"],
+                                       "rotate_pool", "walk_chain",
+                                       "walk_band"],
                     help="run the device and build phases and this phase "
                     "alone (its graphs built here; opt_ins after "
                     "row_access), print its record and no result line")
@@ -5310,7 +5553,7 @@ def run(args):
     try:
         from graphvite_tpu_torch.ops import (device_sampler, gather, kernels,
                                              rotate_pool, row_access,
-                                             scatter)
+                                             scatter, walk_band)
     except ImportError as e:
         sys.stderr.write("chip_smoke: run from the root of a checkout of "
                          "the repository (%s)\n" % e)
@@ -5357,7 +5600,7 @@ def run(args):
                     log("   ptxas:", line.strip())
         log("built %d kernels in %.1f s" % (len(paths), secs))
         if sorted(paths) != ["gather_sorted", "rotate_pool", "row_access",
-                             "scatter_add", "scatter_update",
+                             "scatter_add", "scatter_update", "walk_band",
                              "walk_chain"]:
             raise AssertionError("kernels built: %r" % sorted(paths))
         scatter._library("scatter_add")
@@ -5366,6 +5609,7 @@ def run(args):
         row_access._library()
         rotate_pool._library()
         device_sampler._chain_library()
+        walk_band._library()
         return secs
     if not phase("build", build):
         return 1
@@ -5376,6 +5620,11 @@ def run(args):
         return 0 if ok else 1
     if args.only == "walk_chain":
         ok = phase("walk_chain", lambda: walk_chain_phase(
+            args.seed, power_law_graph(YOUTUBE_V, YOUTUBE_E, args.seed)))
+        log(card_line())
+        return 0 if ok else 1
+    if args.only == "walk_band":
+        ok = phase("walk_band", lambda: walk_band_phase(
             args.seed, power_law_graph(YOUTUBE_V, YOUTUBE_E, args.seed)))
         log(card_line())
         return 0 if ok else 1
@@ -5472,6 +5721,9 @@ def run(args):
     phase("main", main_path)
     # the first-order chain's kernel on the same graph
     phase("walk_chain", lambda: walk_chain_phase(args.seed, youtube_graph()))
+    torch.cuda.empty_cache()
+    # the banded step's positive band kernel, and its launches a step
+    phase("walk_band", lambda: walk_band_phase(args.seed, youtube_graph()))
     torch.cuda.empty_cache()
 
     # 5. node2vec at the node2vec_youtube.yaml shape
@@ -5872,7 +6124,7 @@ def run(args):
                                      % (name, q["state_device"]))
             la = q["launches"]
             others = (sum(la.values()) - la["scatter_add_"]
-                      - la["walk_chain"])
+                      - la["walk_chain"] - la["walk_band"])
             if (la["scatter_add_"] != 2 * q["micro_steps"] * q["batches"]
                     or others or q["fused_arena"] or any(q["sweeps"])):
                 raise AssertionError("the small-table route did not launch "
@@ -5882,6 +6134,10 @@ def run(args):
                 raise AssertionError("%s: walk chain launches %d, want %d"
                                      % (name, la["walk_chain"],
                                         q["chain_launches_want"]))
+            if la["walk_band"] != q["band_launches_want"]:
+                raise AssertionError("%s: band launches %d, want %d"
+                                     % (name, la["walk_band"],
+                                        q["band_launches_want"]))
             out[name] = q
         return out
     phase("quality", quality_phase)
@@ -6025,7 +6281,31 @@ def run(args):
                                  ["walk_chain"])
     kc["cli_quick_start"] = results["cli"]["quick_start"]["launches"][
         "walk_chain"]
+    # the band's kernel: once a micro-step on the banded SGD walk steps,
+    # once a worker-batch in the walks engine's SGD runs
+    kb = {"deepwalk_float32": main_rec["band_launches"],
+          "deepwalk_bfloat16": results["main"]["bfloat16"]["band_launches"],
+          "node2vec_float32": (results["node2vec"]["record"]["launches"]
+                               ["walk_band"])}
+    for name, _ in WALK_LAYOUTS:
+        kb["walk_" + name] = results["layouts"][name]["launches"]["walk_band"]
+    for name, rec in results["opt_ins"].items():
+        if rec["launches"]["walk_band"]:
+            kb["opt_ins_" + name] = rec["launches"]["walk_band"]
+        if "engine" in rec:
+            kb["opt_ins_%s_engine" % name] = rec["engine"]["launches"][
+                "walk_band"]
+    for name in ("walks_sgd", "walks_adam", "walks_node2vec", "walks_w1"):
+        kb["mesh_" + name] = mesh[name]["launches"]["walk_band"]
+    kb["multihost_c_walks_sgd"] = (multihost["c_walks_sgd"]["launches"]
+                                   ["walk_band"])
+    for name in ("DeepWalk", "node2vec", "classic"):
+        kb["quality_" + name] = (results["quality"][name]["launches"]
+                                 ["walk_band"])
+    kb["cli_quick_start"] = results["cli"]["quick_start"]["launches"][
+        "walk_band"]
     chain = results["walk_chain"]
+    band = results["walk_band"]
     # the row-access kernels run on the bench's path only: every training
     # phase's runs hold them at 0, and the line shows the sum it read
     trained = training_launches(results)
@@ -6076,7 +6356,21 @@ def run(args):
          "cases": [{"case": name, "walks": c["walks"], "start": c["start"],
                     "ms": c["ms"], "kernel_ms": c["kernel_ms"],
                     "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"]}
-                   for name, c in chain.items()]}]}
+                   for name, c in chain.items()]},
+        # the deepwalk_youtube batch's band; the JAX core is jnp that XLA
+        # fuses, so no TPU kernel is replaced
+        {"name": "walk_band", "route": "cuda",
+         "source": "graphvite_tpu_torch/csrc/walk_band.cu",
+         "replaces": None,
+         "launches": sum(kb.values()), "launches_by_path": kb,
+         **{k: band["deepwalk_youtube"][k]
+            for k in ("ms", "kernel_ms", "plain_ms", "bound_ms",
+                      "library_ms")},
+         "cases": [{"case": name, **{k: c[k] for k in (
+             "walks", "dim", "offsets", "gaps", "ms", "kernel_ms",
+             "one_walk_ms", "plain_ms", "core_ms", "core_plain_band_ms",
+             "latency_floor_ms", "bound_ms", "bound_by")}}
+                   for name, c in band.items() if name != "deepwalk_call"]}]}
     log(json.dumps({"front_end": cases["front_end"]}))
     log(card_line())
     log(json.dumps(kernels_line))

@@ -36,7 +36,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from graphvite_tpu_torch.ops import rotate_pool
+from graphvite_tpu_torch.ops import rotate_pool, walk_band
 from graphvite_tpu_torch.ops.alias import alias_draws, device_sample
 from graphvite_tpu_torch.ops.device_sampler import walk_offsets
 from graphvite_tpu_torch.ops.gather import gather_sorted
@@ -44,6 +44,7 @@ from graphvite_tpu_torch.ops.scatter import (scatter_add_,
                                              scatter_add_sorted_,
                                              scatter_update_,
                                              scatter_update_sorted_)
+from graphvite_tpu_torch.ops.walk_band import walk_shift_fwd
 from graphvite_tpu_torch.optim import Optimizer, apply_row_updates
 from graphvite_tpu_torch.models.visualization import SMOOTH_TERM
 from graphvite_tpu_torch.utils import tracing
@@ -454,18 +455,6 @@ def make_graph_pool_multitail_step(opt: Optimizer, num_negative: int,
     return step
 
 
-def walk_shift_fwd(x, kk):
-    """result[:, i] = x[:, i + kk] along the walk axis (dim 1), zero-padded."""
-    if kk == 0:
-        return x
-    out = torch.zeros_like(x)
-    if kk > 0:
-        out[:, :-kk] = x[:, kk:]
-    else:
-        out[:, -kk:] = x[:, :kk]
-    return out
-
-
 def _pool_ids(neg_state, G, M, device, generator, draws):
     """[G, M] negative-pool ids from the alias tensors `neg_state` (a
     `negatives` span)."""
@@ -493,6 +482,11 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
     loss_sum, n_active, and (moment rules only) v_counts/v_sqs,
     c_counts_main/c_sqs_main, p_counts/p_sqs.
 
+    The positive band (each position's pairs at the walk offsets): on SGD
+    `walk_band` (ops/walk_band.py; one kernel launch on the card); the
+    moment rules, which also need each offset's squares, take it offset
+    by offset here.
+
     GRAPHVITE_BF16_BAND=1 (the reference's experimental switch, read when
     the core is built) rounds each band product v * c_shifted to bf16
     before its float32 row sum, where the caller's `table_bf16` says the
@@ -506,6 +500,8 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
     T = len(offs)
     neg_w = float(negative_weight) * k / M
     bf16_band = os.environ.get("GRAPHVITE_BF16_BAND", "0") == "1"
+    wd = opt.weight_decay
+    head_wd = wd * (1.0 + M * neg_w)
 
     def core(v, c, P, mask, lr, table_bf16=False, pool_mask=None):
         B, L1 = v.shape[0], v.shape[1]
@@ -515,22 +511,38 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
         bg = B // G
         npos = B * L1
         D = v.shape[-1]
-
-        # positive band: per offset, shifted elementwise product
-        gpos_list, csh_list = [], []
-        pos_loss = 0.0
         band_bf16 = bf16_band and table_bf16
-        for t_i, kk in enumerate(offs):
-            csh = walk_shift_fwd(c, kk)
-            prod = v * csh
-            if band_bf16:
-                prod = prod.bfloat16().float()
-            logit = prod.sum(dim=-1)
-            m = mask[..., t_i]
-            gpos_list.append((torch.sigmoid(logit) - 1.0) * m)
-            csh_list.append(csh)
-            pos_loss = pos_loss + (m * F.softplus(-logit)).sum()
-        cnt = mask.sum(dim=-1)                               # [B, L1]
+
+        if opt.num_moment == 0:
+            dv, dc, cnt, cntc, walk_sums = walk_band.walk_band(
+                v, c, mask, offs, wd, head_wd, band_bf16)
+            pos_loss, n_active = walk_sums.sum(dim=0).unbind()
+        else:
+            # positive band: per offset, shifted elementwise product
+            gpos_list, csh_list = [], []
+            pos_loss = 0.0
+            for t_i, kk in enumerate(offs):
+                csh = walk_shift_fwd(c, kk)
+                prod = v * csh
+                if band_bf16:
+                    prod = prod.bfloat16().float()
+                logit = prod.sum(dim=-1)
+                m = mask[..., t_i]
+                gpos_list.append((torch.sigmoid(logit) - 1.0) * m)
+                csh_list.append(csh)
+                pos_loss = pos_loss + (m * F.softplus(-logit)).sum()
+            cnt = mask.sum(dim=-1)                           # [B, L1]
+            n_active = mask.sum()
+            dv = sum(g[..., None] * csh
+                     for g, csh in zip(gpos_list, csh_list))
+            # context side: head i's positive gradient g*v lands at tail
+            # i+kk
+            gv_list = [g[..., None] * v for g in gpos_list]
+            dc_main = sum(walk_shift_fwd(gv, -kk)
+                          for gv, kk in zip(gv_list, offs))
+            cntc = sum(walk_shift_fwd(mask[..., t_i], -kk)
+                       for t_i, kk in enumerate(offs))       # [B, L1]
+            dc = dc_main + wd * cntc[..., None] * c
 
         v4 = v.reshape(G, bg * L1, D)
         neg_logits = torch.bmm(v4, P.transpose(1, 2))        # [G, Pg, M]
@@ -539,23 +551,16 @@ def make_graph_banded_core(opt: Optimizer, num_negative: int,
             gneg_u = gneg_u * pool_mask[:, None, :]
         cnt_g = cnt.reshape(G, bg * L1)
         gneg = gneg_u * cnt_g[..., None]
-        n_active = mask.sum()
         sp = F.softplus(neg_logits)
         if pool_mask is not None:
             sp = sp * pool_mask[:, None, :]
         neg_loss = (cnt_g * (neg_w * sp.sum(dim=-1))).sum()
 
-        wd = opt.weight_decay
-        dv = sum(g[..., None] * csh for g, csh in zip(gpos_list, csh_list))
-        dv = (dv + torch.bmm(gneg, P).reshape(B, L1, D)
-              + (wd * (1.0 + M * neg_w)) * cnt[..., None] * v)
-        # context side: head i's positive gradient g*v lands at tail i+kk
-        gv_list = [g[..., None] * v for g in gpos_list]
-        dc_main = sum(walk_shift_fwd(gv, -kk)
-                      for gv, kk in zip(gv_list, offs))
-        cntc = sum(walk_shift_fwd(mask[..., t_i], -kk)
-                   for t_i, kk in enumerate(offs))           # [B, L1]
-        dc = dc_main + wd * cntc[..., None] * c
+        if opt.num_moment == 0:
+            dv.view(G, bg * L1, D).baddbmm_(gneg, P)
+        else:
+            dv = (dv + torch.bmm(gneg, P).reshape(B, L1, D)
+                  + head_wd * cnt[..., None] * v)
         dP = (torch.bmm(gneg.transpose(1, 2), v4)
               + wd * (neg_w * bg * L1 * T) * P)
         if trust is not None:

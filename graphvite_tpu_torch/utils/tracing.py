@@ -69,6 +69,9 @@ VALID_PAIRS = PREFIX + "valid_pairs"
 # launches of the first-order walk chain's kernel (ops/device_sampler.py:
 # walk_chain), one a `sample` on the card's walk routes
 WALK_CHAIN_KERNEL = PREFIX + "walk_chain_kernel"
+# launches of the banded step's positive band kernel (ops/walk_band.py:
+# walk_band), one a `step` on the card's SGD walk routes
+WALK_BAND_KERNEL = PREFIX + "walk_band_kernel"
 # the walks engine's row requests to their owners, and those dropped past
 # an owner's capacity
 ROW_REQUESTS = PREFIX + "row_requests"

@@ -26,7 +26,11 @@ moduli, E and B sums within 1e-5 of the sum of their terms' bound (|z| <=
 gn, |z|^2 <= gn^2), and two calls the same bits; the whole step through
 them within the CPU tests' tolerances. The first-order walk chain's
 kernel (ops/device_sampler.py:walk_chain) against its plain version: the
-same bits, and a DeepWalk run through it the same tables and losses."""
+same bits, and a DeepWalk run through it the same tables and losses. The
+banded step's positive band kernel (ops/walk_band.py:walk_band) against
+its plain version: dv, dc and the walks' losses within a relative gap
+(norm) of 1e-6, the logits' sums over the columns running in another
+order; the counts the same bits."""
 import dataclasses
 
 import numpy as np
@@ -2117,3 +2121,114 @@ def test_deepwalk_episode_with_chain_kernel_is_bit_identical(monkeypatch):
     (tables, losses), (tables_p, losses_p) = out
     assert all(torch.equal(a, b) for a, b in zip(tables, tables_p))
     assert torch.equal(losses, losses_p)
+
+
+def _band_inputs(dev, B, L1, D, T, seed):
+    """v and c the strided halves of one [B, L1, 2D] tensor (logits of
+    a few units), and pair flags with walk ends and dead slots."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randn((B, L1, 2 * D), generator=gen, device=dev) \
+        * (1.5 / D ** 0.5)
+    mask = (torch.rand((B, L1, T), generator=gen, device=dev) > 0.1).float()
+    for t, off in enumerate(steps.walk_offsets(T // 2, True)):
+        if off > 0:
+            mask[:, L1 - off:, t] = 0
+        else:
+            mask[:, :-off, t] = 0
+    return rows[..., :D], rows[..., D:], mask
+
+
+def _gap(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L1,D,T,bf16_band", [
+    (192, 41, 128, 10, False),    # deepwalk_youtube's batch
+    (576, 41, 96, 4, False),      # a line_friendster.mesh4 worker-batch
+    (192, 41, 128, 10, True),     # GRAPHVITE_BF16_BAND
+    (64, 41, 512, 10, False),     # rows past 48 KB: the larger limit
+])
+def test_walk_band_kernel_matches_plain_version(B, L1, D, T, bf16_band):
+    """The band's kernel (ops/walk_band.py, csrc/walk_band.cu) against
+    walk_band_plain on the card: dv, dc and each walk's loss within a
+    relative gap (norm) of 1e-6 (the logits' sums over the columns run
+    in another order), cnt, cntc and each walk's pair count the same
+    bits, two launches the same bits; one launch, counted, a call."""
+    from graphvite_tpu_torch.ops import walk_band
+    from graphvite_tpu_torch.utils import tracing
+
+    dev = _cuda()
+    v, c, mask = _band_inputs(dev, B, L1, D, T, seed=B + D)
+    if bf16_band:
+        v, c = v.bfloat16().float(), c.bfloat16().float()
+    offs = steps.walk_offsets(T // 2, True)
+    args = (v, c, mask, offs, 0.005, 0.005 * 6.0, bf16_band)
+    with tracing.recording() as rec:
+        got = walk_band.walk_band(*args)
+        again = walk_band.walk_band(*args)
+    torch.cuda.synchronize()
+    assert rec.summary()["counters"][tracing.WALK_BAND_KERNEL] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    dv, dc, cnt, cntc, sums = got
+    p_dv, p_dc, p_cnt, p_cntc, p_sums = walk_band.walk_band_plain(*args)
+    assert dv.shape == dc.shape == (B, L1, D) and sums.shape == (B, 2)
+    assert _gap(dv, p_dv) <= 1e-6 and _gap(dc, p_dc) <= 1e-6
+    assert _gap(sums[:, 0], p_sums[:, 0]) <= 1e-6
+    assert torch.equal(cnt, p_cnt) and torch.equal(cntc, p_cntc)
+    assert torch.equal(sums[:, 1], p_sums[:, 1])
+
+
+@pytest.mark.cuda
+def test_walk_band_kernel_refuses():
+    """On the card the wrapper raises on inputs the kernel does not take,
+    and a launch the card refuses (a walk's rows past a block's shared
+    memory, D 1024 at L1 41) raises too, counts nothing and leaves no
+    error behind: nothing falls back."""
+    from graphvite_tpu_torch.ops import walk_band
+    from graphvite_tpu_torch.utils import tracing
+
+    dev = _cuda()
+    v, c, mask = _band_inputs(dev, 8, 41, 1024, 4, seed=0)
+    offs = steps.walk_offsets(2, True)
+    with pytest.raises(ValueError):
+        walk_band.walk_band(v, c, mask.transpose(0, 1).contiguous()
+                            .transpose(0, 1), offs, 0.0, 0.0)
+    with tracing.recording() as rec:
+        with pytest.raises(RuntimeError,
+                           match="walk_band kernel launch failed"):
+            walk_band.walk_band(v, c, mask, offs, 0.0, 0.0)
+    assert rec.summary()["counters"].get(tracing.WALK_BAND_KERNEL, 0) == 0
+    got = walk_band.walk_band(v[..., :128], c[..., :128], mask, offs, 0.0,
+                              0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], mask.sum(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["SGD", "Adam"])
+def test_walk_band_kernel_once_a_step_on_sgd(rule):
+    """A DeepWalk run on the card: the band's kernel launches once a
+    `step` span on SGD (graphvite::walk_band_kernel), never on a moment
+    rule, and the losses stay finite."""
+    from graphvite_tpu_torch.graph import Graph
+    from graphvite_tpu_torch.solver import GraphSolver
+    from graphvite_tpu_torch.utils import tracing
+
+    _cuda()
+    s = GraphSolver(dim=32, seed=0)
+    s.build(Graph().load_edge_list(_two_block_edges()),
+            optimizer={"type": rule, "lr": 0.025 if rule == "SGD" else 1e-3,
+                       "weight_decay": 5e-3},
+            num_negative=1, batch_size=2048, episode_size=8)
+    with tracing.recording() as rec:
+        s.train(model="DeepWalk", num_epoch=300, augmentation_step=2,
+                random_walk_length=8, negative_weight=1.0,
+                log_frequency=10**9)
+    summary = rec.summary()
+    n_steps = summary["spans"][tracing.STEP]["count"]
+    assert n_steps == s.batch_id > 8
+    assert summary["counters"].get(tracing.WALK_BAND_KERNEL, 0) == (
+        n_steps if rule == "SGD" else 0)
+    assert bool(torch.isfinite(s.batch_losses).all())
